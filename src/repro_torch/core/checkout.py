@@ -42,23 +42,31 @@ The failure sites of this module (``core.faults``): ``superblock.upload``
 fires in ``Superblock.device()`` before the transfer; ``wave.launch`` after
 planning and upload, before the launch; ``group.pin``/``group.evict`` before
 any pin/evict work; ``serve.transfer`` in ``_WavePart.split`` before the
-device→host copy.  Each leaves the state a retry needs intact.
+device→host copy; ``ingest.append`` and ``migrate.superblock`` before any
+superblock extension or migration work.  Each leaves the state a retry
+needs intact.
 
-Not yet ported: superblock migration (``migrate_superblock``,
-``migrate_groups``) and commit extension of superblocks — they land with the
-write and migration slices (see ROADMAP.md).
+The superblock outlives mutations instead of being re-uploaded: a commit
+wave extends it in place (``refresh_superblocks_after_commit`` →
+``extend_superblock_after_commit`` → ONE ``segment_append`` launch), and a
+migration morphs it in place (``migrate_superblock``/``migrate_groups`` →
+ONE ``segment_move`` launch).  Both reuse the old device copy tile by tile
+and upload only the changed BN-row tiles; the host mirror is rebuilt in
+full beside it.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import logging
+import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..kernels import ops as K
+from ..kernels.build import KernelError
 from ..kernels.checkout_batched import plan_batched
 from ..kernels.checkout_gather import DEFAULT_BD, DEFAULT_BN
 from .faults import fault_point
@@ -926,6 +934,89 @@ def get_superblock_groups(store, *, budget: Optional[int] = None,
     return mgr
 
 
+def take_group_superblocks(store) -> list[Superblock]:
+    """Detach every pinned group superblock (device copies intact) ahead of
+    a migration — ``migrate_groups`` replays them under the new layout."""
+    mgr = getattr(store, "_superblock_groups", None)
+    return mgr.take_all() if mgr is not None else []
+
+
+def migrate_groups(store, plan, taken: Sequence[Superblock], *,
+                   use_kernel: Optional[bool] = None) -> int:
+    """Per-group epoch-bump migration: re-pin each detached pre-migration
+    group superblock under the NEW layout instead of nuking the cache.
+
+    Each old group's partitions map through ``plan.matched_old`` to the new
+    partitions that morphed out of them; the group superblock migrates
+    incrementally (``migrate_superblock(pids=...)`` — device tiles reused,
+    delta-only upload) and re-pins under the budget.  Groups that dissolved
+    (no new partition morphed from them), changed tiling, or no longer fit
+    are evicted (device released).  Returns the migrated-group count."""
+    mgr = getattr(store, "_superblock_groups", None)
+    if mgr is None:
+        for sb in taken:
+            sb._device = None
+        return 0
+    matched = np.asarray(plan.matched_old, np.int64)
+    migrated = 0
+    kept: set[tuple] = set()    # groups migrated THIS call are protected:
+    # installing a later group must not LRU-evict an earlier one whose
+    # segment_move work was just paid (hot-order taken first)
+    # Runs POST-COMMIT (store already on the new layout), so a failure here
+    # must degrade, never propagate: each group falls back independently to
+    # lazy rebuild, and the finally guarantees zero leaked device buffers.
+    # A KernelError is the exception: it propagates (the store is already
+    # consistent, every detached group is released by the finally).
+    try:
+        for old_sb in taken:
+            old_pids = set(
+                int(q) for q in (old_sb.pids if old_sb.pids is not None
+                                 else np.arange(len(old_sb.row_offsets))))
+            new_pids = sorted(int(i) for i in np.flatnonzero(matched >= 0)
+                              if int(matched[i]) in old_pids)
+            if not new_pids:
+                old_sb._device = None
+                continue
+            # don't pay segment_move for a group that cannot be kept: every
+            # group pinned during this call is protected, so the fit test is
+            # exactly "does it fit in the remaining budget"
+            est = estimate_superblock_bytes(store, block_n=mgr.block_n,
+                                            block_d=mgr.block_d, pids=new_pids)
+            if mgr.pinned_bytes + est > mgr.budget:
+                old_sb._device = None
+                continue
+            try:
+                new_sb, _ = migrate_superblock(store, old_sb, plan,
+                                               pids=new_pids,
+                                               use_kernel=use_kernel,
+                                               install=False)
+            except KernelError:     # the kernel failed: never absorbed
+                mgr._plan_epoch = -1    # regroup on the next pin()
+                raise
+            except ValueError:      # tiling changed: rebuild on next touch
+                old_sb._device = None
+                continue
+            except Exception:       # transient (injected/allocator): this
+                old_sb._device = None   # group rebuilds lazily, rest proceed
+                logger.warning("group migration failed; falling back to "
+                               "lazy rebuild", exc_info=True)
+                continue
+            old_sb._device = None
+            if mgr.install(new_sb, protected=kept):
+                kept.add(tuple(int(q) for q in np.asarray(new_sb.pids)))
+                migrated += 1
+        try:
+            mgr.plan_groups()       # regroup leftovers around the survivors
+        except Exception:
+            mgr._plan_epoch = -1    # replan on next pin()
+            logger.warning("post-migration regroup failed; deferring to "
+                           "next pin", exc_info=True)
+    finally:
+        for old_sb in taken:        # no device buffer outlives this call
+            old_sb._device = None
+    return migrated
+
+
 # ---------------------------------------------------------------- wave plan --
 
 @dataclasses.dataclass(frozen=True)
@@ -1300,6 +1391,440 @@ def _grouped_wave(store, vids: Sequence[int], mgr: SuperblockGroups, *,
     mgr.straggler_requests += len(stragglers)
     mgr.last_wave = report
     return WaveResult(n=len(vids), parts=parts)
+
+
+# ---------------------------------------------------- superblock migration --
+
+@dataclasses.dataclass
+class MigrationStats:
+    """Accounting for one ``migrate_superblock`` or
+    ``extend_superblock_after_commit`` call."""
+    n_tiles: int                  # BN-row tiles in the NEW superblock
+    reused_tiles: int             # device-to-device copies from the OLD one
+    delta_tiles: int              # tiles shipped over the host link
+    bytes_uploaded: int           # host->device bytes actually transferred
+    bytes_total: int              # what a rebuild-from-scratch would upload
+    used_device: bool             # device path taken (old device copy live)
+    wall_s: float
+
+    @property
+    def reuse_fraction(self) -> float:
+        return self.reused_tiles / self.n_tiles if self.n_tiles else 1.0
+
+
+def _reuse_tiles(sel: np.ndarray, starts: np.ndarray, host: np.ndarray,
+                 old_sb: Superblock, src: np.ndarray, r: int, off: int,
+                 bn: int) -> np.ndarray:
+    """Plan one segment of a new superblock against the old one.
+
+    ``src`` holds, per row of the segment's BN-aligned span, its row in the
+    OLD superblock (-1: not there); ``r`` rows carry data.  Tiles whose rows
+    sit consecutively inside ONE aligned old segment become reused tiles
+    (sel 0, their host mirror rows copied from the old host copy).  Returns
+    the segment-local indices of the remaining tiles, which the caller
+    sources from the host."""
+    t = len(src) // bn
+    # tail-pad continuation: the padding rows of the last tile carry no
+    # data, so extend the final run — the tile qualifies for a run copy
+    # whose trailing reads land in the sliced-off region
+    pad = t * bn - r
+    if pad and r and src[r - 1] >= 0:
+        src[r:] = src[r - 1] + 1 + np.arange(pad)
+    chunks = src.reshape(t, bn)
+    ok = chunks[:, 0] >= 0
+    if bn > 1:
+        ok &= np.all(np.diff(chunks, axis=1) == 1, axis=1)
+    n_old = len(old_sb.bounds)
+    if n_old:
+        s0 = chunks[:, 0]
+        opid = np.clip(np.searchsorted(old_sb.bounds, s0, side="right"),
+                       0, n_old - 1)
+        # the whole BN-row run must stay inside ONE aligned old segment
+        ok &= s0 + bn <= old_sb.bounds[opid]
+    else:
+        ok[:] = False
+    t_base = off // bn
+    ok_idx = np.flatnonzero(ok)
+    if len(ok_idx):
+        # reused tiles: one vectorized numpy gather (python-level work
+        # stays proportional to the caller's delta loop)
+        sel[t_base + ok_idx] = 0
+        starts[t_base + ok_idx] = chunks[ok_idx, 0]
+        src_rows = (chunks[ok_idx, 0][:, None] + np.arange(bn)).reshape(-1)
+        dst_rows = (off + ok_idx[:, None] * bn + np.arange(bn)).reshape(-1)
+        host[dst_rows] = old_sb.host[src_rows]
+    return np.flatnonzero(~ok)
+
+
+def migrate_superblock(store, old_sb: Superblock, plan, *,
+                       use_kernel: Optional[bool] = None,
+                       install: bool = True,
+                       pids: Optional[Sequence[int]] = None
+                       ) -> tuple[Superblock, MigrationStats]:
+    """Incremental superblock migration: reuse the OLD device buffer.
+
+    Called AFTER ``store.apply_migration(plan)`` with the PRE-migration
+    superblock (grab it with ``take_superblock`` before applying).  Builds
+    the post-migration superblock without the naive rebuild's full
+    host→device re-upload.  ``pids`` migrates a partition GROUP instead of
+    the whole store: the new superblock covers exactly those (new)
+    partitions, and rows whose source partition lies outside the old group
+    superblock ride the delta (``install`` is ignored for groups — the
+    group manager owns their pinning via ``SuperblockGroups.install``):
+
+      * every BN-row tile of the new superblock whose rows sit consecutively
+        inside one aligned segment of the OLD superblock is copied
+        device-to-device by ``kernels.ops.segment_move`` (ONE launch for the
+        whole migration) — these tiles never cross the host link again;
+      * only the remaining tiles (rows migration moved across partition
+        boundaries, plus genuinely new rows) are packed into a small delta
+        block and uploaded.
+
+    The host mirror is still assembled in full (one vectorized O(ΣR×D)
+    numpy pass, sourced from the old host copy + delta so it stays
+    bit-identical to the device result).  Returns (new_superblock, stats);
+    ``install`` slots the result into the store's epoch cache (under the old
+    superblock's cache key) so the next wave hits.
+
+    ``use_kernel=None`` resolves to "is the old device buffer live?": if a
+    copy is on the device, dropping it for a full re-upload is exactly the
+    naive cost this path exists to avoid; if none is, there is nothing to
+    reuse and the migration stays host-side."""
+    # fires before any assembly: the old superblock (host + device copy) is
+    # still whole, so callers can degrade to a lazy rebuild-on-next-touch
+    fault_point("migrate.superblock", store)
+    t0 = time.perf_counter()
+    if use_kernel is None:
+        use_kernel = old_sb._device is not None
+    parts = _select_parts(store, pids)
+    plan_idx = list(range(len(parts))) if pids is None \
+        else [int(q) for q in pids]
+    bn, row_offsets, bounds, d, bd, d_pad, total, dtype = _superblock_layout(
+        parts, old_sb.block_n, old_sb.bd)
+    if d != old_sb.d or bd != old_sb.bd or bn != old_sb.block_n:
+        raise ValueError(
+            f"migration changed the superblock tiling (d {old_sb.d}->{d}, "
+            f"bd {old_sb.bd}->{bd}, bn {old_sb.block_n}->{bn}) — rebuild "
+            "with build_superblock instead")
+    n_tiles = total // bn
+    sel = np.ones(n_tiles, np.int32)          # default: delta
+    starts = np.zeros(n_tiles, np.int32)
+    host = np.zeros((total, d_pad), dtype=dtype)
+    delta_rows: list[np.ndarray] = []
+    # old pid -> old superblock segment slot (identity for a whole-store
+    # superblock; source pids OUTSIDE a group superblock become inserts)
+    if old_sb.pids is None:
+        old_slot_map = np.arange(len(old_sb.bounds), dtype=np.int64)
+    else:
+        old_pids = np.asarray(old_sb.pids, np.int64)
+        old_slot_map = np.full(int(old_pids.max()) + 1 if len(old_pids)
+                               else 0, -1, np.int64)
+        old_slot_map[old_pids] = np.arange(len(old_pids))
+
+    for g, (p, off) in enumerate(zip(parts, row_offsets)):
+        i = plan_idx[g]
+        r = p.block.shape[0]
+        t = int((bounds[g] - off) // bn)
+        if t == 0:
+            continue
+        # per-row source position in the OLD superblock (-1 = not there)
+        src = np.full(t * bn, -1, np.int64)
+        spid = np.asarray(plan.src_pid_rows[i])
+        sloc = np.asarray(plan.src_loc_rows[i])
+        sslot = np.full(len(spid), -1, np.int64)
+        in_map = (spid >= 0) & (spid < len(old_slot_map))
+        sslot[in_map] = old_slot_map[spid[in_map]]
+        hit = sslot >= 0
+        if hit.any():
+            src[:r][hit] = old_sb.row_offsets[sslot[hit]] + sloc[hit]
+        t_base = int(off) // bn
+        for k in _reuse_tiles(sel, starts, host, old_sb, src, r, int(off),
+                              bn):
+            dst = slice(int(off) + k * bn, int(off) + (k + 1) * bn)
+            rows = np.zeros((bn, d_pad), dtype=dtype)
+            lo = int(k) * bn
+            valid = min(bn, r - lo) if r > lo else 0
+            if valid > 0:
+                rows[:valid, :d] = p.block[lo:lo + valid]
+            starts[t_base + k] = len(delta_rows) * bn
+            delta_rows.append(rows)
+            host[dst] = rows
+
+    delta = np.concatenate(delta_rows, axis=0) if delta_rows else None
+    reused = int((sel == 0).sum())
+    new_sb = Superblock(host=host, row_offsets=row_offsets, bounds=bounds,
+                        d=d, bd=bd, block_n=bn,
+                        epoch=int(getattr(store, "epoch", 0)),
+                        target=_store_device(store),
+                        pids=None if pids is None
+                        else np.asarray(plan_idx, np.int64))
+    used_device, bytes_uploaded = _assemble_on_device(
+        new_sb, old_sb, delta, sel, starts, use_kernel, K.segment_move)
+    if install and pids is None:
+        key = getattr(old_sb, "cache_key", None) or (None, None)
+        new_sb.cache_key = key
+        cache = getattr(store, "_superblock_cache", None)
+        if cache is None:
+            cache = {}
+            try:
+                store._superblock_cache = cache
+            except AttributeError:
+                cache = None
+        if cache is not None:
+            cache[key] = new_sb
+    stats = MigrationStats(
+        n_tiles=n_tiles, reused_tiles=reused, delta_tiles=n_tiles - reused,
+        bytes_uploaded=bytes_uploaded, bytes_total=int(host.nbytes),
+        used_device=used_device, wall_s=time.perf_counter() - t0)
+    return new_sb, stats
+
+
+def _assemble_on_device(new_sb: Superblock, old_sb: Superblock,
+                        delta: Optional[np.ndarray], sel: np.ndarray,
+                        starts: np.ndarray, use_kernel: bool,
+                        kernel) -> tuple[bool, int]:
+    """The device half of a migration or commit extension: when the old
+    superblock is on the device (and the kernel tier is asked for), ONE
+    segment kernel launch assembles the new device copy from the old one
+    plus the uploaded delta.  Returns (used_device, bytes_uploaded)."""
+    if not (use_kernel and old_sb._device is not None):
+        return False, 0
+    new_sb._device = kernel(old_sb._device, delta, sel, starts,
+                            block_n=new_sb.block_n, block_d=new_sb.bd)
+    bytes_uploaded = 0 if delta is None else int(delta.nbytes)
+    new_sb.uploads = 1 if bytes_uploaded else 0
+    return True, bytes_uploaded
+
+
+# ------------------------------------- commit ingestion: in-place append --
+
+def extend_superblock_after_commit(store, old_sb: Superblock,
+                                   touched_old_grids: dict, *,
+                                   pids: Optional[Sequence[int]] = None,
+                                   use_kernel: Optional[bool] = None
+                                   ) -> tuple[Superblock, MigrationStats]:
+    """Grow a superblock IN PLACE after a commit wave: reuse the OLD device
+    buffer, upload only the new BN-aligned tiles.
+
+    Called AFTER ``commit_version``/``commit_many`` swapped the store, with
+    the PRE-commit superblock and ``touched_old_grids`` — the pre-commit
+    ``grids`` array per touched partition SLOT (``store.partitions``
+    index).  Commits only GROW partitions (existing rows keep their grids;
+    new rids interleave into the sorted grid set), so every post-commit row
+    either maps to an old superblock row (searchsorted against the old
+    grids) or is new:
+
+      * BN-row tiles whose rows sit consecutively inside one aligned old
+        segment are device-to-device copies (``kernels.ops.segment_append``
+        sel 0 — untouched partitions reuse ALL their tiles);
+      * tiles holding any new/shifted row ride a small host delta (sel 1 —
+        the only bytes a commit wave sends over the link);
+      * freshly aligned all-pad tiles zero-fill on device (sel 2 — no
+        upload, no source read).
+
+    ``pids`` selects a partition GROUP (the new superblock covers those
+    slots); None extends a whole-store superblock — a commit that opened a
+    brand-new partition appends it as an all-delta segment.  Raises
+    ValueError when the commit changed the tiling (d/bd/bn) — callers
+    degrade to eviction + lazy rebuild.  Returns (new_sb, stats)."""
+    # fires before ANY work — the old superblock (host + device copy) and
+    # the group manager's accounting are untouched, so the caller degrades
+    # to evicting just this group
+    fault_point("ingest.append", store)
+    t0 = time.perf_counter()
+    parts_idx = (list(range(len(store.partitions))) if pids is None
+                 else [int(q) for q in pids])
+    parts = [store.partitions[q] for q in parts_idx]
+    bn, row_offsets, bounds, d, bd, d_pad, total, dtype = _superblock_layout(
+        parts, old_sb.block_n, old_sb.bd)
+    if d != old_sb.d or bd != old_sb.bd or bn != old_sb.block_n:
+        raise ValueError(
+            f"commit changed the superblock tiling (d {old_sb.d}->{d}, "
+            f"bd {old_sb.bd}->{bd}, bn {old_sb.block_n}->{bn}) — rebuild "
+            "with build_superblock instead")
+    n_tiles = total // bn
+    sel = np.ones(n_tiles, np.int32)          # default: delta
+    starts = np.zeros(n_tiles, np.int32)
+    host = np.zeros((total, d_pad), dtype=dtype)
+    delta_rows: list[np.ndarray] = []
+    n_old_seg = len(old_sb.row_offsets)
+    for g, (p, off) in enumerate(zip(parts, row_offsets)):
+        q = parts_idx[g]
+        r = p.block.shape[0]
+        t = int((bounds[g] - off) // bn)
+        if t == 0:
+            continue
+        # per-row source position in the OLD superblock (-1 = new row)
+        src = np.full(t * bn, -1, np.int64)
+        if g < n_old_seg:
+            old_off = int(old_sb.row_offsets[g])
+            if q not in touched_old_grids:
+                # untouched partition: identical block, identity mapping
+                src[:r] = old_off + np.arange(r)
+            else:
+                og = np.asarray(touched_old_grids[q], np.int64)
+                if len(og):
+                    pos = np.clip(np.searchsorted(og, p.grids), 0,
+                                  len(og) - 1)
+                    hit = og[pos] == p.grids
+                    src[:r][hit] = old_off + pos[hit]
+        t_base = int(off) // bn
+        for k in _reuse_tiles(sel, starts, host, old_sb, src, r, int(off),
+                              bn):
+            lo = int(k) * bn
+            valid = min(bn, r - lo) if r > lo else 0
+            if valid <= 0:
+                sel[t_base + k] = 2     # alignment slack: zero-fill on
+                continue                # device, upload nothing
+            rows = np.zeros((bn, d_pad), dtype=dtype)
+            rows[:valid, :d] = p.block[lo:lo + valid]
+            starts[t_base + k] = len(delta_rows) * bn
+            delta_rows.append(rows)
+            host[int(off) + lo:int(off) + lo + bn] = rows
+
+    delta = np.concatenate(delta_rows, axis=0) if delta_rows else None
+    new_sb = Superblock(host=host, row_offsets=row_offsets, bounds=bounds,
+                        d=d, bd=bd, block_n=bn,
+                        epoch=int(getattr(store, "epoch", 0)),
+                        target=_store_device(store),
+                        pids=None if pids is None
+                        else np.asarray(parts_idx, np.int64))
+    used_device, bytes_uploaded = _assemble_on_device(
+        new_sb, old_sb, delta, sel, starts,
+        True if use_kernel is None else use_kernel, K.segment_append)
+    stats = MigrationStats(
+        n_tiles=n_tiles, reused_tiles=int((sel == 0).sum()),
+        delta_tiles=int((sel == 1).sum()), bytes_uploaded=bytes_uploaded,
+        bytes_total=int(host.nbytes), used_device=used_device,
+        wall_s=time.perf_counter() - t0)
+    return new_sb, stats
+
+
+def refresh_superblocks_after_commit(store, touched_old_grids: dict, *,
+                                     extend: bool = True,
+                                     use_kernel: Optional[bool] = None
+                                     ) -> dict:
+    """Targeted post-commit superblock maintenance — the commit path's
+    replacement for ``evict_superblocks``'s nuke-everything.
+
+    ``touched_old_grids`` maps each partition SLOT the commit grew to its
+    PRE-commit ``grids``.  Policy, per cached superblock:
+
+      * a pinned group whose partitions the commit did NOT touch is
+        revalidated at the new epoch in place — zero work, zero upload
+        (commits only grow the receiving partitions; untouched slots keep
+        their exact blocks), so cold groups STAY pinned;
+      * a touched superblock (group or whole-store) is extended in place
+        via ``extend_superblock_after_commit`` — only the new BN-aligned
+        tiles cross the host link; on any failure (tiling change, budget,
+        injected ``ingest.append`` fault) THAT superblock alone degrades
+        to eviction + lazy rebuild — except a ``KernelError`` (the kernel
+        did not build, launch or take its plan), which evicts the
+        superblock and propagates;
+      * genuinely stale entries (pre-dating the commit's epoch) are
+        evicted as before.
+
+    Callers (``commit_version``/``commit_many``) wrap it in a
+    warn-and-continue guard.  Returns a report dict: revalidated/extended/
+    evicted counts plus the wave's bytes_uploaded and delta_tiles."""
+    report = {"revalidated": 0, "extended": 0, "evicted": 0,
+              "bytes_uploaded": 0, "delta_tiles": 0}
+    epoch = int(getattr(store, "epoch", 0))
+    touched = set(int(s) for s in touched_old_grids)
+
+    def extended(st: MigrationStats) -> None:
+        report["extended"] += 1
+        report["bytes_uploaded"] += st.bytes_uploaded
+        report["delta_tiles"] += st.delta_tiles
+
+    cache = getattr(store, "_superblock_cache", None)
+    evicted = 0
+    if cache:
+        for ck in list(cache):
+            sb = cache[ck]
+            if sb.epoch == epoch - 1 and extend:
+                try:
+                    new_sb, st = extend_superblock_after_commit(
+                        store, sb, touched_old_grids,
+                        use_kernel=use_kernel)
+                except Exception as exc:
+                    cache.pop(ck)._device = None
+                    if isinstance(exc, KernelError):
+                        raise   # a kernel fault is never absorbed
+                    evicted += 1
+                    logger.warning(
+                        "in-place superblock append failed; whole-store "
+                        "copy rebuilds lazily", exc_info=True)
+                    continue
+                new_sb.cache_key = ck
+                cache[ck] = new_sb
+                sb._device = None
+                extended(st)
+            else:
+                cache.pop(ck)._device = None
+                evicted += 1
+    if evicted:
+        try:
+            store._superblock_evictions = \
+                getattr(store, "_superblock_evictions", 0) + evicted
+        except AttributeError:
+            pass
+        report["evicted"] += evicted
+    mgr = getattr(store, "_superblock_groups", None)
+    if mgr is None:
+        return report
+    kept: set[tuple] = set(
+        k for k, sb in mgr.groups.items() if sb.epoch == epoch - 1)
+    for key in list(mgr.groups):
+        sb = mgr.groups.get(key)
+        if sb is None:          # a _make_room below already evicted it
+            kept.discard(key)
+            continue
+        if sb.epoch != epoch - 1:
+            mgr._evict(key)
+            report["evicted"] += 1
+            continue
+        if not (set(key) & touched):
+            # cold group: no member grew, its bytes are still exact —
+            # revalidate at the new epoch, zero work, stays pinned
+            sb.epoch = epoch
+            report["revalidated"] += 1
+            continue
+        if not extend:
+            kept.discard(key)
+            mgr._evict(key)
+            report["evicted"] += 1
+            continue
+        try:
+            need = estimate_superblock_bytes(
+                store, block_n=mgr.block_n, block_d=mgr.block_d, pids=key)
+            grow = need - int(sb.host.nbytes)
+            if grow > 0 and not mgr._make_room(grow, protected=kept):
+                raise ValueError(
+                    f"grown group {key} no longer fits the budget")
+            new_sb, st = extend_superblock_after_commit(
+                store, sb, touched_old_grids, pids=key,
+                use_kernel=use_kernel)
+        except Exception as exc:
+            kept.discard(key)
+            if key in mgr.groups:
+                mgr._evict(key)
+            if isinstance(exc, KernelError):
+                raise           # a kernel fault is never absorbed
+            report["evicted"] += 1
+            logger.warning("in-place group superblock append failed; "
+                           "group rebuilds lazily on next touch",
+                           exc_info=True)
+            continue
+        # swap in place: len(groups) unchanged, so pins - evictions still
+        # equals the pinned-group count; LRU position is preserved
+        new_sb.cache_key = key
+        mgr.groups[key] = new_sb
+        mgr.group_bytes[key] = int(new_sb.host.nbytes)
+        mgr.pinned_bytes += int(new_sb.host.nbytes) - int(sb.host.nbytes)
+        sb._device = None
+        extended(st)
+    return report
 
 
 # ------------------------------------------------------------- entry points --

@@ -1,18 +1,208 @@
-"""Online maintenance: the hot-set ranking the partition-group superblock
-former consumes.
+"""Online maintenance + migration engine (paper §4.3, Figs 14-15).
 
-Only ``HotSetPolicy`` is ported so far; the density-triggered
-repartitioning loop (``RepartitionTrigger``) and the online partitioner
-land with the migration slice (ROADMAP A.6).
+Online rule, per newly committed version v with parent p in partition P_k:
+  * if w(p, v) ≤ δ*·|R|  AND  S < γ   -> create a new partition for v
+  * else                              -> append v to P_k
+where δ* is the δ of the last LYRESPLIT invocation.
+
+Divergence control: LYRESPLIT is cheap enough to run at every commit; when
+C_avg / C*_avg > μ the migration engine rebuilds toward the LYRESPLIT
+partitioning — intelligently (morph the closest existing partition, matching
+computed on the *version graph*, not the record sets) or naively (from
+scratch).  Migration cost is counted in record-row insertions + deletions,
+the unit the paper's Figs 14b/15b wall times are proportional to
+(``OnlinePartitioner``, ``replay``: pure numpy).
+
+On the live store: ``HotSetPolicy`` ranks partitions for the group
+superblock former, and ``RepartitionTrigger`` closes the telemetry loop —
+sustained low-density waves -> LYRESPLIT -> ``plan_migration`` ->
+``apply_migration`` -> ``migrate_superblock`` (ONE ``segment_move`` launch
+on the card).  The trigger's state (density streak, debounce) is in memory
+only; the migrations it fires go through ``PartitionedCVD.apply_migration``.
 """
 from __future__ import annotations
 
+import dataclasses
+import logging
+import time
 from typing import Optional
 
 import numpy as np
 
-from .checkout import get_density_stats
+from ..kernels.build import KernelError
+from .checkout import (get_density_stats, migrate_superblock,
+                       reinstall_superblock, take_superblock)
+from .faults import fault_point, read_leases
+from .graph import BipartiteGraph
+from .lyresplit import lyresplit_for_budget
+from .partition import plan_migration
+from .version_graph import WeightedTree
 
+logger = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class MigrationEvent:
+    at_version: int
+    cost_intelligent: int     # record rows inserted+deleted (morphing)
+    cost_naive: int           # record rows written (rebuild from scratch)
+    wall_s: float
+    n_partitions_before: int
+    n_partitions_after: int
+
+
+@dataclasses.dataclass
+class OnlineTrace:
+    c_avg: list[float]                  # current cost after each commit
+    c_star: list[float]                 # LYRESPLIT-best cost after each commit
+    migrations: list[MigrationEvent]
+    s_cost: list[int]
+
+
+class OnlinePartitioner:
+    """Streams versions in; maintains an assignment + partition record sets."""
+
+    def __init__(self, gamma_factor: float = 2.0, mu: float = 1.5,
+                 run_lyresplit_every: int = 1):
+        self.gamma_factor = gamma_factor
+        self.mu = mu
+        self.every = run_lyresplit_every
+        # state
+        self.parent = np.zeros(0, np.int64)
+        self.sizes = np.zeros(0, np.int64)
+        self.edge_w = np.zeros(0, np.int64)
+        self.assignment = np.zeros(0, np.int64)
+        self.part_records: list[int] = []          # |R_k| per partition (estimate)
+        self.part_versions: list[int] = []
+        self.delta_star = 0.5
+        self.total_records = 0                     # |R|
+        self.trace = OnlineTrace([], [], [], [])
+
+    # -- helpers -------------------------------------------------------------
+    def _tree(self) -> WeightedTree:
+        return WeightedTree(parent=self.parent.copy(), n_records=self.sizes.copy(),
+                            edge_w=self.edge_w.copy())
+
+    def _storage(self) -> int:
+        return int(sum(self.part_records))
+
+    def _checkout_cost(self) -> float:
+        n = len(self.parent)
+        if n == 0:
+            return 0.0
+        tot = sum(v * r for v, r in zip(self.part_versions, self.part_records))
+        return tot / n
+
+    # -- the §4.3 protocol ------------------------------------------------------
+    def commit(self, parent: int, size: int, shared_with_parent: int) -> int:
+        """Register version; returns its vid.  ``shared_with_parent`` is
+        w(p, v); ``size`` is |R(v)|."""
+        vid = len(self.parent)
+        self.parent = np.append(self.parent, parent)
+        self.sizes = np.append(self.sizes, size)
+        self.edge_w = np.append(self.edge_w, shared_with_parent)
+        self.total_records += size - (shared_with_parent if parent >= 0 else 0)
+        gamma = self.gamma_factor * self.total_records
+
+        if parent < 0:
+            pid = len(self.part_records)
+            self.assignment = np.append(self.assignment, pid)
+            self.part_records.append(size)
+            self.part_versions.append(1)
+        else:
+            new_part = (shared_with_parent <= self.delta_star * self.total_records
+                        and self._storage() + size <= gamma)
+            if new_part:
+                pid = len(self.part_records)
+                self.assignment = np.append(self.assignment, pid)
+                self.part_records.append(size)
+                self.part_versions.append(1)
+            else:
+                pid = int(self.assignment[parent])
+                self.assignment = np.append(self.assignment, pid)
+                # new rows in this partition = records not shared with parent
+                self.part_records[pid] += size - shared_with_parent
+                self.part_versions[pid] += 1
+
+        # track divergence vs a fresh LYRESPLIT
+        if vid % self.every == 0 and vid > 0:
+            sr = lyresplit_for_budget(self._tree(), gamma, max_iters=12)
+            self.delta_star = sr.best.delta
+            c_star = sr.best.est_checkout
+            c_now = self._checkout_cost()
+            self.trace.c_avg.append(c_now)
+            self.trace.c_star.append(c_star)
+            self.trace.s_cost.append(self._storage())
+            if c_star > 0 and c_now / c_star > self.mu:
+                self._migrate(sr.best.assignment, vid)
+        return vid
+
+    # -- migration engine ---------------------------------------------------------
+    def _part_sets(self, assignment: np.ndarray) -> list[np.ndarray]:
+        return [np.flatnonzero(assignment == k) for k in np.unique(assignment)]
+
+    def _est_partition_records(self, vids: np.ndarray) -> int:
+        """|R_k| from the version graph only (no record sets): root + Σ(new)."""
+        vs = set(int(v) for v in vids)
+        tot = 0
+        for v in vids:
+            p = int(self.parent[v])
+            if p >= 0 and p in vs:
+                tot += int(self.sizes[v] - self.edge_w[v])
+            else:
+                tot += int(self.sizes[v])   # component root within the partition
+        return tot
+
+    def _common_records(self, old: np.ndarray, new: np.ndarray) -> int:
+        """Records shared between an old and a new partition, computed from the
+        COMMON VERSIONS on the version graph (paper: 'without probing R')."""
+        common = np.intersect1d(old, new)
+        if len(common) == 0:
+            return 0
+        return self._est_partition_records(common)
+
+    def _migrate(self, new_assignment: np.ndarray, at_version: int) -> None:
+        t0 = time.perf_counter()
+        old_sets = self._part_sets(self.assignment)
+        new_sets = self._part_sets(new_assignment)
+        old_R = [self._est_partition_records(s) for s in old_sets]
+        new_R = [self._est_partition_records(s) for s in new_sets]
+
+        # intelligent: greedy closest-pair (smallest modification cost)
+        pairs: list[tuple[int, int, int]] = []
+        for i, ns in enumerate(new_sets):
+            for j, os_ in enumerate(old_sets):
+                c = self._common_records(os_, ns)
+                mod = (new_R[i] - c) + (old_R[j] - c)   # inserts + deletes
+                pairs.append((mod, i, j))
+        pairs.sort()
+        used_new: set[int] = set()
+        used_old: set[int] = set()
+        cost_int = 0
+        for mod, i, j in pairs:
+            if i in used_new or j in used_old:
+                continue
+            # rebuild from scratch if morphing costs more than building
+            cost_int += min(mod, new_R[i])
+            used_new.add(i)
+            used_old.add(j)
+        for i in range(len(new_sets)):
+            if i not in used_new:
+                cost_int += new_R[i]
+        cost_naive = int(sum(new_R))
+
+        self.trace.migrations.append(MigrationEvent(
+            at_version=at_version, cost_intelligent=int(cost_int),
+            cost_naive=cost_naive, wall_s=time.perf_counter() - t0,
+            n_partitions_before=len(old_sets), n_partitions_after=len(new_sets)))
+
+        # adopt the new partitioning
+        self.assignment = new_assignment.copy()
+        self.part_records = list(new_R)
+        self.part_versions = [len(s) for s in new_sets]
+
+
+# -- hot-set extraction --------------------------------------------------------
 
 class HotSetPolicy:
     """Hot-partition ranking for the partition-group superblock former
@@ -111,3 +301,248 @@ def get_hot_set_policy(store, *, create: bool = False
         except AttributeError:
             return None
     return pol
+
+
+# -- density-triggered online repartitioning ----------------------------------
+
+@dataclasses.dataclass
+class RepartitionReport:
+    """One fired trigger: what it cost and what it bought."""
+    at_wave: int                   # DensityStats.waves when the trigger fired
+    trigger_density: float         # the wave density that tripped it
+    n_partitions_before: int
+    n_partitions_after: int
+    cost_intelligent: int          # MigrationPlan record-row cost (morph)
+    cost_naive: int                # MigrationPlan record-row cost (scratch)
+    c_avg_before: float            # store checkout cost before/after
+    c_avg_after: float
+    superblock: object             # checkout.MigrationStats | None
+    wall_s: float
+
+
+class RepartitionTrigger:
+    """Closes the telemetry loop: sustained low-density (row-copy-dominated)
+    waves -> LYRESPLIT -> incremental migration (§4.3 applied online).
+
+    ``core.checkout.checkout_wave`` records per-wave run density into the
+    store's ``DensityStats``; ``observe()`` — run between DELIVERED serve
+    waves, and gated on no wave being in flight (``store._inflight_waves``,
+    maintained by the serve pipeline) —
+    fires once the low-density streak reaches ``min_waves``, computes a
+    fresh LYRESPLIT partitioning of the version tree under the γ-factor
+    storage budget, and adopts it only when it actually changes the
+    partitioning and improves the estimated checkout cost by
+    ``min_gain``.  Adoption is the intelligent path end to end:
+    ``plan_migration`` -> ``apply_migration`` (morph the blocks in place)
+    -> ``migrate_superblock`` (reuse the old device buffer, upload only
+    the delta).  Firing resets the stats, so re-triggering needs a fresh
+    ``min_waves`` streak under the NEW layout.
+
+    Interplay with the partition-group layer: ``apply_migration`` itself
+    detaches pinned GROUP superblocks first and migrates-or-evicts them
+    per group (``core.checkout.migrate_groups``), and any attached
+    ``HotSetPolicy`` heat is remapped through ``plan.matched_old`` — so a
+    fired trigger keeps an over-budget store's partial fusion warm instead
+    of cold-starting every group.  The per-vid density EWMA is cleared by
+    ``stats.reset()`` (it described the OLD layout); the hot ranking falls
+    back to the remapped touch counters until new waves repopulate it.
+    """
+
+    def __init__(self, store, tree: WeightedTree, *,
+                 gamma_factor: float = 2.0, min_waves: int = 3,
+                 low_density: float = 0.5, min_gain: float = 1.02,
+                 lyresplit_iters: int = 12,
+                 drain_timeout_s: Optional[float] = None,
+                 use_kernel: Optional[bool] = None):
+        self.store = store
+        self.tree = tree
+        # a tree BEHIND the store (commits landed since it was built) is
+        # resynced from the store's commit log; only a tree AHEAD of the
+        # store is unrepairable and raises (inside _resync)
+        self._resync()
+        self.gamma_factor = gamma_factor
+        self.min_waves = min_waves
+        self.min_gain = min_gain
+        self.lyresplit_iters = lyresplit_iters
+        # None (default): observe() REFUSES while waves are in flight (the
+        # single-server contract).  A number: observe() DRAINS the current
+        # epoch's read leases for up to this long before migrating — the
+        # multi-tenant coordinator's mode, where a refusal would starve
+        # the migration forever under an unbroken cross-tenant stream.
+        self.drain_timeout_s = drain_timeout_s
+        self.use_kernel = use_kernel
+        self.reports: list[RepartitionReport] = []
+        stats = get_density_stats(store, create=True)
+        if stats is not None:
+            stats.low_threshold = low_density
+
+    def _resync(self) -> bool:
+        """Extend the weighted tree with versions committed since it was
+        built — a ``commit_version``/``commit_many`` landing between
+        observations must not error the serve flush that armed the
+        trigger.  Lineage (parent, edge weight, record count) comes from
+        the store's commit log (``core.partition._log_commit``); a vid
+        missing from the log (a store rebuilt by hand) degrades to a
+        parentless node with a recomputed record count.  Returns whether
+        anything was added; raises only when the tree is AHEAD of the
+        store, which no resync can repair."""
+        t = self.tree
+        n_store = int(self.store.graph.n_versions)
+        if t.n == n_store:
+            return False
+        if t.n > n_store:
+            raise ValueError(
+                f"tree has {t.n} versions, store has {n_store} — the "
+                "tree is ahead of the store")
+        log = getattr(self.store, "_commit_log", None) or {}
+        parents, weights, sizes = [], [], []
+        for v in range(t.n, n_store):
+            parent, w, size = log.get(v, (-1, 0, -1))
+            if size < 0:
+                size = len(self.store.graph.rlist(v))
+            parents.append(parent)
+            weights.append(w)
+            sizes.append(size)
+        k = len(parents)
+        t.parent = np.concatenate(
+            [t.parent, np.asarray(parents, np.int64)])
+        t.n_records = np.concatenate(
+            [t.n_records, np.asarray(sizes, np.int64)])
+        t.edge_w = np.concatenate(
+            [t.edge_w, np.asarray(weights, np.int64)])
+        if t.n_attrs is not None:
+            t.n_attrs = np.concatenate(
+                [t.n_attrs, np.zeros(k, t.n_attrs.dtype)])
+        if t.edge_attrs is not None:
+            t.edge_attrs = np.concatenate(
+                [t.edge_attrs, np.zeros(k, t.edge_attrs.dtype)])
+        return True
+
+    def should_fire(self) -> bool:
+        stats = get_density_stats(self.store)
+        return stats is not None and stats.low_streak >= self.min_waves
+
+    def observe(self) -> Optional[RepartitionReport]:
+        """Run between DELIVERED waves: repartition if the density signal
+        warrants it.  Returns the report when a migration happened, else
+        None.
+
+        With ``drain_timeout_s=None`` (default) the trigger REFUSES
+        (returns None, streak preserved) while the store carries an
+        in-flight wave marker (``store._inflight_waves`` — maintained by
+        the serve pipeline's per-wave read leases): a migration morphs the
+        partition blocks and swaps the superblock under the epoch bump,
+        which must never race a launched-but-not-yet-delivered kernel.
+        With a timeout set (the multi-tenant coordinator's mode) it
+        DRAINS instead: new lease acquisitions at the current epoch block,
+        in-flight waves deliver against the epoch they planned on, and the
+        migration lands once the epoch's leases hit zero — or defers
+        (returns None, streak preserved) when stragglers outlast the
+        timeout."""
+        # keep the tree current even on non-firing observations: a
+        # commit_version/commit_many landing between waves is folded in
+        # from the commit log (no-op when nothing landed)
+        self._resync()
+        stats = get_density_stats(self.store, create=True)
+        if stats is None or stats.low_streak < self.min_waves:
+            return None
+        reg = (read_leases(self.store, create=False)
+               if self.drain_timeout_s is not None else None)
+        if reg is None:
+            # refusal mode (or an attribute-less store with no registry):
+            # the cheap non-blocking gate, bare-int markers included
+            if int(getattr(self.store, "_inflight_waves", 0) or 0) > 0:
+                return None
+            return self._migrate(stats)
+        with reg.draining(self.store, self.drain_timeout_s) as drained:
+            if not drained:
+                return None     # stragglers outlasted the timeout: defer
+            # out-of-band markers (bare ints tests/ops assign) are not
+            # leases — they still gate even after a clean drain
+            if int(getattr(self.store, "_inflight_waves", 0) or 0) > 0:
+                return None
+            return self._migrate(stats)
+
+    def _migrate(self, stats) -> Optional[RepartitionReport]:
+        """The migration body, past every gate.  A failure from here on
+        leaves the density streak intact, so the next delivered wave
+        simply retries."""
+        fault_point("online.trigger", self.store)
+        t0 = time.perf_counter()
+        self._resync()      # commits may have landed since the last look
+        gamma = self.gamma_factor * self.store.graph.n_records
+        sr = lyresplit_for_budget(self.tree, gamma,
+                                  max_iters=self.lyresplit_iters)
+        new_assignment = sr.best.assignment
+        if _same_partitioning(new_assignment, self.store.assignment):
+            stats.reset()           # nothing to gain at this budget
+            return None
+        c_before = self.store.avg_checkout_cost()
+        if c_before < self.min_gain * max(sr.best.est_checkout, 1e-9):
+            stats.reset()
+            return None
+        at_wave = stats.waves
+        trigger_density = stats.last_wave_density
+        n_before = len(self.store.partitions)
+        plan = plan_migration(self.store, new_assignment)
+        old_sb = take_superblock(self.store)
+        try:
+            self.store.apply_migration(plan)
+        except BaseException:
+            # apply_migration is transactional (stage -> commit): a failure
+            # means the commit never happened and the store is still on the
+            # old layout — put the detached superblock back so the upload
+            # isn't paid twice, and let the caller retry.
+            reinstall_superblock(self.store, old_sb)
+            raise
+        mstats = None
+        if old_sb is not None:
+            try:
+                _, mstats = migrate_superblock(self.store, old_sb, plan,
+                                               use_kernel=self.use_kernel)
+            except Exception as exc:
+                # post-commit, so we cannot roll back — degrade: drop the
+                # stale device copy and let the next wave rebuild lazily;
+                # a kernel fault is never absorbed.
+                old_sb._device = None
+                if isinstance(exc, KernelError):
+                    raise
+                logger.warning("incremental superblock migration failed; "
+                               "falling back to lazy rebuild", exc_info=True)
+        stats.reset()
+        report = RepartitionReport(
+            at_wave=at_wave, trigger_density=trigger_density,
+            n_partitions_before=n_before,
+            n_partitions_after=len(self.store.partitions),
+            cost_intelligent=plan.cost_intelligent,
+            cost_naive=plan.cost_naive,
+            c_avg_before=c_before, c_avg_after=self.store.avg_checkout_cost(),
+            superblock=mstats, wall_s=time.perf_counter() - t0)
+        self.reports.append(report)
+        return report
+
+
+def _same_partitioning(a: np.ndarray, b: np.ndarray) -> bool:
+    """Two assignments induce the same partitioning iff they are equal up to
+    label renaming (canonicalize by first-occurrence order)."""
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape:
+        return False
+
+    def canon(x: np.ndarray) -> np.ndarray:
+        _, first, inv = np.unique(x, return_index=True, return_inverse=True)
+        rank = np.empty(len(first), np.int64)
+        rank[np.argsort(first)] = np.arange(len(first))
+        return rank[inv]
+
+    return bool(np.array_equal(canon(a), canon(b)))
+
+
+def replay(graph: BipartiteGraph, tree: WeightedTree, gamma_factor: float = 2.0,
+           mu: float = 1.5, every: int = 1) -> OnlineTrace:
+    """Stream an existing workload's versions through the online partitioner."""
+    op = OnlinePartitioner(gamma_factor=gamma_factor, mu=mu, run_lyresplit_every=every)
+    sizes = graph.version_sizes()
+    for v in range(graph.n_versions):
+        op.commit(int(tree.parent[v]), int(sizes[v]), int(tree.edge_w[v]))
+    return op.trace

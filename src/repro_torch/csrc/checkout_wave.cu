@@ -21,15 +21,13 @@
 //
 // The kernel copies bytes, so it takes any dtype: row_bytes must be a multiple of 16
 // and both tensors 16-byte aligned (the superblock pads D to a multiple of 128
-// elements).  Plain C entry point, loaded with ctypes; returns cudaGetLastError().
+// elements).  Plain C entry point (csrc/tile_launch.cuh), loaded with ctypes.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tile_launch.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;
+using tile_launch::kThreads;
 
 __global__ void __launch_bounds__(kThreads)
 checkout_wave_kernel(const int4* __restrict__ data, const int32_t* __restrict__ starts,
@@ -55,19 +53,6 @@ checkout_wave_kernel(const int4* __restrict__ data, const int32_t* __restrict__ 
 extern "C" int checkout_wave_launch(const void* data, const void* starts, const void* mode,
                                     const void* hi, void* out, long long n_tiles, int block_n,
                                     long long row_bytes, void* stream) {
-  if (n_tiles <= 0) return 0;
-  if (row_bytes % 16 != 0 || block_n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  int device = 0;
-  int sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long cap = static_cast<long long>(sms) * kBlocksPerSm;
-  const unsigned grid = static_cast<unsigned>(n_tiles < cap ? n_tiles : cap);
-  checkout_wave_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int4*>(data), static_cast<const int32_t*>(starts),
-      static_cast<const int32_t*>(mode), static_cast<const int32_t*>(hi),
-      static_cast<int4*>(out), static_cast<int64_t>(n_tiles), block_n,
-      static_cast<int>(row_bytes / 16));
-  return static_cast<int>(cudaGetLastError());
+  return tile_launch::launch_tiles(checkout_wave_kernel, data, starts, mode, hi, out,
+                                   n_tiles, block_n, row_bytes, stream);
 }

@@ -25,9 +25,7 @@ row gathers instead of reading past a partition segment.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import functools
 
 import numpy as np
 import torch
@@ -212,39 +210,30 @@ def checkout_wave(data: torch.Tensor, starts: torch.Tensor,
     return _launch(data, starts, mode, hi, block_n)
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    """The library's C entry point, built and bound on first use."""
-    fn = build.load("checkout_wave").checkout_wave_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch(data, starts, mode, hi, block_n) -> torch.Tensor:
     global LAUNCHES
     row_bytes = data.shape[1] * data.element_size()
     for name, x in (("data", data), ("starts", starts), ("mode", mode),
                     ("hi", hi)):
         if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+            raise build.PlanError(f"{name} must be contiguous")
     if row_bytes % 16 or data.data_ptr() % 16:
-        raise ValueError(f"rows must be 16-byte multiples and aligned "
-                         f"(row_bytes={row_bytes})")
+        raise build.PlanError(f"rows must be 16-byte multiples and aligned "
+                              f"(row_bytes={row_bytes})")
     t = mode.shape[0]
     out = torch.empty((t * block_n, data.shape[1]), dtype=data.dtype,
                       device=data.device)
     if t == 0:
         return out
-    fn = _kernel_fn()
+    fn = build.kernel_fn("checkout_wave")
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
         err = fn(data.data_ptr(), starts.data_ptr(), mode.data_ptr(),
                  hi.data_ptr(), out.data_ptr(), t, block_n, row_bytes,
                  stream)
     if err:
-        raise RuntimeError(f"checkout_wave launch failed: cudaError {err}")
+        raise build.KernelError(
+            f"checkout_wave launch failed: cudaError {err}")
     LAUNCHES += 1
     return out
 

@@ -10,8 +10,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import build as _build
 from . import checkout_batched as _cb
 from . import checkout_gather as _cg
+from . import segment_append as _sa
+from . import segment_move as _sm
 
 
 def _on_cuda() -> bool:
@@ -140,3 +143,50 @@ def checkout_wave(data: torch.Tensor, starts, mode, hi, *,
             "it with core.checkout.build_superblock (which pre-pads)")
     starts, mode, hi = _upload_plan(data.device, starts, mode, hi)
     return _cb.checkout_wave(data, starts, mode, hi, block_n=block_n)
+
+
+def _segment_delta(src: torch.Tensor, delta, block_n: int, bd: int,
+                   what: str) -> torch.Tensor:
+    """The lane-tile check both segment wrappers make, and the delta
+    operand on src's device: uploaded when the host has one, else a zero
+    tile allocated on the device (nothing crosses the link)."""
+    d = src.shape[1]
+    if d % bd:
+        raise _build.PlanError(
+            f"superblock D={d} not a multiple of the lane tile {bd} — "
+            f"{what} (which pre-pads)")
+    if delta is None:
+        return src.new_zeros((block_n, d))
+    return as_tensor(delta, src.device)
+
+
+def segment_move(src: torch.Tensor, delta, sel, starts, *,
+                 block_n: int = _cg.DEFAULT_BN,
+                 block_d: int = _cg.DEFAULT_BD) -> torch.Tensor:
+    """Incremental superblock migration: assemble the post-migration
+    superblock in ONE launch, reusing BN-aligned tiles of the OLD
+    device-resident superblock (sel 0) and pulling only changed tiles from a
+    small host delta (sel 1; ``delta=None`` when every tile is reused).
+    The host plan is checked, then uploaded in one copy, by the kernel
+    wrapper."""
+    bd = min(block_d, max(128, src.shape[1]))
+    delta = _segment_delta(src, delta, block_n, bd,
+                           "migrate via core.checkout.migrate_superblock")
+    return _sm.segment_move(src, delta, sel, starts, block_n=block_n)
+
+
+def segment_append(src: torch.Tensor, delta, sel, starts, *,
+                   block_n: int = _cg.DEFAULT_BN,
+                   block_d: int = _cg.DEFAULT_BD) -> torch.Tensor:
+    """In-place superblock append for a commit wave: assemble the grown
+    superblock in ONE launch, reusing BN-aligned tiles of the OLD
+    device-resident superblock (sel 0), uploading only the new BN-aligned
+    tiles from a small host delta (sel 1; ``delta=None`` when there are
+    none), and zero-filling alignment-slack tiles on the device (sel 2).
+    The host plan is checked, then uploaded in one copy, by the kernel
+    wrapper."""
+    bd = min(block_d, max(128, src.shape[1]))
+    delta = _segment_delta(
+        src, delta, block_n, bd,
+        "extend via core.checkout.refresh_superblocks_after_commit")
+    return _sa.segment_append(src, delta, sel, starts, block_n=block_n)

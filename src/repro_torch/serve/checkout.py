@@ -27,8 +27,27 @@ Request flow (the serve half of the checkout data-flow map in
                      force it.  ``pipeline=False`` restores the strictly
                      serial dispatch-then-deliver-own-wave loop.
 
-Every dispatched wave holds a per-epoch ``core.faults.ReadLease`` for its
-whole dispatch→deliver life (mirrored onto ``store._inflight_waves``).
+Pass a ``core.online.RepartitionTrigger`` as ``trigger`` and the server
+closes the paper's online-maintenance loop: every dispatched wave records
+run density, and BETWEEN DELIVERED waves — never while a wave is in flight,
+so a migration can never race a launched kernel — the trigger re-clusters
+with LYRESPLIT + incremental migration (``apply_migration`` +
+``migrate_superblock``, ONE ``segment_move`` launch on the card).  Every
+dispatched wave holds a per-epoch ``core.faults.ReadLease`` for its whole
+dispatch→deliver life (mirrored onto ``store._inflight_waves``), so the
+trigger's own guard holds even for out-of-band ``observe()`` calls.
+
+The WRITE plane rides the same schedule: ``submit_commit(commits)`` mints
+WRITE TICKETS in the checkout ticket namespace, and ``flush()`` lands every
+pending write as ONE ``PartitionedCVD.commit_many`` ingest wave BEFORE
+dispatching the read wave — so the reads just coalesced observe the
+versions just committed.  A commit bumps the store epoch and retires the
+old device superblock (extended in place by ONE ``segment_append``
+launch), so a write wave first JOINS the in-flight read wave and then
+enters the lease registry's ``draining()`` window: out-of-band leases
+deliver against the epoch they planned on before the ingest.  A drain
+timeout DEFERS the write wave (re-queued, retried at the next flush).
+``result(write_ticket)`` yields the assigned vid.
 
 Failure paths: a failed dispatch OR delivery re-queues the whole coalesced
 wave (tickets stay serviceable) and rolls back its dispatch accounting; a
@@ -40,11 +59,14 @@ wall-clock deadline, and a dispatch degradation ladder (configured tier ->
 perpart -> host gather) whose repeatedly failing tiers a per-epoch circuit
 breaker skips.  On a kernel-tier server over a CUDA store the ladder holds
 only the on-card rungs: once they are spent the wave fails and re-queues,
-it never moves to the CPU's host gather.  Failure sites (``core.faults``): ``serve.dispatch``,
-``serve.delivery``, ``serve.transfer``.
-
-Not yet ported: the write plane (``submit_commit``, ROADMAP A.5) and the
-density-triggered repartitioning hook (``trigger``, ROADMAP A.6).
+it never moves to the CPU's host gather.  A failed write wave re-queues
+like a failed read dispatch, and with a policy a failed trigger
+``observe()`` is logged and retried at the next delivered wave.  A
+``KernelError`` (a kernel that did not build, launch or take its plan) is
+never retried: after a landed commit its tickets get their vids and the
+error propagates.  Failure
+sites (``core.faults``): ``serve.dispatch``, ``serve.delivery``,
+``serve.transfer``.
 """
 from __future__ import annotations
 
@@ -58,7 +80,8 @@ import numpy as np
 
 from ..core.checkout import (_validate_vids, checkout_partitioned,
                              get_superblock, get_superblock_groups)
-from ..core.faults import acquire_read_lease, fault_point
+from ..core.faults import acquire_read_lease, fault_point, read_leases
+from ..kernels.build import KernelError
 
 logger = logging.getLogger(__name__)
 
@@ -116,8 +139,7 @@ class TierBreaker:
 @dataclasses.dataclass
 class CheckoutStats:
     """Serve counters; the same fields as the JAX package's, so the two
-    compare one to one (the migration and write-plane counters stay 0 until
-    those planes are ported)."""
+    compare one to one."""
     waves: int = 0             # dispatched (and not rolled-back) waves
     waves_delivered: int = 0   # waves whose results reached the host split
     requests: int = 0
@@ -135,10 +157,12 @@ class CheckoutStats:
     group_launches: int = 0        # fused kernel launches those waves paid
     group_evictions: int = 0       # LRU evictions the budget forced
     straggler_requests: int = 0    # vids that fell through to perpart
-    # write plane (commit ingest waves)
-    commit_waves: int = 0
-    commits_ingested: int = 0
-    commit_deferrals: int = 0
+    # write plane (commit ingest waves — PartitionedCVD.commit_many)
+    commit_waves: int = 0          # landed write waves (ONE epoch bump each)
+    commits_ingested: int = 0      # commits those waves carried
+    commit_deferrals: int = 0      # write waves a lease-drain timeout
+                                   # deferred (re-queued, retried at the
+                                   # next flush)
     # sliding window (deque, maxlen); ``requests`` keeps the all-time count.
     # Append via ``record_latency`` (it invalidates the percentile cache).
     ticket_latency_s: collections.deque = dataclasses.field(
@@ -204,10 +228,18 @@ class BatchedCheckoutServer:
                 ``flush()`` launches the wave and returns after delivering
                 the PREVIOUS one.  False = strictly serial (each flush
                 delivers its own wave before returning).
-    trigger:    density-triggered repartitioning — not ported yet; must be
-                None.
+    trigger:    optional ``core.online.RepartitionTrigger`` — its
+                ``observe()`` runs after a wave DELIVERS and only while no
+                other wave is in flight; a PENDING fire (``should_fire()``)
+                opens a one-wave pipeline bubble at the next flush so an
+                unbroken stream cannot starve the migration; fired
+                repartitions are counted in ``stats.repartitions``.
     retry:      optional ``RetryPolicy`` (see the module docstring).  None
                 (default) keeps the raise-to-caller failure semantics.
+    write_drain_timeout_s: how long a write wave waits in the lease
+                registry's drain window for out-of-band epoch leases before
+                DEFERRING the commit to the next flush.  None (default)
+                waits until the epoch drains.
     """
 
     def __init__(self, store, *, use_kernel: bool = True,
@@ -215,23 +247,30 @@ class BatchedCheckoutServer:
                  deadline_s: Optional[float] = None,
                  trigger=None, pipeline: bool = True,
                  retry: Optional[RetryPolicy] = None,
+                 write_drain_timeout_s: Optional[float] = None,
                  clock: Callable[[], float] = time.monotonic):
-        if trigger is not None:
-            raise NotImplementedError(
-                "RepartitionTrigger is not ported yet (ROADMAP A.6, online "
-                "migration)")
+        if trigger is not None and engine != "wave":
+            # density is only recorded by the wave engine; a trigger on the
+            # perpart engine would silently never fire
+            raise ValueError(
+                f"RepartitionTrigger requires engine='wave', got {engine!r}")
         self.store = store
         self.use_kernel = use_kernel
         self.engine = engine
         self.max_wave = max_wave
         self.deadline_s = deadline_s
+        self.trigger = trigger
         self.pipeline = pipeline
         self.retry = retry
         self._breaker = TierBreaker(retry.breaker_threshold
                                     if retry is not None else 3)
         self._closed = False
         self._clock = clock
+        self.write_drain_timeout_s = write_drain_timeout_s
         self._pending: list[tuple[int, int, float]] = []  # (ticket, vid, t)
+        # the write plane's queue: (ticket, commit dict, t_submit); landed
+        # as ONE commit_many ingest wave at the next flush boundary
+        self._pending_writes: list[tuple[int, dict, float]] = []
         self._next_ticket = 0
         self._inflight: Optional[_InflightWave] = None
         # a wave re-queued by a failed flush must NOT be re-fired by the
@@ -282,9 +321,32 @@ class BatchedCheckoutServer:
         return tickets
 
     def submit_commit(self, commits: Sequence[dict]) -> list[int]:
-        raise NotImplementedError(
-            "the write plane is not ported yet (ROADMAP A.5, write path + "
-            "segment_append)")
+        """Queue a write wave: one WRITE TICKET per commit dict (the
+        ``PartitionedCVD.commit_many`` forms — ``rlist``/``new_rows`` or
+        ``table``, plus ``parent``/``pid``), minted from the same namespace
+        as checkout tickets.  The whole pending write queue lands as ONE
+        ingest wave at the next ``flush()`` — before that flush's read
+        dispatch, so coalesced reads observe the new versions — and
+        ``result(ticket)`` then yields the assigned vid.  Same-wave parent
+        chaining works across submits.  Deep validation happens at flush
+        time inside ``commit_many`` (before any state changes), so a
+        malformed commit fails — and re-queues — the whole write wave.  May
+        trigger a size-based flush, exactly like ``submit``."""
+        self._check_open()
+        commits = [dict(c) for c in commits]
+        if not commits:
+            return []
+        t = self._clock()
+        base = self._next_ticket
+        self._next_ticket = base + len(commits)
+        tickets = list(range(base, self._next_ticket))
+        self._pending_writes.extend(zip(tickets, commits,
+                                        [t] * len(commits)))
+        self._deadline_armed = True
+        if (self.max_wave is not None
+                and len(self._pending_writes) >= self.max_wave):
+            self.flush()
+        return tickets
 
     def poll(self) -> bool:
         """Event-loop hook: deliver the in-flight wave if its device result
@@ -295,9 +357,12 @@ class BatchedCheckoutServer:
             return False
         if self._inflight is not None and self._inflight.handle.ready():
             self.deliver()
-        if (self._pending and self.deadline_s is not None
+        oldest = min([t for _, _, t in self._pending[:1]]
+                     + [t for _, _, t in self._pending_writes[:1]],
+                     default=None)
+        if (oldest is not None and self.deadline_s is not None
                 and self._deadline_armed
-                and self._clock() - self._pending[0][2] >= self.deadline_s):
+                and self._clock() - oldest >= self.deadline_s):
             self.flush()
             return True
         return False
@@ -309,12 +374,34 @@ class BatchedCheckoutServer:
         Returns the per-ticket results (ticket order) of the wave this call
         DELIVERED: the previous wave in pipelined mode (``[]`` when none was
         in flight), the just-dispatched wave itself when ``pipeline=False``.
-        Every result is also retained for ``result(ticket)``."""
+        Every result is also retained for ``result(ticket)``.  Pending
+        writes land first, as one ingest wave (``_flush_writes``)."""
         self._check_open()
+        # land the write wave FIRST: the read wave detached below then
+        # plans against (and serves) the post-commit epoch.  A failed or
+        # deferred write wave leaves the pending reads untouched.
+        self._flush_writes()
         wave = self._pending
         self._pending = []
         dispatched = None
+        bubbled: list[np.ndarray] = []
         if wave:
+            # a PENDING trigger fire opens a one-wave pipeline bubble: an
+            # unbroken flush-driven stream otherwise always has a successor
+            # in flight at delivery time, and the migration would starve.
+            # Draining here lets observe() run (nothing in flight) and the
+            # dispatch below ride the NEW layout.
+            fire = getattr(self.trigger, "should_fire", None)
+            if (fire is not None and self._inflight is not None
+                    and fire()):
+                try:
+                    bubbled = self.deliver()
+                except BaseException:
+                    # the bubble's delivery failure re-queued only the
+                    # in-flight wave — restore THIS flush's detached wave
+                    # too (global ticket order restored by sorting)
+                    self._pending = sorted(self._pending + wave)
+                    raise
             uniq = sorted({v for _, v, _ in wave})
             g0 = self._group_counters()
             # the lease is taken BEFORE planning: it pins the epoch the
@@ -340,7 +427,7 @@ class BatchedCheckoutServer:
             self.stats.requests += len(wave)
             self.stats.unique_versions += len(uniq)
         prev, self._inflight = self._inflight, dispatched
-        out = self._deliver_wave(prev) if prev is not None else []
+        out = self._deliver_wave(prev) if prev is not None else bubbled
         if not self.pipeline and self._inflight is not None:
             out = self.deliver()
         return out
@@ -363,6 +450,9 @@ class BatchedCheckoutServer:
         if (ticket not in self._results and self._inflight is not None
                 and ticket in self._inflight.ticket_ids):
             self.deliver()
+        if (ticket not in self._results
+                and any(t == ticket for t, _, _ in self._pending_writes)):
+            self.flush()      # a queued write ticket: land its wave now
         out = self._results.pop(ticket)
         self._reserved.discard(ticket)
         return out
@@ -471,6 +561,97 @@ class BatchedCheckoutServer:
         raise last_exc if last_exc is not None else RuntimeError(
             "all dispatch tiers circuit-broken")
 
+    # -- write plane -----------------------------------------------------------
+    def _flush_writes(self) -> list[int]:
+        """Land every queued write ticket as ONE ``commit_many`` ingest
+        wave, mirroring the migration protocol: join the in-flight read
+        wave (a commit retires the device superblock its kernel may still
+        be reading), then enter the lease registry's ``draining()`` window
+        so out-of-band leases deliver against the epoch they planned on
+        before the ingest.  A drain timeout DEFERS the wave (re-queued,
+        ``stats.commit_deferrals``); a commit failure re-queues and raises
+        exactly like a failed read dispatch (deadline-gated retry).
+        Returns the assigned vids ([] when deferred or nothing queued)."""
+        if not self._pending_writes:
+            return []
+        batch, self._pending_writes = self._pending_writes, []
+        if self._inflight is not None:
+            self.deliver()
+        reg = read_leases(self.store)
+        try:
+            if reg is None:     # attribute-less store: no leases to drain
+                vids = self._commit([c for _, c, _ in batch])
+            else:
+                with reg.draining(self.store,
+                                  self.write_drain_timeout_s) as drained:
+                    if not drained:
+                        self._pending_writes = batch + self._pending_writes
+                        self._deadline_armed = False
+                        self.stats.commit_deferrals += 1
+                        return []
+                    vids = self._commit([c for _, c, _ in batch])
+        except KernelError as exc:
+            # the commit landed before the kernel failed: deliver its vids
+            # and do not re-queue (a retry would commit the versions twice)
+            self._land_writes(batch, exc.committed_vids)
+            raise
+        except BaseException:
+            self._pending_writes = batch + self._pending_writes
+            self._deadline_armed = False
+            self.stats.requeues += 1
+            raise
+        self._land_writes(batch, vids)
+        return vids
+
+    def _land_writes(self, batch: list, vids: list[int]) -> None:
+        """Record a landed write wave: each ticket's vid and latency."""
+        done = self._clock()
+        self._results.update(zip((t for t, _, _ in batch),
+                                 (np.int64(v) for v in vids)))
+        self.stats.record_latencies([done - t0 for _, _, t0 in batch])
+        self._evict_results()
+        self.stats.commit_waves += 1
+        self.stats.commits_ingested += len(batch)
+
+    def _commit(self, commits: list) -> list[int]:
+        """The ``commit_many`` call, retried under the policy.  The ingest
+        fault sites (``ingest.extract``/``ingest.commit``) fire BEFORE any
+        store mutation, so a retry replays into the identical commit;
+        ``ingest.append`` is absorbed inside ``commit_many`` itself (a
+        failed superblock extension evicts only that superblock).  A
+        ``KernelError`` comes after the commit landed and is never
+        retried."""
+        if self.retry is None:
+            return self.store.commit_many(commits)
+        backoff = self.retry.backoff_s
+        deadline = (None if self.retry.deadline_s is None
+                    else self._clock() + self.retry.deadline_s)
+        for k in range(max(1, self.retry.attempts)):
+            try:
+                return self.store.commit_many(commits)
+            except KernelError:
+                raise
+            except Exception:
+                self.stats.retries += 1
+                if (k + 1 >= max(1, self.retry.attempts)
+                        or (deadline is not None
+                            and self._clock() >= deadline)):
+                    raise
+                logger.warning("commit attempt %d failed; backing off "
+                               "%.3gs", k, backoff, exc_info=True)
+                self.retry.sleep(backoff)
+                backoff *= 2
+        raise AssertionError("unreachable")  # pragma: no cover
+
+    def _evict_results(self) -> None:
+        """FIFO-evict unreserved results beyond ``RETAIN_RESULTS``."""
+        if len(self._results) > RETAIN_RESULTS:
+            for t in list(self._results):
+                if len(self._results) <= RETAIN_RESULTS:
+                    break
+                if t not in self._reserved:
+                    del self._results[t]
+
     # -- delivery plane --------------------------------------------------------
     def _materialize(self, wave: _InflightWave):
         """The delivery join (device→host copy + split), retried under the
@@ -521,17 +702,37 @@ class BatchedCheckoutServer:
         out = [mats[slot[v]] for _, v, _ in wave.tickets]
         self._results.update(zip((t for t, _, _ in wave.tickets), out))
         self.stats.record_latencies([done - t0 for _, _, t0 in wave.tickets])
-        if len(self._results) > RETAIN_RESULTS:
-            for t in list(self._results):
-                if len(self._results) <= RETAIN_RESULTS:
-                    break
-                if t not in self._reserved:
-                    del self._results[t]
+        self._evict_results()
         self.stats.waves_delivered += 1
         self.stats.rows_served += sum(len(m) for m in out)
         # group-layer accounting lands at DELIVERY, off the delta this
         # wave's dispatch captured
         self._apply_group_delta(wave.group_delta)
+        # the density trigger runs BETWEEN DELIVERED waves only: when
+        # flush() already put the next wave in flight, migrating now would
+        # race its launched kernel — observe() runs at THAT wave's
+        # delivery instead.  Migration evictions/pins a fired trigger
+        # causes belong to this delivery's delta.
+        if self.trigger is not None and self._inflight is None:
+            g0 = self._group_counters()
+            try:
+                fired = self.trigger.observe() is not None
+            except Exception as exc:
+                # with a policy, a failed trigger must not poison an
+                # already-delivered wave: the density streak survives the
+                # failure (observe() raises before stats.reset()), so the
+                # NEXT delivered wave simply retries the migration; a
+                # kernel fault is not retried
+                if self.retry is None or isinstance(exc, KernelError):
+                    raise
+                self.stats.trigger_failures += 1
+                logger.warning("repartition trigger failed; will retry at "
+                               "next delivered wave", exc_info=True)
+                fired = False
+            if fired:
+                self.stats.repartitions += 1
+            g1 = self._group_counters()
+            self._apply_group_delta(tuple(b - a for a, b in zip(g0, g1)))
         return out
 
     def _group_counters(self) -> tuple:

@@ -294,13 +294,19 @@ def test_max_wave_flushes_and_close_without_delivery_requeues():
 
 
 def test_unported_planes_raise():
+    """The write plane and the trigger hook are ported now (ROADMAP A.5,
+    A.6); what raises is what the reference refuses too: a trigger on the
+    perpart engine, a commit naming a parent that does not exist (at
+    flush, re-queued), an unknown version."""
     w, assignment = _workload(9)
     store = _port_store(w, assignment)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        BatchedCheckoutServer(store, trigger=object())
+    with pytest.raises(ValueError, match="engine='wave'"):
+        BatchedCheckoutServer(store, engine="perpart", trigger=object())
     srv = BatchedCheckoutServer(store)
-    with pytest.raises(NotImplementedError, match="A.5"):
-        srv.submit_commit([{"rlist": [0, 1], "parent": 0}])
+    srv.submit_commit([{"rlist": [0, 1], "parent": w.n_versions}])
+    with pytest.raises(ValueError, match="parent"):
+        srv.flush()
+    assert srv.stats.requeues == 1 and store.graph.n_versions == w.n_versions
     with pytest.raises(ValueError):
         srv.submit(w.n_versions)
 
