@@ -12,10 +12,13 @@ Phases, each of which raises on failure:
    parallel, into ``build/kernels/``;
 2. kernel vs plain — each CUDA kernel against its plain torch version on
    the card, whole output compared with ``torch.equal``, on small
-   hand-made plans: ``checkout_wave`` (run tiles, row tiles, tail-promoted
+   hand-made inputs: ``checkout_wave`` (run tiles, row tiles, tail-promoted
    tiles, a stale ``hi``), ``segment_append`` and ``segment_move`` (mixed
    sel, runs ending at the last rows of a source, all-delta and all-pad
-   plans; an out-of-bounds run must raise ValueError);
+   plans; an out-of-bounds run must raise ValueError), the two gathers
+   (unsorted rids with repeats, the last row and tile) and the bitmap
+   kernels (W = 1 and 40 words, bit 31); out-of-range indices and vids
+   must raise;
 3. read path — the versioning benchmark's SCI workload at the paper's
    SCI_1M scale (1,000 versions, 944,685 records of 100 int32 attributes),
    partitioned by LyreSplit at a storage budget of 2|R|, served by a
@@ -25,7 +28,20 @@ Phases, each of which raises on failure:
 4. read timings — per-wave kernel, plain-version, ``torch.index_select``
    and device-to-host times at the read path's shapes, beside the
    bandwidth bound;
-5. write path — the same workload's first 900 versions as a LyreSplit
+5. dataset path — a ``VersionedDataset`` over the read phase's store:
+   64 seeded versions checked out tiled (``gather_row_tiles``), 16 of them
+   again untiled (``gather_rows``), a ``checkout_many`` wave and 4 batch
+   streams, every result checked bit for bit against numpy;
+6. analytics path — the store's bitset vlists (944,685 x 32 words, 121 MB,
+   uploaded once): per-version sizes, a predicate count and a column sum
+   through ``version_aggregate``, and 32 versions' ``membership_scan``,
+   checked against the CSR and the port's numpy query layer;
+7. dataset and analytics timings — the four kernels of phases 5-6 at
+   those shapes against their plain versions on the full inputs, timed
+   beside ``torch.index_select`` (the gathers) and the bound; and the
+   parts of one checkout (block upload, lane pad, kernel, device-to-host
+   copy) apart;
+8. write path — the same workload's first 900 versions as a LyreSplit
    store on the card behind a pipelined server with a
    ``RepartitionTrigger``; versions 900-999 arrive as write waves of 16
    commits (``submit_commit`` -> ``commit_many`` -> ``segment_append``),
@@ -33,9 +49,13 @@ Phases, each of which raises on failure:
    the trigger fires one density-triggered migration (LyreSplit ->
    ``apply_migration`` -> ``migrate_superblock`` -> ``segment_move``), and
    4 more read waves follow; every ticket and the final CSR are checked;
-6. write timings — ``segment_append`` at the shapes of one real write wave
+9. write timings — ``segment_append`` at the shapes of one real write wave
    and ``segment_move`` at the real migration's, kernel against plain
    version, ``torch.index_select`` and the bandwidth bound.
+
+Phases 3, 5, 6 and 8 each set every kernel's launch count to 0 just
+before they drive their path and read the counts just after; launches
+made to compare or time a kernel fall outside those windows.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` JSON line
 and, last, ``{"ok": true, "device": {...}}``.  Full per-wave numbers go to
@@ -56,7 +76,30 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3, NVIDIA data sheet
-KERNELS = ["checkout_wave", "segment_append", "segment_move"]
+# kernel -> (its library under src/repro_torch/csrc, the TPU kernel it
+# replaces)
+KERNELS = {
+    "checkout_wave": ("checkout_wave",
+                      "src/repro/kernels/checkout_batched.py:210"),
+    "segment_append": ("segment_append",
+                       "src/repro/kernels/segment_append.py:71"),
+    "segment_move": ("segment_move", "src/repro/kernels/segment_move.py:67"),
+    "gather_rows": ("checkout_gather",
+                    "src/repro/kernels/checkout_gather.py:56"),
+    "gather_row_tiles": ("checkout_gather",
+                         "src/repro/kernels/checkout_gather.py:82"),
+    "membership_scan": ("membership_scan",
+                        "src/repro/kernels/vlist_membership.py:38"),
+    "version_aggregate": ("version_aggregate",
+                          "src/repro/kernels/version_agg.py:45"),
+}
+SOURCES = sorted({lib for lib, _ in KERNELS.values()})
+FP32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+DATASET_VERSIONS = 64    # tiled checkouts in the dataset phase
+DATASET_UNTILED = 16     # of them checked out again with gather_rows
+DATASET_STREAMS = 4      # batch streams of 8 steps
+DATASET_SEQ_LEN = 1023   # tokens a sequence (a training row is 1024)
+SCAN_VERSIONS = 32       # membership scans in the analytics phase
 WRITE_BASE = 900         # versions in the write phase's starting store
 WRITE_WAVE = 16          # commits per write wave
 # the write phase's RepartitionTrigger: every wave below density 1.0 counts
@@ -93,16 +136,78 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def queued_ms(torch, fn, reps: int, flush=None) -> float:
+    """Mean device time of ``fn()`` for kernels of a few microseconds,
+    where the host's launch cost through the Python wrappers is larger
+    than the kernel: the launches are queued behind a spin kernel
+    (``torch.cuda._sleep``), so the device runs them back to back, and the
+    spin is checked to be still running when the last one is queued (else
+    it is lengthened and the run repeated).  With ``flush``, each launch
+    gets its own pair of CUDA events and ``flush()`` (a read larger than
+    the 50 MB L2) runs between them, so every launch finds its inputs out
+    of the cache."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000
+    for _ in range(6):
+        spun = torch.cuda.Event()
+        marks = [torch.cuda.Event(enable_timing=True)
+                 for _ in range(2 * reps if flush else 2)]
+        torch.cuda._sleep(cycles)
+        spun.record()
+        if flush is None:
+            marks[0].record()
+            for _ in range(reps):
+                fn()
+            marks[1].record()
+        else:
+            for k in range(reps):
+                flush()
+                marks[2 * k].record()
+                fn()
+                marks[2 * k + 1].record()
+        covered = not spun.query()
+        marks[-1].synchronize()
+        if covered:
+            return sum(marks[k].elapsed_time(marks[k + 1])
+                       for k in range(0, len(marks), 2)) / reps
+        cycles *= 4
+    raise AssertionError("the host could not queue the launches ahead of "
+                         "the device")
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count, by name."""
+    from repro_torch.kernels import (checkout_batched as cb,
+                                     checkout_gather as cg,
+                                     segment_append as sa, segment_move as sm,
+                                     version_agg as va, vlist_membership as vm)
+    return {"checkout_wave": cb.LAUNCHES, "segment_append": sa.LAUNCHES,
+            "segment_move": sm.LAUNCHES, **cg.LAUNCHES,
+            "membership_scan": vm.LAUNCHES, "version_aggregate": va.LAUNCHES}
+
+
+def zero_launch_counts() -> None:
+    from repro_torch.kernels import (checkout_batched as cb,
+                                     checkout_gather as cg,
+                                     segment_append as sa, segment_move as sm,
+                                     version_agg as va, vlist_membership as vm)
+    cb.LAUNCHES = sa.LAUNCHES = sm.LAUNCHES = vm.LAUNCHES = va.LAUNCHES = 0
+    for k in cg.LAUNCHES:
+        cg.LAUNCHES[k] = 0
+
+
 def phase_build(report: dict) -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    build.build_all(KERNELS)
+    build.build_all(SOURCES)
     report["build_s"] = time.perf_counter() - t0
-    for name in KERNELS:
+    for name in SOURCES:
         for line in build.BUILD_LOG.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("entry function", "registers",
+                                       "spill")):
                 print(f"ptxas {name}: {line.strip()}")
-    print(f"build: {KERNELS} in {report['build_s']:.2f} s")
+    print(f"build: {SOURCES} in {report['build_s']:.2f} s")
 
 
 def small_plan_cases(torch, np):
@@ -207,6 +312,73 @@ def phase_segments(torch, np, report: dict) -> None:
     print(f"segment kernels vs plain: {n} hand-made plans equal or refused")
 
 
+def phase_gather_bitmap_small(torch, np, report: dict) -> None:
+    """The gathers and the bitmap kernels against their plain versions on
+    hand-made inputs: unsorted rids with repeats and the last row, tiles
+    out of order with the last one, in int32 (D=128) and float16 (D=256);
+    bitmaps of W = 1 and 40 words, R not a multiple of BR, version 31 (bit
+    31) and the last version, integer values (exact sums).  Out-of-range
+    indices and vids must raise PlanError on the host."""
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import checkout_gather as cg
+    from repro_torch.kernels import version_agg as va
+    from repro_torch.kernels import vlist_membership as vm
+    n = 0
+    rids = np.array([47, 3, 3, 20, 0, 9, 31, 8, 47, 12, 5], np.int32)
+    tiles = np.array([5, 0, 2, 2, 3], np.int32)
+    for dtype, d in ((torch.int32, 128), (torch.float16, 256)):
+        data = torch.arange(48 * d).reshape(48, d).to(dtype).cuda()
+        pairs = ((cg.gather_rows(data, rids), cg.gather_rows_plain(
+                     data, torch.from_numpy(rids).cuda())),
+                 (cg.gather_row_tiles(data, tiles), cg.gather_row_tiles_plain(
+                     data, torch.from_numpy(tiles).cuda())))
+        torch.cuda.synchronize()
+        for got, want in pairs:
+            if not torch.equal(got, want):
+                raise AssertionError(f"a gather != plain on {dtype}-D{d}")
+            n += 1
+        for fn, bad in ((cg.gather_rows, [0, 48]),
+                        (cg.gather_row_tiles, [6])):
+            try:
+                fn(data, np.array(bad))
+            except build.PlanError:
+                n += 1
+                continue
+            raise AssertionError(f"{fn.__name__} took indices {bad}")
+    rng = np.random.default_rng(13)
+    r = 2500
+    for n_versions in (20, 1270):
+        rlists = [np.flatnonzero(rng.random(r) < 0.3)
+                  for _ in range(n_versions)]
+        words = ops.as_bitmap(ops.build_bitmap(rlists, r), "cuda")
+        for vid in sorted({0, min(31, n_versions - 1), n_versions - 1}):
+            mask, cnt = vm.membership_scan(words, vid, block_r=1024)
+            want_m, want_c = vm.membership_scan_plain(words, vid,
+                                                      block_r=1024)
+            torch.cuda.synchronize()
+            if not (torch.equal(mask, want_m) and torch.equal(cnt, want_c)
+                    and int(cnt.sum()) == len(rlists[vid])):
+                raise AssertionError(f"membership_scan != plain, W="
+                                     f"{words.shape[1]} vid={vid}")
+            n += 1
+        values = torch.from_numpy(
+            rng.integers(0, 100, r).astype(np.float32)).cuda()
+        got = va.version_aggregate(words, values)
+        if not torch.equal(got, va.version_aggregate_plain(words, values)):
+            raise AssertionError(f"version_aggregate != plain, W="
+                                 f"{words.shape[1]}")
+        n += 1
+        try:
+            vm.membership_scan(words, 32 * words.shape[1])
+        except build.PlanError:
+            n += 1
+        else:
+            raise AssertionError("membership_scan took a vid past W")
+    report["gather_bitmap_small_cases"] = n
+    print(f"gather and bitmap kernels vs plain: {n} hand-made cases equal "
+          "or refused")
+
+
 def make_store(np, seed: int, report: dict):
     from repro_torch.core import (generate, lyresplit_for_budget,
                                   store_from_arrays, to_tree)
@@ -241,9 +413,6 @@ def phase_main(torch, np, store, waves, report: dict) -> None:
     """The main path: a pipelined server on the card, every ticket checked
     against the numpy gather of the store's record pool."""
     from repro_torch.core.checkout import peek_superblock
-    from repro_torch.kernels import checkout_batched as cb
-    from repro_torch.kernels import segment_append as sa
-    from repro_torch.kernels import segment_move as sm
     from repro_torch.serve import BatchedCheckoutServer
     # the server's latency clock stops while the client checks results,
     # so ticket latencies measure the server alone
@@ -273,7 +442,7 @@ def phase_main(torch, np, store, waves, report: dict) -> None:
             checked += 1
         paused[0] += time.monotonic() - t_check
 
-    sa.LAUNCHES = sm.LAUNCHES = cb.LAUNCHES = 0   # read path window opens
+    zero_launch_counts()                     # read path window opens
     t_wall = time.perf_counter()
     prev = None
     flush_ms = []
@@ -291,9 +460,11 @@ def phase_main(torch, np, store, waves, report: dict) -> None:
     serve_s += time.perf_counter() - t
     check(delivered, prev)
     wall_s = time.perf_counter() - t_wall
-    launches = cb.LAUNCHES                   # read path window closes
-    if sa.LAUNCHES or sm.LAUNCHES:
-        raise AssertionError("the read path launched a segment kernel")
+    counts = launch_counts()                 # read path window closes
+    launches = counts.pop("checkout_wave")
+    if any(counts.values()):
+        raise AssertionError(f"the read path launched another kernel: "
+                             f"{counts}")
     srv.close()
     sb = peek_superblock(store)
     st = srv.stats
@@ -411,10 +582,7 @@ def phase_write(torch, np, w, tree, seed: int, trigger_kw: dict,
     from repro_torch.core import lyresplit_for_budget, store_from_arrays
     from repro_torch.core.online import RepartitionTrigger
     from repro_torch.core.version_graph import WeightedTree
-    from repro_torch.kernels import checkout_batched as cb
     from repro_torch.kernels import ops
-    from repro_torch.kernels import segment_append as sa
-    from repro_torch.kernels import segment_move as sm
     from repro_torch.serve import BatchedCheckoutServer
     t0 = time.perf_counter()
     n0 = WRITE_BASE
@@ -484,7 +652,7 @@ def phase_write(torch, np, w, tree, seed: int, trigger_kw: dict,
     evictions0 = getattr(store, "_superblock_evictions", 0)
     commit_ms, write_vids, cur = [], [], pool
     try:
-        cb.LAUNCHES = sa.LAUNCHES = sm.LAUNCHES = 0   # write path window
+        zero_launch_counts()                          # write path window
         t_wall = time.perf_counter()
         for lo in range(n0, w.n_versions, WRITE_WAVE):
             vs = list(range(lo, min(lo + WRITE_WAVE, w.n_versions)))
@@ -527,9 +695,7 @@ def phase_write(torch, np, w, tree, seed: int, trigger_kw: dict,
             prev = vids
         check(srv.deliver(), prev)
         wall_s = time.perf_counter() - t_wall
-        launches = {"checkout_wave": cb.LAUNCHES,
-                    "segment_append": sa.LAUNCHES,
-                    "segment_move": sm.LAUNCHES}    # window closes
+        launches = launch_counts()                    # window closes
     finally:
         ops.segment_append = real["segment_append"]
         ops.segment_move = real["segment_move"]
@@ -558,6 +724,10 @@ def phase_write(torch, np, w, tree, seed: int, trigger_kw: dict,
     if mig is None or not mig.used_device or mig.reused_tiles <= 0:
         raise AssertionError(f"the migration did not reuse device tiles: "
                              f"{mig}")
+    others = {k: n for k, n in launches.items() if n and k not in (
+        "checkout_wave", "segment_append", "segment_move")}
+    if others:
+        raise AssertionError(f"the write path launched {others}")
     if launches["segment_move"] != 1:
         raise AssertionError(f"segment_move launched "
                              f"{launches['segment_move']} times, not once")
@@ -663,6 +833,350 @@ def phase_write_timing(torch, np, captured: dict, report: dict) -> dict:
     return out
 
 
+def host_batches(np, rows, seq_len: int, global_batch: int, seed: int,
+                 n_steps: int) -> list:
+    """The dataset's batch order computed from host rows: sequences of
+    ``seq_len + 1`` tokens, a seeded permutation per epoch, the tail
+    wrapped (no dropped hosts)."""
+    flat = rows.reshape(-1)
+    chunk = seq_len + 1
+    n = len(flat) // chunk
+    seqs = flat[:n * chunk].reshape(n, chunk).astype(np.int32)
+    order = np.random.default_rng(seed).permutation(n)
+    per_epoch = max(n // global_batch, 1)
+    out = []
+    for step in range(n_steps):
+        epoch, i = divmod(step, per_epoch)
+        if i == 0 and step > 0:
+            order = np.random.default_rng(seed + epoch).permutation(n)
+        idx = order[i * global_batch:(i + 1) * global_batch]
+        if len(idx) < global_batch:
+            idx = np.concatenate([idx, order[:global_batch - len(idx)]])
+        out.append(seqs[idx])
+    return out
+
+
+def phase_dataset(torch, np, store, seed: int, report: dict) -> list:
+    """The dataset path at full width: a ``VersionedDataset`` over the
+    read phase's SCI_1M store checks out ``DATASET_VERSIONS`` seeded
+    versions through ``gather_row_tiles``, ``DATASET_UNTILED`` of them again
+    through ``gather_rows``, 8 of them as one ``checkout_many`` wave, and
+    streams 8 batches of 32 sequences from ``DATASET_STREAMS`` of them.
+    Every result is checked bit for bit: against the partition block's
+    sorted local rows and the record pool's ``data[rlist(v)]`` (the same
+    order, so also the same set), and the batches against the same
+    generator run on those host rows.  Returns the vids."""
+    from repro_torch.data import VersionedDataset
+    ds = VersionedDataset(store=store, seq_len=DATASET_SEQ_LEN)
+    rng = np.random.default_rng(seed + 3)
+    vids = [int(v) for v in rng.choice(store.graph.n_versions,
+                                       DATASET_VERSIONS, replace=False)]
+
+    def want_rows(v):
+        p = store.partitions[store.vid_to_pid[v]]
+        want = p.block[np.sort(p.local_rlist(v))]
+        if not np.array_equal(want, store.data[store.graph.rlist(v)]):
+            raise AssertionError(f"partition rows of version {v} differ "
+                                 "from data[rlist(v)]")
+        return want
+
+    def check(rows, v, how):
+        if rows.dtype != store.data.dtype or \
+                not np.array_equal(rows, want_rows(v)):
+            raise AssertionError(f"{how} checkout of version {v} differs "
+                                 "from data[rlist(v)]")
+
+    tiled_ms, untiled_ms = [], []
+    zero_launch_counts()                      # the dataset path's window
+    for v in vids:
+        t = time.perf_counter()
+        rows = ds.checkout(v)
+        tiled_ms.append(1e3 * (time.perf_counter() - t))
+        check(rows, v, "tiled")
+    for v in vids[:DATASET_UNTILED]:
+        t = time.perf_counter()
+        rows = ds.checkout(v, use_tiled=False)
+        untiled_ms.append(1e3 * (time.perf_counter() - t))
+        check(rows, v, "untiled")
+    for rows, v in zip(ds.checkout_many(vids[:8]), vids[:8]):
+        check(rows, v, "checkout_many")
+    steps = 0
+    for v in vids[:DATASET_STREAMS]:
+        want = host_batches(np, want_rows(v), ds.seq_len, 32, seed, 8)
+        for b, w in zip(ds.batches(v, global_batch=32, seed=seed,
+                                   n_steps=8), want):
+            if not (np.array_equal(b["tokens"], w[:, :-1])
+                    and np.array_equal(b["labels"], w[:, 1:])
+                    and b["tokens"].shape == (32, ds.seq_len)):
+                raise AssertionError(f"batch {b['step']} of version {v} "
+                                     "differs from the host generator")
+            steps += 1
+    launches = launch_counts()                # the window closes
+    sizes = store.graph.version_sizes()
+    nonempty = [int(sizes[v] > 0) for v in vids]
+    want = {"gather_row_tiles": sum(nonempty)
+            + sum(nonempty[:DATASET_STREAMS]),
+            "gather_rows": sum(nonempty[:DATASET_UNTILED]),
+            "checkout_wave": launches["checkout_wave"] or 1}   # the wave: >= 1
+    if steps != 8 * DATASET_STREAMS or any(
+            launches[k] != want.get(k, 0) for k in launches):
+        raise AssertionError(f"dataset path launches {launches}, "
+                             f"expected {want}, {steps} batches")
+    report["dataset"] = {
+        "versions": vids, "records": [int(sizes[v]) for v in vids],
+        "launches": launches, "batches": steps,
+        "checkout_tiled_host_ms": tiled_ms,
+        "checkout_untiled_host_ms": untiled_ms}
+    print(f"dataset: {DATASET_VERSIONS} tiled and {DATASET_UNTILED} "
+          f"untiled checkouts, a checkout_many wave of 8 and "
+          f"{steps} batches bit-identical; launches={launches}; a checkout "
+          f"{np.mean(tiled_ms):.2f} ms tiled, {np.mean(untiled_ms):.2f} ms "
+          f"untiled (host clock, mean; "
+          f"{np.mean([sizes[v] for v in vids]):.0f} records a version)")
+    return vids
+
+
+def sum_rtol(r: int, block_r: int) -> float:
+    """The float32 sum's relative error bound for nonnegative values in
+    ``version_aggregate``: a row chunk of ``block_r`` terms added in order,
+    then ceil(chunks / 8) partials in order in each of 8 warps and the 8
+    warp sums in order, each add off by at most 2^-24 of the sum so far."""
+    chunks = -(-r // block_r)
+    return (block_r + -(-chunks // 8) + 8) * 2.0 ** -24
+
+
+def phase_analytics(torch, np, store, seed: int, report: dict) -> dict:
+    """The analytics path at full width over the store's bitset vlists
+    (built on the host, uploaded once): per-version sizes (values of ones),
+    the count of records with col2 > 900 and the sum of col3, through
+    ``version_aggregate``; ``SCAN_VERSIONS`` seeded versions'
+    ``membership_scan``.  Sizes and counts must equal the CSR and the
+    port's ``core.query.per_version_aggregate`` exactly; the sum must match
+    its float64 result within ``sum_rtol``; every mask must equal the CSR
+    membership and its counts the version's size.  Returns the kernel
+    inputs for the timing phase."""
+    from repro_torch.core.query import per_version_aggregate
+    from repro_torch.kernels import ops
+    graph, data = store.graph, store.data
+    n, r = graph.n_versions, graph.n_records
+    t = time.perf_counter()
+    bm = ops.build_bitmap(graph.rlists(), r)
+    build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    words = ops.as_bitmap(bm, store.device)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t
+    queries = {"sizes": np.ones(r, np.float32),
+               "count_col2_gt_900": (data[:, 2] > 900).astype(np.float32),
+               "sum_col3": data[:, 3].astype(np.float32)}
+    rng = np.random.default_rng(seed + 4)
+    scan_vids = [int(v) for v in rng.choice(n, SCAN_VERSIONS, replace=False)]
+    zero_launch_counts()                      # the analytics path's window
+    t = time.perf_counter()
+    sums = {k: ops.version_aggregate(words, v).cpu().numpy()
+            for k, v in queries.items()}
+    agg_ms = 1e3 * (time.perf_counter() - t) / len(queries)
+    t = time.perf_counter()
+    scans = {v: tuple(x.cpu().numpy() for x in ops.membership_scan(words, v))
+             for v in scan_vids}
+    scan_ms = 1e3 * (time.perf_counter() - t) / len(scan_vids)
+    launches = launch_counts()                # the window closes
+    want = {"version_aggregate": len(queries),
+            "membership_scan": len(scan_vids)}
+    if any(launches[k] != want.get(k, 0) for k in launches):
+        raise AssertionError(f"analytics path launches {launches}, "
+                             f"expected {want}")
+    t = time.perf_counter()
+    ref_count = per_version_aggregate(graph, data, 2, "count",
+                                      predicate=lambda d: d[:, 2] > 900)
+    ref_sum = per_version_aggregate(graph, data, 3, "sum")
+    query_s = time.perf_counter() - t
+    sizes = graph.version_sizes()
+    if any(s[n:].any() for s in sums.values()):
+        raise AssertionError("a sum past the last version is not 0")
+    if not np.array_equal(sums["sizes"][:n], sizes):
+        raise AssertionError("version_aggregate of ones != version sizes")
+    if not np.array_equal(sums["count_col2_gt_900"][:n], ref_count):
+        raise AssertionError("count(col2 > 900) != per_version_aggregate")
+    if data[:, 3].min() < 0:
+        raise AssertionError("sum_rtol holds for nonnegative values only")
+    rtol = sum_rtol(r, 1024)
+    rel = np.abs(sums["sum_col3"][:n] - ref_sum) / np.maximum(ref_sum, 1)
+    if not (rel <= rtol).all():
+        raise AssertionError(f"sum(col3) off by {rel.max():.3g} (relative),"
+                             f" above the bound {rtol:.3g}")
+    for v, (mask, cnt) in scans.items():
+        want_m = np.zeros(r, np.int32)
+        want_m[graph.rlist(v)] = 1
+        want_c = np.pad(want_m, (0, (-r) % 1024)).reshape(-1, 1024).sum(1)
+        if not (np.array_equal(mask, want_m) and np.array_equal(cnt, want_c)
+                and int(cnt.sum()) == sizes[v]):
+            raise AssertionError(f"membership_scan of version {v} differs "
+                                 "from the CSR")
+    report["analytics"] = {
+        "bitmap_shape": list(bm.shape), "bitmap_bytes": int(bm.nbytes),
+        "build_bitmap_s": build_s, "upload_s": upload_s,
+        "launches": launches, "scan_versions": scan_vids,
+        "aggregate_host_ms": agg_ms, "scan_host_ms": scan_ms,
+        "numpy_query_s": query_s, "sum_rel_err_max": float(rel.max()),
+        "sum_rtol": rtol}
+    print(f"analytics: bitmap {bm.shape} ({bm.nbytes / 1e6:.0f} MB, built "
+          f"in {build_s:.2f} s, uploaded in {1e3 * upload_s:.0f} ms); sizes "
+          f"and count(col2>900) exact, sum(col3) within {rel.max():.2g} "
+          f"(bound {rtol:.2g}), {len(scan_vids)} membership scans exact; "
+          f"launches={launches}; {agg_ms:.2f} ms an aggregate, "
+          f"{scan_ms:.2f} ms a scan (host clock, with the D2H copy)")
+    return {"words": words, "values": queries, "vid": scan_vids[0]}
+
+
+def phase_dataset_analytics_timing(torch, np, store, vids, inputs: dict,
+                                   report: dict) -> dict:
+    """The four kernels of the dataset and analytics paths at their
+    shapes, each against its plain version on the same device inputs
+    (outside the paths' launch windows), with ``queued_ms`` and a cold L2:
+    the gathers over the first 8 dataset versions (mean), after the parts
+    of a checkout (block upload as the path makes it, pageable; lane and
+    row pad; device-to-host copy of the packed rows); the bitmap kernels
+    on the analytics path's bitmap."""
+    from repro_torch.kernels import checkout_gather as cg
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import version_agg as va
+    from repro_torch.kernels import vlist_membership as vm
+    # a read of 128 MB (over twice the L2) evicts the inputs and leaves no
+    # dirty lines for the timed kernel to write back
+    flush_buf = torch.zeros(32 << 20, dtype=torch.int32,
+                            device=inputs["words"].device)
+    flush = flush_buf.sum
+    bn = cg.DEFAULT_BN
+    rows_t: dict = {"gather_row_tiles": [], "gather_rows": []}
+    parts = []
+    for v in vids[:8]:
+        p = store.partitions[store.vid_to_pid[v]]
+        rl = np.sort(p.local_rlist(v))
+        t = time.perf_counter()
+        tiles, _, waste = ops.plan_tiles(rl)
+        plan_ms = 1e3 * (time.perf_counter() - t)
+        block = torch.from_numpy(p.block).cuda()
+        d = block.shape[1]
+        bd = min(cg.DEFAULT_BD, max(128, d))
+
+        def pad(block=block, bd=bd):
+            return ops._pad_axis(ops._pad_axis(block, bd, axis=1), bn,
+                                 axis=0).contiguous()
+
+        padded = pad()
+        row_bytes = padded.shape[1] * padded.element_size()
+        fill = np.full((-len(rl)) % bn, rl[0], np.int32)
+        rids = torch.from_numpy(np.concatenate([rl.astype(np.int32), fill]
+                                               )).cuda()
+        idx = torch.from_numpy(tiles).cuda()
+        t_tiles, n_row_tiles = len(tiles), len(rids) // bn
+        tiled = cg._launch("gather_row_tiles", padded, idx, t_tiles, bn)
+        parts.append({
+            "version": v, "records": len(rl), "tiles": t_tiles,
+            "waste": waste, "block_bytes": int(p.block.nbytes),
+            "plan_tiles_host_ms": plan_ms,
+            "upload_ms": cuda_ms(torch, lambda p=p: torch.from_numpy(
+                p.block).cuda(), 3),
+            "pad_ms": cuda_ms(torch, pad, 3),
+            "d2h_ms": cuda_ms(torch, lambda x=tiled: x.cpu(), 3)})
+        tile_view = padded.view(-1, bn * padded.shape[1])
+        for name, idx_d, n_tiles, plain, lib_src, reads, out_rows in (
+                ("gather_row_tiles", idx, t_tiles,
+                 lambda x=padded, i=idx: cg.gather_row_tiles_plain(x, i),
+                 tile_view, t_tiles * bn, t_tiles * bn),
+                ("gather_rows", rids, n_row_tiles,
+                 lambda x=padded, i=rids: cg.gather_rows_plain(x, i),
+                 padded, len(rl), len(rids))):
+            got = cg._launch(name, padded, idx_d, n_tiles, bn)
+            want = plain()
+            if not torch.equal(got, want):
+                raise AssertionError(f"full-size {name} != plain")
+            del got, want
+            idx_long = idx_d.long()
+            bytes_min = (reads + out_rows) * row_bytes + 4 * idx_d.numel()
+            rows_t[name].append({
+                "bytes_min": bytes_min, "max_abs_err": 0,
+                "bound_ms": 1e3 * bytes_min / HBM_BYTES_PER_S,
+                "ms": queued_ms(torch, lambda a=(name, padded, idx_d,
+                                                 n_tiles, bn):
+                                cg._launch(*a), 20, flush),
+                "plain_ms": queued_ms(torch, plain, 10, flush),
+                "library_ms": queued_ms(
+                    torch, lambda s=lib_src, i=idx_long: torch.index_select(
+                        s, 0, i), 20, flush)})
+        del block, padded, tiled, tile_view
+    out = {name: {k: (max if k == "max_abs_err" else np.mean)(
+        [x[k] for x in xs]) for k in xs[0]} for name, xs in rows_t.items()}
+    out = {name: {k: v if k == "max_abs_err" else float(v)
+                  for k, v in o.items()} for name, o in out.items()}
+    checkout = {k: float(np.mean([x[k] for x in parts]))
+                for k in parts[0] if k != "version"}
+
+    words, vid = inputs["words"], inputs["vid"]
+    r, w = words.shape
+    word = vid // 32
+    sectors = int(np.unique((np.arange(r, dtype=np.int64) * w + word)
+                            * 4 // 32).size)
+    n_blocks = -(-r // 1024)
+    mask, cnt = vm._launch(words, vid, 1024)
+    want_m, want_c = vm.membership_scan_plain(words, vid, block_r=1024)
+    if not (torch.equal(mask, want_m) and torch.equal(cnt, want_c)):
+        raise AssertionError("full-size membership_scan != plain")
+    scan_bytes = 32 * sectors + 4 * r + 4 * n_blocks
+    out["membership_scan"] = {
+        "bytes_min": scan_bytes, "sectors": sectors, "max_abs_err": 0,
+        "bound_ms": 1e3 * scan_bytes / HBM_BYTES_PER_S,
+        "ms": queued_ms(torch, lambda: vm._launch(words, vid, 1024), 20,
+                        flush),
+        "plain_ms": queued_ms(torch, lambda: vm.membership_scan_plain(
+            words, vid, block_r=1024), 10, flush),
+        "library_ms": None}
+    err = 0.0
+    for name, values in inputs["values"].items():
+        vals = torch.from_numpy(values).cuda()
+        got = va._launch(words, vals, 1024)
+        want = va.version_aggregate_plain(words, vals)
+        tol = sum_rtol(r, 1024) * want.abs()
+        diff = (got - want).abs()
+        if not (diff <= tol).all():
+            raise AssertionError(f"full-size version_aggregate != plain "
+                                 f"({name}: max abs err "
+                                 f"{float(diff.max())})")
+        err = max(err, float(diff.max()))
+    agg_bytes = 4 * r * w + 4 * r + 128 * w
+    agg_ops = 2 * 32 * r * w
+    bytes_ms = 1e3 * agg_bytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * agg_ops / FP32_OPS_PER_S
+    out["version_aggregate"] = {
+        "bytes_min": agg_bytes, "operations": agg_ops, "max_abs_err": err,
+        "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "ms": queued_ms(torch, lambda: va._launch(words, vals, 1024), 20,
+                        flush),
+        "plain_ms": queued_ms(torch, lambda: va.version_aggregate_plain(
+            words, vals), 3, flush),
+        "library_ms": None}
+    del flush_buf
+    torch.cuda.synchronize()
+    report["dataset_analytics_timing"] = out
+    report["checkout_parts"] = checkout
+    for name, o in out.items():
+        lib = ("no single torch call" if o["library_ms"] is None
+               else f"index_select {o['library_ms']:.4f} ms")
+        print(f"{name} ({o['bytes_min'] / 1e6:.1f} MB): kernel "
+              f"{o['ms']:.4f} ms, plain {o['plain_ms']:.4f} ms, {lib}, "
+              f"bound {o['bound_ms']:.4f} ms")
+    print(f"a tiled checkout's parts (mean of 8): block upload "
+          f"{checkout['block_bytes'] / 1e6:.1f} MB pageable "
+          f"{checkout['upload_ms']:.3f} ms, pad {checkout['pad_ms']:.3f} ms, "
+          f"kernel {out['gather_row_tiles']['ms']:.4f} ms, D2H "
+          f"{checkout['d2h_ms']:.3f} ms, plan_tiles on the host "
+          f"{checkout['plan_tiles_host_ms']:.3f} ms")
+    return out
+
+
 def phase_profile(torch, store, waves, report: dict, label: str) -> None:
     """Device busy share and device time by op over served waves, read off
     a torch.profiler trace (written to chiprun_out/chip_smoke_trace_<label>
@@ -744,6 +1258,7 @@ def main(argv=None) -> int:
     phase_build(report)
     phase_small(torch, np, report)
     phase_segments(torch, np, report)
+    phase_gather_bitmap_small(torch, np, report)
     store, w, tree = make_store(np, args.seed, report)
     waves = wave_traffic(np, args.seed, args.waves, store.graph.n_versions)
     phase_main(torch, np, store, waves, report)
@@ -752,7 +1267,11 @@ def main(argv=None) -> int:
         fresh = wave_traffic(np, args.seed + 1, 8, store.graph.n_versions)
         phase_profile(torch, store, fresh, report, "fresh")
         phase_profile(torch, store, fresh, report, "repeat")
-    del store                   # the read path's store and superblock go
+    ds_vids = phase_dataset(torch, np, store, args.seed, report)
+    inputs = phase_analytics(torch, np, store, args.seed, report)
+    timed = phase_dataset_analytics_timing(torch, np, store, ds_vids, inputs,
+                                           report)
+    del store, inputs           # the read path's store and superblock go
     gc.collect()
     torch.cuda.empty_cache()
     captured = phase_write(torch, np, w, tree, args.seed,
@@ -762,26 +1281,36 @@ def main(argv=None) -> int:
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
-    kernels = {"kernels": [{
-        "name": "checkout_wave", "route": "cuda",
-        "source": "src/repro_torch/csrc/checkout_wave.cu",
-        "replaces": "src/repro/kernels/checkout_batched.py:210",
-        "launches": report["main"]["launches"],
-        "max_abs_err": max(w["max_abs_err"] for w in report["per_wave"]),
-        "ms": mean["ms"], "plain_ms": mean["plain_ms"],
-        "bound_ms": mean["bound_ms"], "bound_by": "bytes",
-        "library_ms": mean["library_ms"]}] + [{
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{name}.cu",
-            "replaces": replaces,
-            "launches": report["write"]["launches"][name],
-            "max_abs_err": seg[name]["max_abs_err"], "ms": seg[name]["ms"],
-            "plain_ms": seg[name]["plain_ms"],
-            "bound_ms": seg[name]["bound_ms"], "bound_by": "bytes",
-            "library_ms": seg[name]["library_ms"]}
-            for name, replaces in (
-                ("segment_append", "src/repro/kernels/segment_append.py:71"),
-                ("segment_move", "src/repro/kernels/segment_move.py:67"))]}
+    rows = {"checkout_wave": dict(
+        launches=report["main"]["launches"],
+        max_abs_err=max(w["max_abs_err"] for w in report["per_wave"]),
+        ms=mean["ms"], plain_ms=mean["plain_ms"], bound_ms=mean["bound_ms"],
+        bound_by="bytes", library_ms=mean["library_ms"])}
+    for name in ("segment_append", "segment_move"):
+        rows[name] = dict(
+            launches=report["write"]["launches"][name],
+            **{k: seg[name][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "library_ms")},
+            bound_by="bytes")
+    for name, path in (("gather_row_tiles", "dataset"),
+                       ("gather_rows", "dataset"),
+                       ("membership_scan", "analytics"),
+                       ("version_aggregate", "analytics")):
+        rows[name] = dict(
+            launches=report[path]["launches"][name],
+            **{k: timed[name][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                           "bound_ms", "library_ms")},
+            bound_by=timed[name].get("bound_by", "bytes"))
+    kernels = {"kernels": [
+        {"name": name, "route": "cuda",
+         "source": f"src/repro_torch/csrc/{lib}.cu", "replaces": replaces,
+         **{k: rows[name][k] for k in ("launches", "max_abs_err", "ms",
+                                       "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms")}}
+        for name, (lib, replaces) in KERNELS.items()]}
+    if any(k["launches"] <= 0 for k in kernels["kernels"]):
+        raise AssertionError(f"a kernel was not launched on its path: "
+                             f"{kernels}")
     print(f"total {report['total_s']:.1f} s")
     print(gpu)
     print(json.dumps(kernels))

@@ -5,9 +5,11 @@ These are the "advanced querying capabilities for free" that justify the
 array-based models over deltas (paper §3.1): every query below is a single
 vectorized pass — the delta model would need to materialize every version.
 
-Device-scale variants of the aggregate and membership queries are Pallas
-kernels in the JAX package (version_agg, vlist_membership) still to be
-ported (ROADMAP A.10); this module is the engine-level implementation.  Multi-version materialization routes through the
+Device-scale variants of the aggregate and membership queries are the
+bitmap kernels ``kernels.ops.version_aggregate`` and ``membership_scan``
+over bitset vlists (``kernels.ops.build_bitmap``); as in the JAX package,
+no query here calls them, and this module is the engine-level numpy
+implementation.  Multi-version materialization routes through the
 batched checkout engine (core.checkout): ONE fused gather for every version
 a query touches, on device a single ``checkout_batched`` kernel launch.
 """

@@ -107,15 +107,44 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def kernel_fn(name: str):
-    """The C entry point ``<name>_launch`` of library ``name``, built and
-    bound on first use.  Every kernel of the port has the signature of
-    ``launch_tiles`` in ``csrc/tile_launch.cuh``: four input pointers, the
-    output, the tile count, BN, the row bytes and the stream; it returns a
-    ``cudaError_t``."""
-    fn = getattr(load(name), f"{name}_launch")
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_longlong, ctypes.c_void_p]
+# The two binding shapes of the port's C entry points; each returns a
+# ``cudaError_t``.  Tile copies (``launch_tiles`` in ``csrc/tile_launch.cuh``):
+# four input pointers, the output, the tile count, BN, the row bytes and the
+# stream.  Bitmap kernels (``csrc/membership_scan.cu``,
+# ``csrc/version_aggregate.cu``): the bitmap, the values, two outputs, R, W,
+# BR, vid and the stream.
+TILE_ARGS = ([ctypes.c_void_p] * 5
+             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                ctypes.c_void_p])
+BITMAP_ARGS = ([ctypes.c_void_p] * 4
+               + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_void_p])
+
+
+def _bind(name: str, entry: str, argtypes):
+    fn = getattr(load(name), entry)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_fn(name: str, entry: str | None = None):
+    """The tile-copy C entry point ``entry`` (default ``<name>_launch``) of
+    library ``name``, built and bound on first use, with the signature of
+    ``launch_tiles``."""
+    return _bind(name, entry or f"{name}_launch", TILE_ARGS)
+
+
+@functools.lru_cache(maxsize=None)
+def bitmap_fn(name: str):
+    """The bitmap kernel ``<name>_launch`` of library ``name``, built and
+    bound on first use, with the ``BITMAP_ARGS`` signature."""
+    return _bind(name, f"{name}_launch", BITMAP_ARGS)
+
+
+def check_launch(err: int, what: str) -> None:
+    """Raise ``KernelError`` for a C entry point's nonzero ``cudaError_t``:
+    a refused launch never runs, and no later synchronise reports it."""
+    if err:
+        raise KernelError(f"{what} launch failed: cudaError {err}")

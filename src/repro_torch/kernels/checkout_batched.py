@@ -231,9 +231,7 @@ def _launch(data, starts, mode, hi, block_n) -> torch.Tensor:
         err = fn(data.data_ptr(), starts.data_ptr(), mode.data_ptr(),
                  hi.data_ptr(), out.data_ptr(), t, block_n, row_bytes,
                  stream)
-    if err:
-        raise build.KernelError(
-            f"checkout_wave launch failed: cudaError {err}")
+    build.check_launch(err, "checkout_wave")
     LAUNCHES += 1
     return out
 

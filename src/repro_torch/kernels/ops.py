@@ -15,6 +15,8 @@ from . import checkout_batched as _cb
 from . import checkout_gather as _cg
 from . import segment_append as _sa
 from . import segment_move as _sm
+from . import version_agg as _va
+from . import vlist_membership as _vm
 
 
 def _on_cuda() -> bool:
@@ -87,6 +89,47 @@ def _upload_plan(device: torch.device, *arrays) -> list[torch.Tensor]:
     arrays = [np.asarray(a, np.int32).reshape(-1) for a in arrays]
     buf = torch.from_numpy(np.concatenate(arrays)).to(device)
     return list(torch.split(buf, [len(a) for a in arrays]))
+
+
+def checkout_gather(data, rids, *, block_d: int = _cg.DEFAULT_BD,
+                    device=None) -> torch.Tensor:
+    """Materialize a version: the rows of ``data`` named by ``rids`` (any
+    order), in ONE ``gather_rows`` launch on ``data``'s device (a numpy
+    ``data`` is uploaded to ``device`` first).  D is padded to the lane
+    tile ``min(block_d, max(128, D))`` and cut back after the gather.
+    PlanError for a rid outside ``[0, R)``."""
+    data = as_tensor(data, device)
+    d = data.shape[1]
+    bd = min(block_d, max(128, d))
+    padded = _pad_axis(data, bd, axis=1).contiguous()
+    return _cg.gather_rows(padded, rids)[:, :d]
+
+
+def checkout_gather_tiled(data, rids, *, block_n: int = _cg.DEFAULT_BN,
+                          block_d: int = _cg.DEFAULT_BD, device=None):
+    """Ranged/tiled checkout for sorted rlists: the BN-row tiles the rlist
+    touches, in ONE ``gather_row_tiles`` launch on ``data``'s device.
+
+    Accepts unsorted (but duplicate-free) rlists: sorted here, and ``perm``
+    is composed so packed_rows[perm] == data[rids] for the rids AS GIVEN.
+    The rlist is validated on the host before anything is uploaded
+    (ValueError for duplicates, PlanError for a rid outside ``[0, R)``).
+
+    Returns (packed_rows tensor, perm, waste) — packed_rows[perm] ==
+    data[rids]."""
+    rids_sorted, order = _validate_rlist(rids)
+    _cg.check_indices(rids_sorted, data.shape[0], "rid")
+    tiles, perm, waste = _cg.plan_tiles(rids_sorted, block_n=block_n)
+    if order is not None:   # packed[perm][i] == data[rids_sorted[i]]
+        unsorted_perm = np.empty_like(perm)
+        unsorted_perm[order] = perm
+        perm = unsorted_perm
+    data = as_tensor(data, device)
+    d = data.shape[1]
+    bd = min(block_d, max(128, d))
+    padded = _pad_axis(_pad_axis(data, bd, axis=1), block_n, axis=0)
+    out = _cg.gather_row_tiles(padded.contiguous(), tiles, block_n=block_n)
+    return out[:, :d], perm, waste
 
 
 def checkout_batched(data, rlists, *, block_n: int = _cg.DEFAULT_BN,
@@ -190,3 +233,49 @@ def segment_append(src: torch.Tensor, delta, sel, starts, *,
         src, delta, block_n, bd,
         "extend via core.checkout.refresh_superblocks_after_commit")
     return _sa.segment_append(src, delta, sel, starts, block_n=block_n)
+
+
+def as_bitmap(bitmap, device=None) -> torch.Tensor:
+    """A (R, W) bitset (``build_bitmap``'s uint32 numpy, or a uint32/int32
+    tensor) as the int32 word tensor the bitmap kernels take, on the
+    resolved device: a numpy bitmap is viewed as int32 on the host and
+    uploaded once."""
+    if not isinstance(bitmap, torch.Tensor):
+        bitmap = np.ascontiguousarray(bitmap)
+        if bitmap.dtype not in (np.uint32, np.int32) or bitmap.ndim != 2:
+            raise _build.PlanError(f"bitmap must be (R, W) uint32, got "
+                                   f"{bitmap.dtype} {bitmap.shape}")
+        bitmap = bitmap.view(np.int32)
+    return _vm.as_words(as_tensor(bitmap, device))
+
+
+def membership_scan(bitmap, vid: int, *, block_r: int = _vm.DEFAULT_BR,
+                    device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mask (R,) int32, per-block counts (R_pad/br,) int32) for version
+    ``vid`` over the bitset vlists, ONE launch, with the JAX package's
+    padding rule ``br = min(block_r, max(8, R))``: R_pad is R rounded up to
+    br, and the rows past R count as zero rows (they are not copied).
+    PlanError for a vid outside the bitmap."""
+    words = as_bitmap(bitmap, device)
+    br = min(block_r, max(8, words.shape[0]))
+    return _vm.membership_scan(words, vid, block_r=br)
+
+
+def version_aggregate(bitmap, values, *, block_r: int = _va.DEFAULT_BR,
+                      device=None) -> torch.Tensor:
+    """Per-version sums of ``values`` over the bitset vlists: the whole
+    (W*32,) float32 output, of which the (n_versions,) prefix is the
+    meaningful part.  Rows padded as in ``membership_scan``; the values
+    are cast to float32 (on the host when they come as numpy) and uploaded
+    to the bitmap's device."""
+    words = as_bitmap(bitmap, device)
+    if not isinstance(values, torch.Tensor):
+        values = np.asarray(values, dtype=np.float32)
+    values = as_tensor(values, words.device)
+    br = min(block_r, max(8, words.shape[0]))
+    return _va.version_aggregate(words, values, block_r=br)
+
+
+build_bitmap = _vm.build_bitmap
+plan_tiles = _cg.plan_tiles
+plan_batched = _cb.plan_batched

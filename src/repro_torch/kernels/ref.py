@@ -1,5 +1,6 @@
-"""Plain oracles for the checkout kernels: the tests hold the kernels and
-the wave engine against these."""
+"""Plain oracles for the kernels, torch twins of the JAX package's
+``kernels/ref.py``: the tests hold the kernels and the wave engine against
+these."""
 from __future__ import annotations
 
 import numpy as np
@@ -15,3 +16,32 @@ def gather_batched_ref(data, rlists):
     data = data.cpu().numpy() if isinstance(data, torch.Tensor) \
         else np.asarray(data)
     return [data[np.asarray(rl, dtype=np.int64)] for rl in rlists]
+
+
+def gather_row_tiles_ref(data: torch.Tensor, tile_idx: torch.Tensor,
+                         block_n: int) -> torch.Tensor:
+    r, d = data.shape
+    tiles = data.reshape(r // block_n, block_n, d)
+    return tiles[tile_idx.long()].reshape(-1, d)
+
+
+def membership_scan_ref(bitmap: torch.Tensor, vid: int, block_r: int
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """R a multiple of block_r, as in the reference oracle.  The words are
+    read as int32 (torch shifts no uint32): ``(x >> b) & 1`` is the same
+    bit under the arithmetic shift."""
+    word, bit = vid // 32, vid % 32
+    words = bitmap.view(torch.int32)
+    mask = ((words[:, word] >> bit) & 1).to(torch.int32)
+    cnt = mask.reshape(-1, block_r).sum(dim=1, dtype=torch.int32)
+    return mask, cnt
+
+
+def version_aggregate_ref(bitmap: torch.Tensor,
+                          values: torch.Tensor) -> torch.Tensor:
+    r, w = bitmap.shape
+    shifts = torch.arange(32, dtype=torch.int32)
+    bits = (bitmap.view(torch.int32)[:, :, None] >> shifts) & 1   # (R, W, 32)
+    out = torch.einsum("rwb,r->wb", bits.to(torch.float32),
+                       values.to(torch.float32))
+    return out.reshape(w * 32)

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from . import build
-from .build import KernelError, PlanError
+from .build import PlanError
 from .checkout_gather import DEFAULT_BN
 
 # CUDA launches of ``segment_append`` in this process; the plain torch
@@ -172,8 +172,7 @@ def launch(name: str, src, delta, sel, starts, block_n: int) -> torch.Tensor:
         err = fn(src.data_ptr(), delta.data_ptr(), sel.data_ptr(),
                  starts.data_ptr(), out.data_ptr(), t, block_n, row_bytes,
                  stream)
-    if err:
-        raise KernelError(f"{name} launch failed: cudaError {err}")
+    build.check_launch(err, name)
     return out
 
 

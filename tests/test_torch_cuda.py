@@ -1,7 +1,9 @@
-"""The port on the card: the CUDA ``checkout_wave``, ``segment_append`` and
-``segment_move`` against their plain torch versions, and the wave engine,
-the server and the online write path (commit waves, a migration) on a CUDA
-store against the numpy gather.  This file imports neither jax nor the JAX package, so it runs on
+"""The port on the card: the CUDA ``checkout_wave``, ``segment_append``,
+``segment_move``, ``gather_rows``, ``gather_row_tiles``, ``membership_scan``
+and ``version_aggregate`` against their plain torch versions, and the wave
+engine, the server, the online write path (commit waves, a migration), a
+``VersionedDataset`` and the bitmap analytics on a CUDA store against
+numpy.  This file imports neither jax nor the JAX package, so it runs on
 a machine with a GPU and no jax:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -15,6 +17,10 @@ import repro_torch.core.checkout as ck
 import repro_torch.core.partition as part
 import repro_torch.kernels.build as build
 import repro_torch.kernels.checkout_batched as cb
+import repro_torch.kernels.checkout_gather as cg
+import repro_torch.kernels.ops as ops
+import repro_torch.kernels.version_agg as va
+import repro_torch.kernels.vlist_membership as vm
 import repro_torch.kernels.segment_append as sa
 import repro_torch.kernels.segment_move as sm
 from repro_torch.core import generate, store_from_arrays
@@ -24,6 +30,7 @@ from repro_torch.core.checkout import (checkout_wave,
 from repro_torch.core.lyresplit import lyresplit_for_budget
 from repro_torch.core.partition import plan_migration
 from repro_torch.core.version_graph import to_tree
+from repro_torch.data import VersionedDataset
 from repro_torch.serve import BatchedCheckoutServer, RetryPolicy
 
 pytestmark = pytest.mark.cuda
@@ -285,3 +292,156 @@ def test_cuda_kernel_fault_in_a_commit_wave_propagates(cuda_device,
     vids = list(range(60))
     for got, v in zip(store.checkout_many(vids), vids):
         np.testing.assert_array_equal(got, w.data[w.graph.rlist(v)])
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.int32, 128),
+                                     (torch.float16, 256),
+                                     (torch.float32, 512)])
+def test_cuda_gather_kernels_match_plain(cuda_device, dtype, d):
+    """Both gathers against their plain versions: unsorted rids with
+    duplicates and the last row, N not a multiple of BN; tiles out of
+    order, the last tile included.  Out-of-range indices raise PlanError
+    on the host and launch nothing."""
+    data = torch.arange(48 * d).reshape(48, d).to(dtype).to(cuda_device)
+    rids = np.array([47, 3, 3, 20, 0, 9, 31, 8, 47, 12, 5], np.int32)
+    tiles = np.array([5, 0, 2, 2, 3], np.int32)
+    before = dict(cg.LAUNCHES)
+    got = cg.gather_rows(data, rids)
+    got_t = cg.gather_row_tiles(data, tiles)
+    assert cg.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    want = cg.gather_rows_plain(data, torch.from_numpy(rids).cuda())
+    want_t = cg.gather_row_tiles_plain(data, torch.from_numpy(tiles).cuda())
+    torch.cuda.synchronize()
+    assert got.shape == (11, d) and torch.equal(got, want)
+    assert got_t.shape == (40, d) and torch.equal(got_t, want_t)
+    with pytest.raises(build.PlanError, match="outside"):
+        cg.gather_rows(data, np.array([0, 48]))
+    with pytest.raises(build.PlanError, match="outside"):
+        cg.gather_row_tiles(data, np.array([-1]))
+    with pytest.raises(build.PlanError, match="outside"):
+        ops.checkout_gather_tiled(data, np.array([2, 48]))
+    assert cg.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    assert ops.checkout_gather(data, np.zeros(0, np.int64)).shape == (0, d)
+
+
+def _bitmap(r, n_versions, seed):
+    """A random bitset with every 7th row of version 31 (bit 31) set, an
+    empty version 5 and a full last version."""
+    rng = np.random.default_rng(seed)
+    rlists = [np.flatnonzero(rng.random(r) < 0.3) for _ in range(n_versions)]
+    if n_versions > 31:
+        rlists[31] = np.arange(0, r, 7)
+    rlists[5] = np.zeros(0, np.int64)
+    rlists[-1] = np.arange(r)
+    return ops.build_bitmap(rlists, r), rlists
+
+
+@pytest.mark.parametrize("n_versions", [20, 1000, 1270])   # W = 1, 32, 40
+def test_cuda_bitmap_kernels_match_plain(cuda_device, n_versions):
+    """membership_scan and version_aggregate against their plain versions
+    at W = 1, 32 and 40 words, R not a multiple of BR.  Masks and counts
+    are exact; so are sums of small integers (below 2^24).  Float sums
+    agree within rtol 1e-5: the kernel and the plain version sum in
+    another order.  The kernel's sums are the same bits on every run."""
+    r = 2500
+    bm, rlists = _bitmap(r, n_versions, n_versions)
+    words = ops.as_bitmap(bm, cuda_device)
+    vids = sorted({0, 5, min(31, n_versions - 1), n_versions - 1})
+    for br in (1024, 96):
+        for vid in vids:
+            before = vm.LAUNCHES
+            mask, cnt = vm.membership_scan(words, vid, block_r=br)
+            assert vm.LAUNCHES == before + 1
+            want_m, want_c = vm.membership_scan_plain(words, vid, block_r=br)
+            torch.cuda.synchronize()
+            assert torch.equal(mask, want_m) and torch.equal(cnt, want_c)
+            assert cnt.shape == (-(-r // br),)
+            assert int(cnt.sum()) == len(rlists[vid])
+    rng = np.random.default_rng(1)
+    ints = torch.from_numpy(rng.integers(0, 100, r).astype(np.float32))
+    floats = torch.from_numpy(rng.random(r).astype(np.float32))
+    for values, exact in ((ints, True), (floats, False)):
+        values = values.to(cuda_device)
+        before = va.LAUNCHES
+        got = va.version_aggregate(words, values)
+        again = va.version_aggregate(words, values)
+        assert va.LAUNCHES == before + 2
+        want = va.version_aggregate_plain(words, values)
+        torch.cuda.synchronize()
+        assert got.shape == (32 * bm.shape[1],) and torch.equal(got, again)
+        if exact:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    sizes = ops.version_aggregate(words, np.ones(r, np.float32)).cpu()
+    assert sizes[:n_versions].tolist() == [len(x) for x in rlists]
+    assert not sizes[n_versions:].any()
+
+
+def test_cuda_bitmap_kernels_small_and_empty(cuda_device):
+    """R smaller than BR, and R = 0: the launcher guards the empty grid."""
+    bm, rlists = _bitmap(5, 40, 0)
+    mask, cnt = ops.membership_scan(bm, 39, device=cuda_device)
+    assert mask.tolist() == [1] * 5 and cnt.tolist() == [5]
+    out = ops.version_aggregate(bm, np.ones(5), device=cuda_device)
+    assert out[:40].tolist() == [len(x) for x in rlists]
+    empty = np.zeros((0, 2), np.uint32)
+    mask, cnt = ops.membership_scan(empty, 63, device=cuda_device)
+    assert mask.shape == (0,) and cnt.shape == (0,)
+    out = ops.version_aggregate(empty, np.zeros(0), device=cuda_device)
+    assert out.shape == (64,) and not out.any()
+
+
+def test_cuda_new_kernels_refuse_launches(cuda_device):
+    """A configuration a kernel refuses returns a CUDA error from its C
+    entry point, and each wrapper raises KernelError instead of returning;
+    an out-of-range vid is refused on the host."""
+    data = torch.zeros((16, 128), dtype=torch.int32, device=cuda_device)
+    idx = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(build.KernelError, match="cudaError"):
+        cg._launch("gather_rows", data, idx[:0], 1, 0)       # BN = 0
+    with pytest.raises(build.KernelError, match="cudaError"):
+        cg._launch("gather_row_tiles", data, idx, 2, 0)
+    words = ops.as_bitmap(np.zeros((40, 2), np.uint32), cuda_device)
+    with pytest.raises(build.KernelError, match="cudaError"):
+        vm._launch(words, 64, 1024)                          # vid past W
+    wide = torch.zeros((1, 8 * 65536), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(build.KernelError, match="cudaError"):
+        va._launch(wide, torch.zeros(1, device=cuda_device), 1024)  # W tiles
+    with pytest.raises(build.PlanError, match="block_r"):
+        va._launch(words, torch.zeros(40, device=cuda_device), 0)
+    with pytest.raises(build.PlanError, match="outside"):
+        ops.membership_scan(words, 64)
+    with pytest.raises(build.PlanError, match="16-byte"):
+        cg.gather_rows(data[:, :3].contiguous(), [0])
+
+
+def test_cuda_versioned_dataset_matches_numpy(cuda_device):
+    """Every version of a small card store checked out tiled and untiled
+    equals the numpy gather bit for bit, through one launch each; batches
+    equal a CPU dataset's; the analytics over its bitset vlists equal the
+    CSR's sizes."""
+    store, w = _store(cuda_device, seed=5)
+    ds = VersionedDataset(store=store, seq_len=15)
+    cpu = VersionedDataset.from_graph(w.graph, w.data, store.assignment,
+                                      seq_len=15, device="cpu")
+    before = dict(cg.LAUNCHES)
+    for v in range(w.n_versions):
+        p = store.partitions[store.vid_to_pid[v]]
+        want = p.block[np.sort(p.local_rlist(v))]
+        np.testing.assert_array_equal(ds.checkout(v), want)
+        np.testing.assert_array_equal(ds.checkout(v, use_tiled=False), want)
+        np.testing.assert_array_equal(want, w.data[w.graph.rlist(v)])
+    for v in (3, 31):
+        for a, b in zip(ds.batches(v, global_batch=4, seed=2, n_steps=5),
+                        cpu.batches(v, global_batch=4, seed=2, n_steps=5)):
+            np.testing.assert_array_equal(a["tokens"], b["tokens"])
+            np.testing.assert_array_equal(a["labels"], b["labels"])
+    nonempty = sum(len(w.graph.rlist(v)) > 0 for v in range(w.n_versions))
+    assert cg.LAUNCHES["gather_row_tiles"] - before["gather_row_tiles"] == \
+        nonempty + 2 - sum(len(w.graph.rlist(v)) == 0 for v in (3, 31))
+    assert cg.LAUNCHES["gather_rows"] - before["gather_rows"] == nonempty
+    bm = ops.build_bitmap(w.graph.rlists(), w.n_records)
+    sizes = ops.version_aggregate(bm, np.ones(w.n_records), device=cuda_device)
+    assert sizes.cpu()[:w.n_versions].tolist() == \
+        w.graph.version_sizes().tolist()
