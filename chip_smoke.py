@@ -51,11 +51,35 @@ Phases, each of which raises on failure:
    4 more read waves follow; every ticket and the final CSR are checked;
 9. write timings — ``segment_append`` at the shapes of one real write wave
    and ``segment_move`` at the real migration's, kernel against plain
-   version, ``torch.index_select`` and the bandwidth bound.
+   version, ``torch.index_select`` and the bandwidth bound;
+10. model kernels vs plain (run after phase 2) — ``flash_attention`` (GQA
+    groups 1-4 and MQA, Dh 16-128, S 128-1024 and lengths off the tiles,
+    causal or not) and
+    ``ssd_scan`` (chunk 16-256, N 16-128, P 16 and 64, 1-8 chunks, a
+    decay-about-1 state-carry case) against their plain versions in
+    float32 and bfloat16, allclose at the reference's tolerances; an SSD
+    sequence off its chunk, a head_dim of 512 and H not a multiple of Hkv
+    must raise PlanError;
+11. serve path — Zamba2-2.7B at full width and depth (2.34 B parameters
+    from a seeded generator) through ``repro_torch.launch.serve``: 4
+    prompts of 512 tokens from the CUR prompt store, the cache filled
+    token by token, 32 greedy tokens, then ``make_prefill_step`` on the
+    same prompts: 9 ``flash_attention`` and 54 ``ssd_scan`` launches, all
+    in the prefill; cache 543 of 544; finite logits; the prefill's
+    next-token logits within the driver's bf16 bound of the token path's;
+12. long prefill — the same model, B = 4, S = 4096 (prefill_32k cut to one
+    card): launches and finite logits; then a torch.profiler pass over 8
+    decode steps and one long prefill (device busy share, time by kernel);
+13. model kernel timings — both kernels at the long prefill's first
+    shared attention's and first SSD layer's inputs: kernel, plain,
+    ``scaled_dot_product_attention`` (flash) and the bound.
 
-Phases 3, 5, 6 and 8 each set every kernel's launch count to 0 just
-before they drive their path and read the counts just after; launches
-made to compare or time a kernel fall outside those windows.
+Phases 3, 5, 6, 8, 11 and 12 each set every kernel's launch count to 0
+just before they drive their path and read the counts just after;
+launches made to compare or time a kernel fall outside those windows.
+TF32 is off (``torch.backends.cuda.matmul.allow_tf32`` and
+``torch.backends.cudnn.allow_tf32`` False): the float32 plain versions
+compare in full float32.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` JSON line
 and, last, ``{"ok": true, "device": {...}}``.  Full per-wave numbers go to
@@ -92,9 +116,13 @@ KERNELS = {
                         "src/repro/kernels/vlist_membership.py:38"),
     "version_aggregate": ("version_aggregate",
                           "src/repro/kernels/version_agg.py:45"),
+    "flash_attention": ("flash_attention",
+                        "src/repro/kernels/flash_attention.py:101"),
+    "ssd_scan": ("ssd_scan", "src/repro/kernels/ssd_scan.py:88"),
 }
 SOURCES = sorted({lib for lib, _ in KERNELS.values()})
 FP32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12         # H100 SXM bf16 on the tensor cores, dense
 DATASET_VERSIONS = 64    # tiled checkouts in the dataset phase
 DATASET_UNTILED = 16     # of them checked out again with gather_rows
 DATASET_STREAMS = 4      # batch streams of 8 steps
@@ -107,6 +135,18 @@ WRITE_WAVE = 16          # commits per write wave
 # LyreSplit once, after the 6th write wave, and the 5 read waves left cannot
 # fire it again (``--min-waves`` changes the count; see PERF.md)
 TRIGGER = {"min_waves": 6, "low_density": 1.0, "min_gain": 1.02}
+DEVICE = "cuda"                  # where the model phases run
+MODEL_ARCH = "zamba2_2_7b"      # the serve phases' model, at full width
+SERVE_REQUESTS = 4               # the token-by-token cross-check: 4 prompts
+SERVE_PROMPT = 512               # of 512 tokens, then 32 greedy tokens
+SERVE_DECODE = 32
+LONG_BATCH = 4                   # the long prefill: prefill_32k (B 32,
+LONG_SEQ = 4096                  # S 32768) cut to one card and the time
+# kernel vs plain, per dtype: the reference's own tolerances
+# (tests/test_flash_attention.py, tests/test_ssd_kernel.py); the two sum
+# in different orders, and a bf16 output is one rounding
+FLASH_TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
+SSD_TOL = {"torch.float32": 2e-4, "torch.bfloat16": 5e-2}
 
 
 def gpu_line(torch) -> str:
@@ -180,19 +220,25 @@ def launch_counts() -> dict:
     """Every kernel's launch count, by name."""
     from repro_torch.kernels import (checkout_batched as cb,
                                      checkout_gather as cg,
+                                     flash_attention as fa,
                                      segment_append as sa, segment_move as sm,
-                                     version_agg as va, vlist_membership as vm)
+                                     ssd_scan as ss, version_agg as va,
+                                     vlist_membership as vm)
     return {"checkout_wave": cb.LAUNCHES, "segment_append": sa.LAUNCHES,
             "segment_move": sm.LAUNCHES, **cg.LAUNCHES,
-            "membership_scan": vm.LAUNCHES, "version_aggregate": va.LAUNCHES}
+            "membership_scan": vm.LAUNCHES, "version_aggregate": va.LAUNCHES,
+            "flash_attention": fa.LAUNCHES, "ssd_scan": ss.LAUNCHES}
 
 
 def zero_launch_counts() -> None:
     from repro_torch.kernels import (checkout_batched as cb,
                                      checkout_gather as cg,
+                                     flash_attention as fa,
                                      segment_append as sa, segment_move as sm,
-                                     version_agg as va, vlist_membership as vm)
+                                     ssd_scan as ss, version_agg as va,
+                                     vlist_membership as vm)
     cb.LAUNCHES = sa.LAUNCHES = sm.LAUNCHES = vm.LAUNCHES = va.LAUNCHES = 0
+    fa.LAUNCHES = ss.LAUNCHES = 0
     for k in cg.LAUNCHES:
         cg.LAUNCHES[k] = 0
 
@@ -1177,6 +1223,32 @@ def phase_dataset_analytics_timing(torch, np, store, vids, inputs: dict,
     return out
 
 
+def trace_device_time(prof, label: str) -> tuple:
+    """(device busy ms, [(op, device ms)] largest first) of a
+    torch.profiler run, read off its trace (written to
+    chiprun_out/chip_smoke_trace_<label>.json): busy is the union of the
+    kernel, copy and memset intervals."""
+    out = ROOT / "chiprun_out" / f"chip_smoke_trace_{label}.json"
+    out.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(out))
+    events = json.loads(out.read_text())["traceEvents"]
+    dev = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not dev:
+        raise AssertionError("the profiler recorded no device activity")
+    busy_us, cur = 0.0, None          # union of device intervals
+    by_op: dict = {}
+    for s0, s1, name in dev:
+        by_op[name] = by_op.get(name, 0.0) + (s1 - s0) / 1e3
+        if cur is None or s0 > cur[1]:
+            busy_us += 0 if cur is None else cur[1] - cur[0]
+            cur = [s0, s1]
+        else:
+            cur[1] = max(cur[1], s1)
+    busy_ms = (busy_us + cur[1] - cur[0]) / 1e3
+    return busy_ms, sorted(by_op.items(), key=lambda kv: -kv[1])
+
+
 def phase_profile(torch, store, waves, report: dict, label: str) -> None:
     """Device busy share and device time by op over served waves, read off
     a torch.profiler trace (written to chiprun_out/chip_smoke_trace_<label>
@@ -1197,25 +1269,7 @@ def phase_profile(torch, store, waves, report: dict, label: str) -> None:
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     srv.close()
-    out = ROOT / "chiprun_out" / f"chip_smoke_trace_{label}.json"
-    out.parent.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(out))
-    events = json.loads(out.read_text())["traceEvents"]
-    dev = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-    if not dev:
-        raise AssertionError("the profiler recorded no device activity")
-    busy_us, cur = 0.0, None          # union of device intervals
-    by_op: dict = {}
-    for s0, s1, name in dev:
-        by_op[name] = by_op.get(name, 0.0) + (s1 - s0) / 1e3
-        if cur is None or s0 > cur[1]:
-            busy_us += 0 if cur is None else cur[1] - cur[0]
-            cur = [s0, s1]
-        else:
-            cur[1] = max(cur[1], s1)
-    busy_ms = (busy_us + cur[1] - cur[0]) / 1e3
-    rows = sorted(by_op.items(), key=lambda kv: -kv[1])
+    busy_ms, rows = trace_device_time(prof, label)
     report[f"profile_{label}"] = {"waves": len(waves), "wall_ms": wall_ms,
                          "device_busy_ms": busy_ms,
                          "device_busy_share": busy_ms / wall_ms,
@@ -1224,6 +1278,403 @@ def phase_profile(torch, store, waves, report: dict, label: str) -> None:
           f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%)")
     for name, ms in rows:
         print(f"  {ms:9.3f} ms  {name[:90]}")
+
+
+def _close_err(got, want, tol: float) -> tuple:
+    """(allclose at atol = rtol = ``tol``, max abs error), in float32."""
+    diff = (got.float() - want.float()).abs()
+    return (bool((diff <= tol + tol * want.float().abs()).all()),
+            float(diff.max()))
+
+
+def flash_cases(torch):
+    """(B, Sq, Sk, H, Hkv, Dh, causal, dtype): GQA groups 1, 2, 4 and 3 and
+    MQA; Dh 16, 32, 64, 80 and 128; S from 128 to 1024, and lengths off the
+    tiles (200, and Sk 192 against Sq 128); causal and not; float32 and
+    bfloat16."""
+    shapes = [(2, 128, 128, 4, 4, 16, True), (1, 256, 256, 8, 4, 64, False),
+              (2, 512, 512, 8, 2, 80, True), (1, 1024, 1024, 4, 1, 128, True),
+              (1, 384, 384, 6, 2, 80, False), (1, 200, 200, 4, 2, 64, True),
+              (1, 128, 192, 4, 4, 32, False)]
+    return [s + (dt,) for s in shapes
+            for dt in (torch.float32, torch.bfloat16)]
+
+
+def ssd_cases(torch):
+    """(B, L, H, P, N, chunk, dtype): chunk 16, 64 and 256; N 16, 64 and
+    128; P 16 and 64; 1 to 8 chunks; float32 and bfloat16."""
+    shapes = [(2, 128, 4, 16, 16, 16), (1, 256, 3, 64, 64, 64),
+              (2, 256, 2, 64, 128, 256), (1, 512, 2, 16, 128, 64)]
+    return [s + (dt,) for s in shapes
+            for dt in (torch.float32, torch.bfloat16)]
+
+
+def phase_model_small(torch, report: dict) -> None:
+    """The two model kernels against their plain versions on hand-made
+    inputs (allclose at the reference's tolerance per dtype), the
+    decay-about-1 SSD case in which only the carried state feeds the last
+    chunks, and the operands the contract refuses: an SSD sequence that is
+    not a multiple of its chunk, a head_dim of 512 and H not a multiple of
+    Hkv (PlanError)."""
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    gen = torch.Generator().manual_seed(29)
+
+    def randn(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dtype).to(DEVICE)
+
+    worst: dict = {}
+    n = 0
+    for b, sq, sk, h, hkv, dh, causal, dtype in flash_cases(torch):
+        q = randn((b, sq, h, dh), dtype)
+        k, v = randn((b, sk, hkv, dh), dtype), randn((b, sk, hkv, dh), dtype)
+        got = ops.flash_attention(q, k, v, causal)
+        want = fa.flash_attention_plain(q, k, v, causal)
+        torch.cuda.synchronize()
+        ok, err = _close_err(got, want, FLASH_TOL[str(dtype)])
+        if not ok or got.dtype != dtype:
+            raise AssertionError(f"flash_attention != plain at {(b, sq, sk, h, hkv, dh, causal, dtype)}: max abs err {err}")
+        key = f"flash_attention {dtype}"
+        worst[key] = max(worst.get(key, 0.0), err)
+        n += 1
+    for b, l, h, p, nn, chunk, dtype in ssd_cases(torch):
+        xs = randn((b, l, h, p), dtype)
+        bm, cm = randn((b, l, nn), dtype, 0.3), randn((b, l, nn), dtype, 0.3)
+        dt = torch.nn.functional.softplus(randn((b, l, h), torch.float32)
+                                          ).to(dtype)
+        a = -torch.exp(randn((h,), torch.float32, 0.2))
+        y, st = ops.ssd_scan(xs, bm, cm, dt, a, chunk=chunk)
+        y_want, st_want = ss.ssd_scan_plain(xs, bm, cm, dt, a, chunk)
+        torch.cuda.synchronize()
+        tol = SSD_TOL[str(dtype)]
+        (ok_y, err_y), (ok_s, err_s) = (_close_err(y, y_want, tol),
+                                        _close_err(st, st_want, tol))
+        if not (ok_y and ok_s):
+            raise AssertionError(f"ssd_scan != plain at {(b, l, h, p, nn, chunk, dtype)}: max abs err y {err_y}, state {err_s}")
+        key = f"ssd_scan {dtype}"
+        worst[key] = max(worst.get(key, 0.0), err_y)
+        n += 1
+    # decay about 1, x zero past the first chunk: chunks 3-4 see only the
+    # carried state
+    xs = torch.zeros((1, 256, 2, 32), device=DEVICE)
+    xs[:, :64] = randn((1, 64, 2, 32), torch.float32)
+    bm, cm = (randn((1, 256, 64), torch.float32, 0.3) for _ in range(2))
+    dt = torch.full((1, 256, 2), 0.05, device=DEVICE)
+    a = torch.full((2,), -0.01, device=DEVICE)
+    y, _ = ops.ssd_scan(xs, bm, cm, dt, a, chunk=64)
+    y_want, _ = ss.ssd_scan_plain(xs, bm, cm, dt, a, 64)
+    torch.cuda.synchronize()
+    ok, err = _close_err(y, y_want, 2e-4)
+    if not ok or float(y[:, 200:].abs().max()) <= 1e-4:
+        raise AssertionError(f"ssd_scan lost the carried state (err {err})")
+    n += 1
+    refused = 0
+    for what, fn in (
+            ("H 2 over Hkv 3", lambda: ops.flash_attention(
+                torch.zeros((1, 128, 2, 64), device=DEVICE),
+                *([torch.zeros((1, 128, 3, 64), device=DEVICE)] * 2))),
+            ("Dh = 512", lambda: ops.flash_attention(*(
+                [torch.zeros((1, 128, 2, 512), device=DEVICE)] * 3))),
+            ("L = 96, chunk 64", lambda: ops.ssd_scan(
+                torch.zeros((1, 96, 2, 16), device=DEVICE),
+                torch.zeros((1, 96, 16), device=DEVICE),
+                torch.zeros((1, 96, 16), device=DEVICE),
+                torch.zeros((1, 96, 2), device=DEVICE),
+                torch.zeros(2, device=DEVICE), chunk=64))):
+        try:
+            fn()
+        except build.PlanError:
+            refused += 1
+            continue
+        raise AssertionError(f"a model kernel took {what}")
+    report["model_small"] = {"cases": n, "refused": refused,
+                             "max_abs_err": worst}
+    print(f"model kernels vs plain: {n} hand-made cases within tolerance "
+          f"(max abs err {', '.join(f'{k} {v:.2e}' for k, v in worst.items())}), {refused} refused")
+
+
+def phase_serve(torch, seed: int, report: dict):
+    """The serve path at Zamba2-2.7B's full config (54 SSD layers, d_model
+    2560, the shared block applied 9 times), weights from ``init_params``
+    with a seeded generator: the port's serve driver checks 4 prompts of
+    512 tokens out of the CUR prompt store through the card's
+    ``BatchedCheckoutServer``, fills the cache token by token (decode path,
+    neither model kernel), decodes 32 tokens greedily, and runs
+    ``make_prefill_step`` once on the same prompts (the path through both
+    model kernels).  Checks: 9 ``flash_attention`` and 54 ``ssd_scan``
+    launches, all in the prefill; the cache 543 tokens long in 544 slots;
+    every logit finite; the prefill's next-token logits within the
+    driver's bf16 bound of the token-by-token path's (relative L2), the
+    argmax equal wherever the top-2 gap is clear of that bound.  Returns
+    the model."""
+    from repro_torch import configs
+    from repro_torch.launch import serve as driver
+    from repro_torch.models import init_params
+    cfg = configs.get(MODEL_ARCH)
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed),
+                        DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    zero_launch_counts()                      # the serve path's window
+    t0 = time.perf_counter()
+    run = driver.serve(cfg, requests=SERVE_REQUESTS, prompt_len=SERVE_PROMPT,
+                       decode_steps=SERVE_DECODE, seed=seed, device=DEVICE,
+                       params=model)
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()                # the window closes
+    res, check, cache = run["result"], run["check"], run["cache"]
+    n_groups = cfg.n_layers // cfg.shared_every
+    want = {"flash_attention": n_groups, "ssd_scan": cfg.n_layers}
+    if (run["launches"]["prefill"] != want
+            or any(run["launches"]["fill_decode"].values())
+            or any(launches[k] != want[k] for k in want)):
+        raise AssertionError(f"serve path launches {run['launches']}, "
+                             f"expected {want} in the prefill alone")
+    max_len = SERVE_PROMPT + SERVE_DECODE
+    if (cache["len"] != max_len - 1 or cache["shared_k"].shape[2] != max_len):
+        raise AssertionError(f"cache {cache['len']} of "
+                             f"{cache['shared_k'].shape[2]} slots")
+    tokens = run["tokens"]
+    if not (torch.isfinite(run["fill_logits"]).all()
+            and torch.isfinite(run["prefill_logits"]).all()
+            and tokens.shape == (SERVE_REQUESTS, SERVE_DECODE)
+            and 0 <= tokens.min() and tokens.max() < cfg.vocab):
+        raise AssertionError("non-finite logits or tokens out of range")
+    if not check["ok"]:
+        raise AssertionError(f"prefill vs token-by-token: {check}")
+    report["serve"] = {
+        "arch": cfg.name, "params": n_params, "init_s": init_s,
+        "wall_s": wall_s, "launches": run["launches"],
+        "cache_len": cache["len"], "cache_slots": max_len,
+        "check": check, "result": res,
+        "fill_s": res["prefill_s"], "decode_s": res["decode_s"]}
+    print(f"model serve: {cfg.name} ({n_params:,} params, {cfg.n_layers} SSD "
+          f"layers + {n_groups} shared-block applications, d_model "
+          f"{cfg.d_model}) made in {init_s:.1f} s; {SERVE_REQUESTS} requests "
+          f"x {SERVE_PROMPT} prompt tokens filled token by token in "
+          f"{res['prefill_s']} s, {SERVE_DECODE} greedy tokens in "
+          f"{res['decode_s']} s ({res['decode_tok_per_s']} tok/s, "
+          f"{res['ms_per_decode_step']:.2f} ms a step); make_prefill_step "
+          f"{res['prefill_step_s']:.3f} s; launches {run['launches']}; "
+          f"cache {cache['len']} of {max_len}")
+    print(f"prefill vs token-by-token at position {SERVE_PROMPT - 1}: "
+          f"rel L2 {[round(r, 5) for r in check['rel_l2']]} (bound "
+          f"{check['bound']:.4f}), argmax agree {check['argmax_agree']}, "
+          f"gap clear of the bound {check['gap_clear']}")
+    print(json.dumps(res))
+    return model
+
+
+def phase_long_prefill(torch, model, seed: int, report: dict) -> dict:
+    """The same model through ``make_prefill_step`` at B = 4, S = 4096 on
+    seeded random tokens: one warm-up call that captures the inputs of the
+    first shared-block attention and the first SSD layer (their kernels'
+    launches pass through), then the timed call inside a launch window (9
+    and 54 launches, finite logits).  Returns the captured inputs."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.serve.serve_step import make_prefill_step
+    cfg = configs.get(MODEL_ARCH)
+    tokens = torch.randint(0, cfg.vocab, (LONG_BATCH, LONG_SEQ),
+                           generator=torch.Generator(device=DEVICE)
+                           .manual_seed(seed + 1), device=DEVICE)
+    prefill = make_prefill_step(cfg, device=DEVICE)
+    captured: dict = {}
+    real = {"flash_attention": fa._launch, "ssd_scan": ss._launch}
+
+    def capture(name):
+        def launch(*args):
+            if name not in captured:
+                captured[name] = [x.clone() if isinstance(x, torch.Tensor)
+                                  else x for x in args]
+            return real[name](*args)
+        return launch
+
+    fa._launch, ss._launch = capture("flash_attention"), capture("ssd_scan")
+    try:
+        prefill(model, {"tokens": tokens})
+    finally:
+        fa._launch, ss._launch = real["flash_attention"], real["ssd_scan"]
+    torch.cuda.synchronize()
+    zero_launch_counts()                      # the long prefill's window
+    t0 = time.perf_counter()
+    logits = prefill(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()                # the window closes
+    want = {"flash_attention": cfg.n_layers // cfg.shared_every,
+            "ssd_scan": cfg.n_layers}
+    if any(launches[k] != want.get(k, 0) for k in launches):
+        raise AssertionError(f"long prefill launches {launches}, expected "
+                             f"{want}")
+    if logits.shape != (LONG_BATCH, 1, cfg.vocab_padded) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError("long prefill: non-finite logits or bad shape")
+    report["long_prefill"] = {"batch": LONG_BATCH, "seq": LONG_SEQ,
+                              "seconds": seconds, "launches": want,
+                              "tokens_per_s": LONG_BATCH * LONG_SEQ / seconds}
+    print(f"long prefill: B={LONG_BATCH} S={LONG_SEQ} in {seconds:.3f} s "
+          f"({LONG_BATCH * LONG_SEQ / seconds:,.0f} tokens/s), launches "
+          f"{want}, logits finite")
+    return captured
+
+
+def phase_model_timing(torch, captured: dict, report: dict) -> dict:
+    """Both model kernels at the long prefill's shapes (the first shared
+    attention's and the first SSD layer's inputs): kernel against plain
+    version on the full inputs, then the kernel's, the plain version's and
+    (flash only) ``scaled_dot_product_attention``'s times, beside the
+    bound max(bytes / 3.35 TB/s, FLOPs / 989 TFLOP/s bf16): bytes each
+    input read once and each output written once (the scan's final state
+    included), FLOPs the function's need — the (query, key) pairs the
+    causal mask keeps; C Bᵀ once per (batch, chunk) and the lower triangle
+    of each chunk for the scan."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    out = {}
+    q, k, v, causal = captured["flash_attention"]
+    got = fa._launch(q, k, v, causal)
+    ok, err = _close_err(got, fa.flash_attention_plain(q, k, v, causal),
+                         FLASH_TOL[str(q.dtype)])
+    if not ok:
+        raise AssertionError(f"full-size flash_attention != plain ({err})")
+    # against the plain version's float32 result, before its rounding to
+    # q's dtype: how far the kernel is from exact, beyond that rounding
+    exact = fa.flash_attention_plain(q.float(), k.float(), v.float(), causal)
+    rel_l2 = float((got.float() - exact).norm() / exact.norm())
+    del got, exact
+    b, s, h, dh = q.shape
+    hkv = k.shape[2]
+    esz = q.element_size()
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              enable_gqa=h != hkv)
+
+    lib_err = float((sdpa().transpose(1, 2).float()
+                     - fa.flash_attention_plain(q, k, v, causal).float()
+                     ).abs().max())
+    out["flash_attention"] = {
+        "shape": [b, s, h, hkv, dh], "causal": causal, "dtype": str(q.dtype),
+        "bytes_min": (2 * b * s * h * dh + 2 * b * s * hkv * dh) * esz,
+        "operations": 4 * b * h * dh * (s * (s + 1) // 2 if causal
+                                        else s * s),
+        "max_abs_err": err, "library_max_abs_err": lib_err,
+        "rel_l2_vs_float32": rel_l2,
+        "ms": cuda_ms(torch, lambda: fa._launch(q, k, v, causal), 5),
+        "plain_ms": cuda_ms(torch, lambda: fa.flash_attention_plain(
+            q, k, v, causal), 2),
+        "library_ms": cuda_ms(torch, sdpa, 10)}
+    xs, bm, cm, dt, a, chunk = captured["ssd_scan"]
+    y, st = ss._launch(xs, bm, cm, dt, a, chunk)
+    y_want, st_want = ss.ssd_scan_plain(xs, bm, cm, dt, a, chunk)
+    tol = SSD_TOL[str(xs.dtype)]
+    (ok_y, err), (ok_s, err_s) = (_close_err(y, y_want, tol),
+                                  _close_err(st, st_want, tol))
+    if not (ok_y and ok_s):
+        raise AssertionError(f"full-size ssd_scan != plain (y {err}, state "
+                             f"{err_s})")
+    del y, st, y_want, st_want
+    b, l, h, p = xs.shape
+    n = bm.shape[2]
+    out["ssd_scan"] = {
+        "shape": [b, l, h, p, n, chunk], "dtype": str(xs.dtype),
+        "bytes_min": (2 * b * l * h * p + 2 * b * l * n) * xs.element_size()
+        + b * l * h * dt.element_size() + h * a.element_size()
+        + b * h * p * n * 4,
+        "operations": b * (l // chunk) * chunk * (chunk + 1) * (n + h * p)
+        + b * h * 2 * p * n * (2 * l - chunk),
+        "max_abs_err": err, "state_max_abs_err": err_s,
+        "ms": cuda_ms(torch, lambda: ss._launch(xs, bm, cm, dt, a, chunk), 3),
+        "plain_ms": cuda_ms(torch, lambda: ss.ssd_scan_plain(
+            xs, bm, cm, dt, a, chunk), 2),
+        "library_ms": None}
+    for name, o in out.items():
+        o["bytes_ms"] = 1e3 * o["bytes_min"] / HBM_BYTES_PER_S
+        rate = BF16_OPS_PER_S if o["dtype"] == str(torch.bfloat16) \
+            else FP32_OPS_PER_S
+        o["ops_ms"] = 1e3 * o["operations"] / rate
+        o["bound_ms"] = max(o["bytes_ms"], o["ops_ms"])
+        o["bound_by"] = "bytes" if o["bytes_ms"] >= o["ops_ms"] else \
+            "operations"
+        o["achieved_tflops"] = o["operations"] / o["ms"] / 1e9
+        lib = ("none: no single call" if o["library_ms"] is None else
+               f"scaled_dot_product_attention {o['library_ms']:.3f} ms")
+        print(f"{name} {o['shape']} {o['dtype']} ({o['bytes_min'] / 1e6:.1f} "
+              f"MB, {o['operations'] / 1e9:.1f} GFLOP): kernel "
+              f"{o['ms']:.3f} ms ({o['achieved_tflops']:.1f} TFLOP/s), plain "
+              f"{o['plain_ms']:.3f} ms, {lib}, bound {o['bound_ms']:.4f} ms "
+              f"({o['bound_by']}); max abs err vs plain {o['max_abs_err']:.3e}"
+              + (f", rel L2 vs float32 {o['rel_l2_vs_float32']:.3e}"
+                 if "rel_l2_vs_float32" in o else ""))
+    captured.clear()
+    torch.cuda.synchronize()
+    report["model_timing"] = out
+    return out
+
+
+def phase_model_profile(torch, model, seed: int, report: dict) -> None:
+    """Where the serve path's device time goes: torch.profiler over 8
+    decode steps of B = 4 at the serve phase's cache length (after 2
+    unprofiled ones) and over one long prefill (B = 4, S = 4096): wall ms,
+    device busy ms and share, and the device ms by kernel (each trace is
+    read and deleted: together they pass the 64 MiB a chip call brings
+    back)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.models import init_cache
+    from repro_torch.serve.serve_step import (make_prefill_step,
+                                              make_serve_step)
+    cfg = configs.get(MODEL_ARCH)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 2)
+    tok = torch.randint(0, cfg.vocab, (SERVE_REQUESTS, 1), generator=gen,
+                        device=DEVICE)
+    tokens = torch.randint(0, cfg.vocab, (LONG_BATCH, LONG_SEQ), generator=gen,
+                           device=DEVICE)
+    step = make_serve_step(cfg, device=DEVICE)
+    prefill = make_prefill_step(cfg, device=DEVICE)
+    # the serve phase's decode shape: the last 10 of its cache's slots
+    slots = SERVE_PROMPT + SERVE_DECODE
+    state = {"cache": init_cache(cfg, SERVE_REQUESTS, slots,
+                                 fill_len=slots - 10, device=DEVICE)}
+
+    def decode():
+        _, state["cache"] = step(model, {"tokens": tok,
+                                         "cache": state["cache"]})
+
+    def long_prefill():
+        prefill(model, {"tokens": tokens})
+
+    for _ in range(2):
+        decode()
+    out = {}
+    for label, n, fn in (("decode", 8, decode), ("prefill", 1, long_prefill)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        busy_ms, rows = trace_device_time(prof, label)
+        (ROOT / "chiprun_out" / f"chip_smoke_trace_{label}.json").unlink()
+        out[label] = {"calls": n, "wall_ms": wall_ms,
+                      "device_busy_ms": busy_ms,
+                      "device_busy_share": busy_ms / wall_ms,
+                      "device_ms_by_op": rows[:12]}
+        print(f"profile ({label}, {n} call{'s' * (n > 1)}): wall "
+              f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+              f"({100 * busy_ms / wall_ms:.1f}%)")
+        for name, ms in rows[:12]:
+            print(f"  {ms:9.3f} ms  {name[:90]}")
+    report["model_profile"] = out
 
 
 def main(argv=None) -> int:
@@ -1250,8 +1701,12 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the port's sources are missing ({exc}); run "
               "from the repository root", file=sys.stderr)
         return 2
+    # the plain versions and the model's float32 products compare in full
+    # float32 (TF32 keeps about three decimal digits)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     report: dict = {"seed": args.seed, "torch": torch.__version__,
-                    "cuda": torch.version.cuda}
+                    "cuda": torch.version.cuda, "allow_tf32": False}
     t_all = time.perf_counter()
     gpu = gpu_line(torch)
     report["gpu"] = gpu
@@ -1259,6 +1714,7 @@ def main(argv=None) -> int:
     phase_small(torch, np, report)
     phase_segments(torch, np, report)
     phase_gather_bitmap_small(torch, np, report)
+    phase_model_small(torch, report)
     store, w, tree = make_store(np, args.seed, report)
     waves = wave_traffic(np, args.seed, args.waves, store.graph.n_versions)
     phase_main(torch, np, store, waves, report)
@@ -1277,6 +1733,16 @@ def main(argv=None) -> int:
     captured = phase_write(torch, np, w, tree, args.seed,
                            dict(TRIGGER, min_waves=args.min_waves), report)
     seg = phase_write_timing(torch, np, captured, report)
+    del captured, w, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = phase_serve(torch, args.seed, report)
+    model_inputs = phase_long_prefill(torch, model, args.seed, report)
+    phase_model_profile(torch, model, args.seed, report)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model_t = phase_model_timing(torch, model_inputs, report)
     report["total_s"] = time.perf_counter() - t_all
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -1301,6 +1767,12 @@ def main(argv=None) -> int:
             **{k: timed[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                            "bound_ms", "library_ms")},
             bound_by=timed[name].get("bound_by", "bytes"))
+    for name in ("flash_attention", "ssd_scan"):
+        rows[name] = dict(
+            launches=report["serve"]["launches"]["prefill"][name],
+            **{k: model_t[name][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                             "bound_ms", "bound_by",
+                                             "library_ms")})
     kernels = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/csrc/{lib}.cu", "replaces": replaces,

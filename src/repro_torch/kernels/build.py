@@ -107,18 +107,23 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-# The two binding shapes of the port's C entry points; each returns a
+# The binding shapes of the port's C entry points; each returns a
 # ``cudaError_t``.  Tile copies (``launch_tiles`` in ``csrc/tile_launch.cuh``):
 # four input pointers, the output, the tile count, BN, the row bytes and the
 # stream.  Bitmap kernels (``csrc/membership_scan.cu``,
 # ``csrc/version_aggregate.cu``): the bitmap, the values, two outputs, R, W,
-# BR, vid and the stream.
+# BR, vid and the stream.  Flash attention (``csrc/flash_attention.cu``):
+# q, k, v, out, then B, Sq, Sk, H, Hkv, Dh, causal, dtype (0 float32,
+# 1 bfloat16) and the stream.  The SSD scan (``csrc/ssd_scan.cu``): xs, B, C,
+# dt, a, y, the final state, then B, L, H, P, N, Q, dtype and the stream.
 TILE_ARGS = ([ctypes.c_void_p] * 5
              + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                 ctypes.c_void_p])
 BITMAP_ARGS = ([ctypes.c_void_p] * 4
                + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                   ctypes.c_void_p])
+FLASH_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+SSD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def _bind(name: str, entry: str, argtypes):
@@ -141,6 +146,19 @@ def bitmap_fn(name: str):
     """The bitmap kernel ``<name>_launch`` of library ``name``, built and
     bound on first use, with the ``BITMAP_ARGS`` signature."""
     return _bind(name, f"{name}_launch", BITMAP_ARGS)
+
+
+@functools.lru_cache(maxsize=None)
+def flash_fn():
+    """``flash_attention_launch``, built and bound on first use
+    (``FLASH_ARGS``)."""
+    return _bind("flash_attention", "flash_attention_launch", FLASH_ARGS)
+
+
+@functools.lru_cache(maxsize=None)
+def ssd_fn():
+    """``ssd_scan_launch``, built and bound on first use (``SSD_ARGS``)."""
+    return _bind("ssd_scan", "ssd_scan_launch", SSD_ARGS)
 
 
 def check_launch(err: int, what: str) -> None:

@@ -13,8 +13,10 @@ import torch
 from . import build as _build
 from . import checkout_batched as _cb
 from . import checkout_gather as _cg
+from . import flash_attention as _fa
 from . import segment_append as _sa
 from . import segment_move as _sm
+from . import ssd_scan as _ss
 from . import version_agg as _va
 from . import vlist_membership as _vm
 
@@ -276,6 +278,9 @@ def version_aggregate(bitmap, values, *, block_r: int = _va.DEFAULT_BR,
     return _va.version_aggregate(words, values, block_r=br)
 
 
+# forward only: the reference's blockwise flash backward is training
+flash_attention = _fa.flash_attention
+ssd_scan = _ss.ssd_scan
 build_bitmap = _vm.build_bitmap
 plan_tiles = _cg.plan_tiles
 plan_batched = _cb.plan_batched

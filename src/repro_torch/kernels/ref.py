@@ -45,3 +45,31 @@ def version_aggregate_ref(bitmap: torch.Tensor,
     out = torch.einsum("rwb,r->wb", bits.to(torch.float32),
                        values.to(torch.float32))
     return out.reshape(w * 32)
+
+
+def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """Materialised-softmax GQA attention oracle for flash_attention, with
+    the reference's rounding: the probabilities are cast to q's dtype
+    before ``p·v``.  q: (B,Sq,H,Dh); k/v: (B,Sk,Hkv,Dh); query i sits at
+    position ``q_offset + i`` (the model's decode step against its cache)."""
+    b, sq, h, dh = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, sq, hkv, g, dh)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() * dh ** -0.5
+    if causal:
+        qpos = torch.arange(sq, device=q.device) + q_offset
+        m = torch.arange(k.shape[1], device=q.device)[None, :] <= qpos[:, None]
+        logits = torch.where(m[None, None, None], logits, -1e30)
+    p = torch.softmax(logits, -1).to(q.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v)
+    return out.reshape(b, sq, h, dh)
+
+
+def ssd_chunk_ref(xs, bmat, cmat, dt, a, chunk: int = 256) -> torch.Tensor:
+    """Chunked-SSD oracle mirroring models/ssd.ssd_forward's scan math;
+    returns y only, in xs's dtype, as the reference oracle does.
+    xs: (B,L,H,P); bmat/cmat: (B,L,N); dt: (B,L,H) post-softplus; a: (H,)."""
+    from .ssd_scan import ssd_scan_plain
+    return ssd_scan_plain(xs, bmat, cmat, dt, a, chunk)[0]

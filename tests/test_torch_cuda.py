@@ -1,9 +1,10 @@
 """The port on the card: the CUDA ``checkout_wave``, ``segment_append``,
-``segment_move``, ``gather_rows``, ``gather_row_tiles``, ``membership_scan``
-and ``version_aggregate`` against their plain torch versions, and the wave
-engine, the server, the online write path (commit waves, a migration), a
-``VersionedDataset`` and the bitmap analytics on a CUDA store against
-numpy.  This file imports neither jax nor the JAX package, so it runs on
+``segment_move``, ``gather_rows``, ``gather_row_tiles``, ``membership_scan``,
+``version_aggregate``, ``flash_attention`` and ``ssd_scan`` against their
+plain torch versions, and the wave engine, the server, the online write
+path (commit waves, a migration), a ``VersionedDataset``, the bitmap
+analytics on a CUDA store against numpy, and a ``SMOKE``-size model forward
+through both model kernels.  This file imports neither jax nor the JAX package, so it runs on
 a machine with a GPU and no jax:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -18,11 +19,14 @@ import repro_torch.core.partition as part
 import repro_torch.kernels.build as build
 import repro_torch.kernels.checkout_batched as cb
 import repro_torch.kernels.checkout_gather as cg
+import repro_torch.kernels.flash_attention as fa
 import repro_torch.kernels.ops as ops
+import repro_torch.kernels.ssd_scan as ss
 import repro_torch.kernels.version_agg as va
 import repro_torch.kernels.vlist_membership as vm
 import repro_torch.kernels.segment_append as sa
 import repro_torch.kernels.segment_move as sm
+from repro_torch import configs
 from repro_torch.core import generate, store_from_arrays
 from repro_torch.core.checkout import (checkout_wave,
                                        estimate_superblock_bytes,
@@ -31,6 +35,8 @@ from repro_torch.core.lyresplit import lyresplit_for_budget
 from repro_torch.core.partition import plan_migration
 from repro_torch.core.version_graph import to_tree
 from repro_torch.data import VersionedDataset
+from repro_torch.launch.serve import prefill_bound
+from repro_torch.models import forward, init_params
 from repro_torch.serve import BatchedCheckoutServer, RetryPolicy
 
 pytestmark = pytest.mark.cuda
@@ -445,3 +451,143 @@ def test_cuda_versioned_dataset_matches_numpy(cuda_device):
     sizes = ops.version_aggregate(bm, np.ones(w.n_records), device=cuda_device)
     assert sizes.cpu()[:w.n_versions].tolist() == \
         w.graph.version_sizes().tolist()
+
+
+# flash cases: (B, Sq, Sk, H, Hkv, Dh, causal) — GQA groups 1, 2, 4 and
+# MQA; Dh 16, 32, 64, 80, 128 and 256; S from 16 to 1024, and lengths off
+# the kernel's 64-row tiles and the TPU kernel's 128 (200, 77, Sk 192, 328)
+FLASH_CASES = [(2, 256, 256, 4, 4, 64, True), (1, 512, 512, 4, 2, 128, True),
+               (2, 128, 128, 8, 2, 80, False),
+               (1, 1024, 1024, 4, 1, 80, True),
+               (1, 384, 384, 2, 2, 256, True), (2, 16, 16, 4, 4, 16, True),
+               (1, 256, 256, 6, 3, 80, False), (1, 200, 200, 4, 2, 64, True),
+               (2, 77, 77, 2, 1, 80, True), (1, 128, 192, 4, 4, 32, False),
+               (1, 200, 328, 2, 2, 128, False)]
+# the reference's tolerances (tests/test_flash_attention.py,
+# tests/test_ssd_kernel.py): the kernel and the plain version sum in
+# different orders; bf16 outputs are one rounding apart at most
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
+
+
+def _randn(shape, seed, dtype, device, scale=1.0):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(shape, generator=g) * scale).to(dtype).to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_cuda_flash_attention_matches_plain(cuda_device, case, dtype):
+    b, sq, sk, h, hkv, dh, causal = case
+    q = _randn((b, sq, h, dh), 1, dtype, cuda_device)
+    k = _randn((b, sk, hkv, dh), 2, dtype, cuda_device)
+    v = _randn((b, sk, hkv, dh), 3, dtype, cuda_device)
+    before = fa.LAUNCHES
+    got = ops.flash_attention(q, k, v, causal)
+    assert fa.LAUNCHES == before + 1
+    want = fa.flash_attention_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=FLASH_TOL[dtype], rtol=FLASH_TOL[dtype])
+
+
+# ssd cases: (B, L, H, P, N, chunk) — chunk 16, 64, 256; N 16, 64, 128;
+# P 16, 64; 1 to 8 chunks
+SSD_CASES = [(2, 256, 4, 64, 128, 128), (1, 512, 2, 64, 64, 256),
+             (2, 128, 8, 16, 16, 16), (1, 512, 3, 64, 128, 64),
+             (1, 256, 2, 16, 64, 256)]
+
+
+def _ssd_inputs(b, l, h, p, n, dtype, device, seed=0):
+    xs = _randn((b, l, h, p), seed, dtype, device)
+    bm = _randn((b, l, n), seed + 1, dtype, device, 0.3)
+    cm = _randn((b, l, n), seed + 2, dtype, device, 0.3)
+    dt = torch.nn.functional.softplus(
+        _randn((b, l, h), seed + 3, torch.float32, device)).to(dtype)
+    a = -torch.exp(_randn((h,), seed + 4, torch.float32, device, 0.2))
+    return xs, bm, cm, dt, a
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", SSD_CASES, ids=str)
+def test_cuda_ssd_scan_matches_plain(cuda_device, case, dtype):
+    b, l, h, p, n, chunk = case
+    args = _ssd_inputs(b, l, h, p, n, dtype, cuda_device)
+    before = ss.LAUNCHES
+    y, state = ops.ssd_scan(*args, chunk=chunk)
+    assert ss.LAUNCHES == before + 1
+    y_want, state_want = ss.ssd_scan_plain(*args, chunk)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and state.dtype == torch.float32
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(y.float(), y_want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(state, state_want, atol=tol, rtol=tol)
+
+
+def test_cuda_ssd_scan_carries_the_state(cuda_device):
+    """Decay about 1 and x zero past the first chunk: the last chunks see
+    only the carried state (tests/test_ssd_kernel.py's case)."""
+    b, l, h, p, n = 1, 256, 2, 32, 64
+    xs = torch.zeros((b, l, h, p), device=cuda_device)
+    xs[:, :64] = _randn((b, 64, h, p), 0, torch.float32, cuda_device)
+    bm = _randn((b, l, n), 1, torch.float32, cuda_device, 0.3)
+    cm = _randn((b, l, n), 2, torch.float32, cuda_device, 0.3)
+    dt = torch.full((b, l, h), 0.05, device=cuda_device)
+    a = torch.full((h,), -0.01, device=cuda_device)
+    y, _ = ops.ssd_scan(xs, bm, cm, dt, a, chunk=64)
+    want, _ = ss.ssd_scan_plain(xs, bm, cm, dt, a, 64)
+    torch.cuda.synchronize()
+    assert float(y[:, 200:].abs().max()) > 1e-4
+    torch.testing.assert_close(y, want, atol=2e-4, rtol=2e-4)
+
+
+def test_cuda_model_kernels_refuse(cuda_device):
+    """The contract is checked before any launch (PlanError), and the C
+    entry points refuse on their own (KernelError)."""
+    q = torch.zeros((1, 128, 2, 64), device=cuda_device)
+    with pytest.raises(build.PlanError, match="multiple of Hkv"):
+        ops.flash_attention(q, q[:, :, :1].repeat(1, 1, 3, 1),
+                            q[:, :, :1].repeat(1, 1, 3, 1))   # H 2, Hkv 3
+    wide = torch.zeros((1, 128, 2, 512), device=cuda_device)
+    with pytest.raises(build.PlanError, match="head_dim"):
+        ops.flash_attention(wide, wide, wide)
+    args = _ssd_inputs(1, 96, 2, 16, 16, torch.float32, cuda_device)
+    with pytest.raises(build.PlanError, match="multiple"):
+        ops.ssd_scan(*args, chunk=64)                # 96 % 64
+    big = _ssd_inputs(1, 64, 2, 16, 256, torch.float32, cuda_device)
+    with pytest.raises(build.PlanError, match="d_state"):
+        ops.ssd_scan(*big, chunk=64)
+    fn = build.flash_fn()
+    stream = torch.cuda.current_stream().cuda_stream
+    ptr = q.data_ptr()
+    assert fn(ptr, ptr, ptr, ptr, 1, 128, 128, 3, 2, 64, 1, 0, stream) != 0
+
+
+@pytest.mark.parametrize("arch", ["zamba2_2_7b", "internlm2_1_8b",
+                                  "mamba2_780m"])
+def test_cuda_smoke_forward_runs_both_kernels(cuda_device, arch):
+    """A SMOKE-size forward on the card launches flash_attention once per
+    self-attention and ssd_scan once per SSD layer, and agrees with the
+    same weights' forward on the CPU within bf16's rounding (the bound the
+    serve driver holds its prefill to)."""
+    cfg = configs.smoke(arch)
+    model = init_params(cfg, torch.Generator().manual_seed(0), cuda_device)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 64),
+                           generator=torch.Generator().manual_seed(1))
+    before = (fa.LAUNCHES, ss.LAUNCHES)
+    with torch.inference_mode():
+        got = forward(model, {"tokens": tokens.to(cuda_device)}, cfg)
+        want = forward(cpu, {"tokens": tokens}, cfg)
+    torch.cuda.synchronize()
+    n_attn = {"dense": cfg.n_layers, "ssm": 0,
+              "hybrid": cfg.n_layers // max(cfg.shared_every, 1)}[cfg.family]
+    n_ssd = 0 if cfg.family == "dense" else cfg.n_layers
+    assert (fa.LAUNCHES - before[0], ss.LAUNCHES - before[1]) == (n_attn,
+                                                                   n_ssd)
+    assert torch.isfinite(got).all()
+    rel = (got.float().cpu() - want.float()).norm() / want.float().norm()
+    assert rel <= prefill_bound(cfg), rel

@@ -15,7 +15,11 @@ import torch
 
 import repro_torch.core.partition as part
 import repro_torch.kernels.ops as ops
+from repro_torch import configs
 from repro_torch.core.bench_gen import generate
+from repro_torch.launch import serve as serve_driver
+from repro_torch.models import from_reference, init_params
+from repro_torch.serve.serve_step import make_prefill_step
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -36,7 +40,7 @@ def test_every_submodule_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], check=True,
                          capture_output=True, text=True,
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 41
 
 
 def _imports(path: Path):
@@ -79,6 +83,20 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert store.device == torch.device("cpu")
     with pytest.raises(ValueError):
         ops.resolve_device("meta")
+    cfg = configs.smoke("zamba2_2_7b")
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(cfg, gen)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        from_reference(cfg, {})         # refused before the tree is read
+    model = init_params(cfg, gen, "cpu")
+    prefill = make_prefill_step(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        prefill(model, {"tokens": torch.zeros((1, 16), dtype=torch.int32)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_driver.serve(cfg, requests=1, prompt_len=16, decode_steps=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_driver.main(["--arch", "zamba2_2_7b", "--reduced"])
 
 
 def _run_smoke(cwd: Path, script: Path, prelude: str = ""):
