@@ -53,11 +53,12 @@ Phases, each of which raises on failure:
    and ``segment_move`` at the real migration's, kernel against plain
    version, ``torch.index_select`` and the bandwidth bound;
 10. model kernels vs plain (run after phase 2) — ``flash_attention`` (GQA
-    groups 1-4 and MQA, Dh 16-128, S 128-1024 and lengths off the tiles,
-    causal or not) and
-    ``ssd_scan`` (chunk 16-256, N 16-128, P 16 and 64, 1-8 chunks, a
-    decay-about-1 state-carry case) against their plain versions in
-    float32 and bfloat16, allclose at the reference's tolerances; an SSD
+    groups 1-4 and MQA, Dh 16-128, S 128-4173 and lengths off the tiles,
+    causal or not; the instance each bf16 case ran) and
+    ``ssd_scan`` (chunk 16-256, N 16-128, P 16 and 64, 1-16 chunks, a
+    decay-about-1 state-carry case in both dtypes) against their plain
+    versions in float32 and bfloat16, allclose at the reference's
+    tolerances; an SSD
     sequence off its chunk, a head_dim of 512 and H not a multiple of Hkv
     must raise PlanError;
 11. serve path — Zamba2-2.7B at full width and depth (2.34 B parameters
@@ -72,7 +73,9 @@ Phases, each of which raises on failure:
     decode steps and one long prefill (device busy share, time by kernel);
 13. model kernel timings — both kernels at the long prefill's first
     shared attention's and first SSD layer's inputs: kernel, plain,
-    ``scaled_dot_product_attention`` (flash) and the bound.
+    ``scaled_dot_product_attention`` (flash), the bound and each design's
+    own floor (flash's products with P·V twice; the scan's bytes with its
+    float32 chunk states).
 
 Phases 3, 5, 6, 8, 11 and 12 each set every kernel's launch count to 0
 just before they drive their path and read the counts just after;
@@ -142,6 +145,10 @@ SERVE_PROMPT = 512               # of 512 tokens, then 32 greedy tokens
 SERVE_DECODE = 32
 LONG_BATCH = 4                   # the long prefill: prefill_32k (B 32,
 LONG_SEQ = 4096                  # S 32768) cut to one card and the time
+# the device kernels the long prefill runs through the two model kernels'
+# wrappers (bf16): the flash instance and the SSD's three passes
+MODEL_KERNEL_NAMES = ("flash_fwd_wgmma_kernel", "ssd_chunk_state_kernel",
+                      "ssd_state_pass_kernel", "ssd_chunk_scan_kernel")
 # kernel vs plain, per dtype: the reference's own tolerances
 # (tests/test_flash_attention.py, tests/test_ssd_kernel.py); the two sum
 # in different orders, and a bf16 output is one rounding
@@ -1224,7 +1231,7 @@ def phase_dataset_analytics_timing(torch, np, store, vids, inputs: dict,
 
 
 def trace_device_time(prof, label: str) -> tuple:
-    """(device busy ms, [(op, device ms)] largest first) of a
+    """(device busy ms, [(op, device ms, launches)] largest first) of a
     torch.profiler run, read off its trace (written to
     chiprun_out/chip_smoke_trace_<label>.json): busy is the union of the
     kernel, copy and memset intervals."""
@@ -1239,14 +1246,16 @@ def trace_device_time(prof, label: str) -> tuple:
     busy_us, cur = 0.0, None          # union of device intervals
     by_op: dict = {}
     for s0, s1, name in dev:
-        by_op[name] = by_op.get(name, 0.0) + (s1 - s0) / 1e3
+        ms, n = by_op.get(name, (0.0, 0))
+        by_op[name] = (ms + (s1 - s0) / 1e3, n + 1)
         if cur is None or s0 > cur[1]:
             busy_us += 0 if cur is None else cur[1] - cur[0]
             cur = [s0, s1]
         else:
             cur[1] = max(cur[1], s1)
     busy_ms = (busy_us + cur[1] - cur[0]) / 1e3
-    return busy_ms, sorted(by_op.items(), key=lambda kv: -kv[1])
+    return busy_ms, sorted(((name, ms, n) for name, (ms, n) in by_op.items()),
+                           key=lambda row: -row[1])
 
 
 def phase_profile(torch, store, waves, report: dict, label: str) -> None:
@@ -1276,7 +1285,7 @@ def phase_profile(torch, store, waves, report: dict, label: str) -> None:
                          "device_ms_by_op": rows}
     print(f"profile ({label}): {len(waves)} waves in {wall_ms:.1f} ms, "
           f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%)")
-    for name, ms in rows:
+    for name, ms, _ in rows:
         print(f"  {ms:9.3f} ms  {name[:90]}")
 
 
@@ -1289,29 +1298,35 @@ def _close_err(got, want, tol: float) -> tuple:
 
 def flash_cases(torch):
     """(B, Sq, Sk, H, Hkv, Dh, causal, dtype): GQA groups 1, 2, 4 and 3 and
-    MQA; Dh 16, 32, 64, 80 and 128; S from 128 to 1024, and lengths off the
-    tiles (200, and Sk 192 against Sq 128); causal and not; float32 and
-    bfloat16."""
+    MQA; Dh 16, 32, 64, 80 and 128 (bf16: the wgmma instance), 72 and 256
+    (bf16: the mma.sync instance); S from 128 to 4096 + 77, and lengths
+    off the 128- and 64-row tiles (200, 4173, 130, 300 against Sk 136, and
+    Sk 192 against Sq 128); causal and not; float32 and bfloat16."""
     shapes = [(2, 128, 128, 4, 4, 16, True), (1, 256, 256, 8, 4, 64, False),
               (2, 512, 512, 8, 2, 80, True), (1, 1024, 1024, 4, 1, 128, True),
               (1, 384, 384, 6, 2, 80, False), (1, 200, 200, 4, 2, 64, True),
-              (1, 128, 192, 4, 4, 32, False)]
+              (1, 128, 192, 4, 4, 32, False), (1, 4173, 4173, 2, 1, 80, True),
+              (2, 300, 136, 4, 2, 64, False), (1, 200, 200, 8, 2, 128, True),
+              (1, 130, 130, 4, 2, 72, True), (1, 384, 384, 2, 2, 256, True)]
     return [s + (dt,) for s in shapes
             for dt in (torch.float32, torch.bfloat16)]
 
 
 def ssd_cases(torch):
-    """(B, L, H, P, N, chunk, dtype): chunk 16, 64 and 256; N 16, 64 and
-    128; P 16 and 64; 1 to 8 chunks; float32 and bfloat16."""
+    """(B, L, H, P, N, chunk, dtype): chunk 16, 64 and 256 (1 and 16
+    chunks of 256); N 16, 64 and 128; P 16 and 64; float32 and
+    bfloat16."""
     shapes = [(2, 128, 4, 16, 16, 16), (1, 256, 3, 64, 64, 64),
-              (2, 256, 2, 64, 128, 256), (1, 512, 2, 16, 128, 64)]
+              (2, 256, 2, 64, 128, 256), (1, 512, 2, 16, 128, 64),
+              (1, 4096, 2, 64, 64, 256), (1, 4096, 2, 64, 128, 256)]
     return [s + (dt,) for s in shapes
             for dt in (torch.float32, torch.bfloat16)]
 
 
 def phase_model_small(torch, report: dict) -> None:
     """The two model kernels against their plain versions on hand-made
-    inputs (allclose at the reference's tolerance per dtype), the
+    inputs (allclose at the reference's tolerance per dtype; every flash
+    instance reached, and a bf16 q that starts off a 16-byte boundary), the
     decay-about-1 SSD case in which only the carried state feeds the last
     chunks, and the operands the contract refuses: an SSD sequence that is
     not a multiple of its chunk, a head_dim of 512 and H not a multiple of
@@ -1325,10 +1340,13 @@ def phase_model_small(torch, report: dict) -> None:
         return (torch.randn(shape, generator=gen) * scale).to(dtype).to(DEVICE)
 
     worst: dict = {}
+    instances: dict = {}
     n = 0
     for b, sq, sk, h, hkv, dh, causal, dtype in flash_cases(torch):
         q = randn((b, sq, h, dh), dtype)
         k, v = randn((b, sk, hkv, dh), dtype), randn((b, sk, hkv, dh), dtype)
+        which = fa.instance(q, k, v)
+        instances[which] = instances.get(which, 0) + 1
         got = ops.flash_attention(q, k, v, causal)
         want = fa.flash_attention_plain(q, k, v, causal)
         torch.cuda.synchronize()
@@ -1338,6 +1356,28 @@ def phase_model_small(torch, report: dict) -> None:
         key = f"flash_attention {dtype}"
         worst[key] = max(worst.get(key, 0.0), err)
         n += 1
+    missing = set(fa.INSTANCES.values()) - set(instances)
+    if missing:
+        raise AssertionError(f"no flash case reached the {sorted(missing)} "
+                             f"instance(s): {instances}")
+    # a q that starts 2 bytes off a 16-byte boundary: the wrapper copies
+    # it, and the wgmma instance runs
+    q = randn((1, 256, 4, 80), torch.bfloat16)
+    k, v = (randn((1, 256, 2, 80), torch.bfloat16) for _ in range(2))
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=DEVICE)
+    shifted = flat[1:].view(q.shape)
+    shifted.copy_(q)
+    which = fa.instance(shifted, k, v)
+    got = ops.flash_attention(shifted, k, v, True)
+    want = fa.flash_attention_plain(shifted, k, v, True)
+    torch.cuda.synchronize()
+    ok, err = _close_err(got, want, FLASH_TOL[str(q.dtype)])
+    if not ok or which != "wgmma":
+        raise AssertionError(f"flash_attention on a q off 16 bytes: {which} "
+                             f"instance, max abs err {err}")
+    worst["flash_attention torch.bfloat16"] = max(
+        worst["flash_attention torch.bfloat16"], err)
+    n += 1
     for b, l, h, p, nn, chunk, dtype in ssd_cases(torch):
         xs = randn((b, l, h, p), dtype)
         bm, cm = randn((b, l, nn), dtype, 0.3), randn((b, l, nn), dtype, 0.3)
@@ -1356,19 +1396,22 @@ def phase_model_small(torch, report: dict) -> None:
         worst[key] = max(worst.get(key, 0.0), err_y)
         n += 1
     # decay about 1, x zero past the first chunk: chunks 3-4 see only the
-    # carried state
-    xs = torch.zeros((1, 256, 2, 32), device=DEVICE)
-    xs[:, :64] = randn((1, 64, 2, 32), torch.float32)
-    bm, cm = (randn((1, 256, 64), torch.float32, 0.3) for _ in range(2))
-    dt = torch.full((1, 256, 2), 0.05, device=DEVICE)
-    a = torch.full((2,), -0.01, device=DEVICE)
-    y, _ = ops.ssd_scan(xs, bm, cm, dt, a, chunk=64)
-    y_want, _ = ss.ssd_scan_plain(xs, bm, cm, dt, a, 64)
-    torch.cuda.synchronize()
-    ok, err = _close_err(y, y_want, 2e-4)
-    if not ok or float(y[:, 200:].abs().max()) <= 1e-4:
-        raise AssertionError(f"ssd_scan lost the carried state (err {err})")
-    n += 1
+    # carried state (float32: the FMA instance; bf16: the state passing)
+    for dtype in (torch.float32, torch.bfloat16):
+        xs = torch.zeros((1, 256, 2, 32), device=DEVICE, dtype=dtype)
+        xs[:, :64] = randn((1, 64, 2, 32), dtype)
+        bm, cm = (randn((1, 256, 64), dtype, 0.3) for _ in range(2))
+        dt = torch.full((1, 256, 2), 0.05, device=DEVICE, dtype=dtype)
+        a = torch.full((2,), -0.01, device=DEVICE)
+        y, _ = ops.ssd_scan(xs, bm, cm, dt, a, chunk=64)
+        y_want, _ = ss.ssd_scan_plain(xs, bm, cm, dt, a, 64)
+        torch.cuda.synchronize()
+        ok, err = _close_err(y, y_want, 2e-4 if dtype == torch.float32
+                             else SSD_TOL[str(dtype)])
+        if not ok or float(y[:, 200:].float().abs().max()) <= 1e-4:
+            raise AssertionError(f"ssd_scan {dtype} lost the carried state "
+                                 f"(err {err})")
+        n += 1
     refused = 0
     for what, fn in (
             ("H 2 over Hkv 3", lambda: ops.flash_attention(
@@ -1389,9 +1432,10 @@ def phase_model_small(torch, report: dict) -> None:
             continue
         raise AssertionError(f"a model kernel took {what}")
     report["model_small"] = {"cases": n, "refused": refused,
-                             "max_abs_err": worst}
+                             "max_abs_err": worst,
+                             "flash_instances": instances}
     print(f"model kernels vs plain: {n} hand-made cases within tolerance "
-          f"(max abs err {', '.join(f'{k} {v:.2e}' for k, v in worst.items())}), {refused} refused")
+          f"(max abs err {', '.join(f'{k} {v:.2e}' for k, v in worst.items())}), {refused} refused; flash instances {instances}")
 
 
 def phase_serve(torch, seed: int, report: dict):
@@ -1560,11 +1604,14 @@ def phase_model_timing(torch, captured: dict, report: dict) -> dict:
     lib_err = float((sdpa().transpose(1, 2).float()
                      - fa.flash_attention_plain(q, k, v, causal).float()
                      ).abs().max())
+    pairs = s * (s + 1) // 2 if causal else s * s
     out["flash_attention"] = {
         "shape": [b, s, h, hkv, dh], "causal": causal, "dtype": str(q.dtype),
+        "instance": fa.instance(q, k, v),
         "bytes_min": (2 * b * s * h * dh + 2 * b * s * hkv * dh) * esz,
-        "operations": 4 * b * h * dh * (s * (s + 1) // 2 if causal
-                                        else s * s),
+        "operations": 4 * b * h * dh * pairs,
+        # the design's own products: P V twice (P as hi + lo bf16 terms)
+        "design_operations": 6 * b * h * dh * pairs,
         "max_abs_err": err, "library_max_abs_err": lib_err,
         "rel_l2_vs_float32": rel_l2,
         "ms": cuda_ms(torch, lambda: fa._launch(q, k, v, causal), 5),
@@ -1583,10 +1630,18 @@ def phase_model_timing(torch, captured: dict, report: dict) -> dict:
     del y, st, y_want, st_want
     b, l, h, p = xs.shape
     n = bm.shape[2]
+    esz = xs.element_size()
+    chunk_states = b * (l // chunk) * h * p * n * 4
     out["ssd_scan"] = {
         "shape": [b, l, h, p, n, chunk], "dtype": str(xs.dtype),
-        "bytes_min": (2 * b * l * h * p + 2 * b * l * n) * xs.element_size()
+        "bytes_min": (2 * b * l * h * p + 2 * b * l * n) * esz
         + b * l * h * dt.element_size() + h * a.element_size()
+        + b * h * p * n * 4,
+        # the bf16 design's own traffic: x, B and dt read again by the
+        # output pass, the float32 chunk states written, read and written,
+        # and read again
+        "design_bytes": (3 * b * l * h * p + 3 * b * l * n) * esz
+        + 2 * b * l * h * dt.element_size() + 4 * chunk_states
         + b * h * p * n * 4,
         "operations": b * (l // chunk) * chunk * (chunk + 1) * (n + h * p)
         + b * h * 2 * p * n * (2 * l - chunk),
@@ -1604,6 +1659,10 @@ def phase_model_timing(torch, captured: dict, report: dict) -> dict:
         o["bound_by"] = "bytes" if o["bytes_ms"] >= o["ops_ms"] else \
             "operations"
         o["achieved_tflops"] = o["operations"] / o["ms"] / 1e9
+        if "design_bytes" in o:
+            o["design_floor_ms"] = 1e3 * o["design_bytes"] / HBM_BYTES_PER_S
+        if "design_operations" in o:
+            o["design_floor_ms"] = 1e3 * o["design_operations"] / rate
         lib = ("none: no single call" if o["library_ms"] is None else
                f"scaled_dot_product_attention {o['library_ms']:.3f} ms")
         print(f"{name} {o['shape']} {o['dtype']} ({o['bytes_min'] / 1e6:.1f} "
@@ -1612,7 +1671,10 @@ def phase_model_timing(torch, captured: dict, report: dict) -> dict:
               f"{o['plain_ms']:.3f} ms, {lib}, bound {o['bound_ms']:.4f} ms "
               f"({o['bound_by']}); max abs err vs plain {o['max_abs_err']:.3e}"
               + (f", rel L2 vs float32 {o['rel_l2_vs_float32']:.3e}"
-                 if "rel_l2_vs_float32" in o else ""))
+                 if "rel_l2_vs_float32" in o else "")
+              + (f"; instance {o['instance']}" if "instance" in o else "")
+              + (f"; design floor {o['design_floor_ms']:.4f} ms"
+                 if "design_floor_ms" in o else ""))
     captured.clear()
     torch.cuda.synchronize()
     report["model_timing"] = out
@@ -1623,9 +1685,10 @@ def phase_model_profile(torch, model, seed: int, report: dict) -> None:
     """Where the serve path's device time goes: torch.profiler over 8
     decode steps of B = 4 at the serve phase's cache length (after 2
     unprofiled ones) and over one long prefill (B = 4, S = 4096): wall ms,
-    device busy ms and share, and the device ms by kernel (each trace is
+    device busy ms and share, the device ms by kernel (each trace is
     read and deleted: together they pass the 64 MiB a chip call brings
-    back)."""
+    back), and by name the rows of the port's own model kernels
+    (``MODEL_KERNEL_NAMES``), which the prefill must show."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import configs
     from repro_torch.models import init_cache
@@ -1665,15 +1728,25 @@ def phase_model_profile(torch, model, seed: int, report: dict) -> None:
             wall_ms = 1e3 * (time.perf_counter() - t0)
         busy_ms, rows = trace_device_time(prof, label)
         (ROOT / "chiprun_out" / f"chip_smoke_trace_{label}.json").unlink()
+        own = {key: [(ms, k) for name, ms, k in rows if key in name]
+               for key in MODEL_KERNEL_NAMES}
+        own = {key: (sum(ms for ms, _ in hits), sum(k for _, k in hits))
+               for key, hits in own.items() if hits}
         out[label] = {"calls": n, "wall_ms": wall_ms,
                       "device_busy_ms": busy_ms,
                       "device_busy_share": busy_ms / wall_ms,
-                      "device_ms_by_op": rows[:12]}
+                      "device_ms_by_op": rows[:12],
+                      "model_kernels": own}
         print(f"profile ({label}, {n} call{'s' * (n > 1)}): wall "
               f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
               f"({100 * busy_ms / wall_ms:.1f}%)")
-        for name, ms in rows[:12]:
+        for name, ms, _ in rows[:12]:
             print(f"  {ms:9.3f} ms  {name[:90]}")
+        for key, (ms, k) in own.items():
+            print(f"  model kernel {key}: {ms:.3f} ms in {k} launches")
+        lacking = sorted(set(MODEL_KERNEL_NAMES) - set(own))
+        if label == "prefill" and lacking:
+            raise AssertionError(f"the long prefill's trace lacks {lacking}")
     report["model_profile"] = out
 
 

@@ -11,40 +11,59 @@
 //
 // The TPU kernel walks a (B*H, Sq/BQ, Sk/BK) grid whose trailing key axis runs in order, so
 // its VMEM scratch (acc, row max m, row sum l) carries from one key tile to the next.  Hopper
-// blocks run in no order, so here one block (4 warps) owns one (batch*head, 64-row query tile)
-// and loops over the 64-row key tiles itself, the online-softmax state on chip.  With `causal`
-// the loop stops at the tile holding the diagonal, and the query tiles are issued
-// longest-first, so the short causal rows fill the tail of the grid.  Scores outside the mask
-// are -1e30 (NEG_INF) and a zero row sum divides by 1, as in the TPU kernel.  The kernel reads
-// q, k and v in their (B, S, H, Dh) layout through row strides: no transposed copy is made.
-// Sq and Sk are any positive lengths (the TPU kernel takes multiples of its 128-row tiles):
-// rows past Sq or Sk load as zeros, keys past Sk are masked, rows past Sq are not written.
-// Dh is a runtime value up to 256, zero-padded to the instance's width.  Two instances by
-// dtype:
-//   * bfloat16 (the model's path): flash_fwd_mma_kernel, both products on the tensor cores
-//     (mma.sync m16n8k16, float32 accumulators), everything per warp in registers.  The TPU
-//     kernel multiplies float32 probabilities by V; a bf16 mma takes bf16 operands, so each
-//     probability goes in as the pair hi = bf16(p), lo = bf16(p - hi) (two mma for P V, 16
-//     significant bits of p, relative error at most 2^-17), not rounded to 8 bits.
+// blocks run in no order, so here one block owns one (batch*head, query tile) and loops over
+// the key tiles itself, the online-softmax state on chip.  With `causal` the loop stops at the
+// tile holding the diagonal, and the query tiles are issued longest-first, so the short causal
+// rows fill the tail of the grid.  Scores outside the mask are -1e30 (NEG_INF) and a zero row
+// sum divides by 1, as in the TPU kernel.  The kernels read q, k and v in their (B, S, H, Dh)
+// layout: no transposed copy is made.  Sq and Sk are any positive lengths (the TPU kernel takes
+// multiples of its 128-row tiles): rows past Sq or Sk load as zeros, keys past Sk are masked,
+// rows past Sq are not written.  Three instances, chosen by dtype and Dh alone (the rule is
+// instance_of, which the wrapper also reads):
+//   * bfloat16, Dh a multiple of 16 up to 128 (every model of the port: Zamba2 80,
+//     InternLM2 128): flash_fwd_wgmma_kernel.  TMA needs q, k and v 16-byte aligned; the
+//     wrapper copies a view that starts off a 16-byte boundary, and the tensor map refuses
+//     one that reaches the entry point (cudaErrorInvalidValue).  A block owns 128 query rows,
+//     two consumer warpgroups of 64 and one producer warp that keeps 128-row K and V tiles in
+//     flight by TMA (cp.async.bulk.tensor, 4-D maps over (Dh, heads, seq, batch), so rows past
+//     the sequence are zeros) in a ring of 3 slots on mbarriers.  S = Q K^T is wgmma
+//     m64n128k16 from shared memory; P V is wgmma with P in registers (the S accumulators
+//     convert in place to A fragments) and V in its (key, d) layout through the descriptor's
+//     transpose.  The softmax runs in the log2 domain (ex2.approx, log2e folded in the scale)
+//     and masks only the tiles that cross the diagonal or Sk.  Dh = 80 rows are 160 bytes,
+//     wider than the 128-byte swizzle span.  For Q K^T (K = Dh) the head dim is cut into
+//     pieces a span wide (64 + 16 for 80: a 128B-swizzled box and a 32B-swizzled box, each
+//     with its own tensor map and descriptors), not padded to 128 (which would cost 1.6x the
+//     Q K^T work).  For P V (N = Dh) V lands as 64-column atoms, 128B-swizzled, the last one
+//     zero-filled by TMA past Dh (columns 80-127 at Dh 80: smem, not products), so one wgmma
+//     m64n80k16 covers the head dim (one instruction per piece measured 9% slower).
+//   * bfloat16 otherwise (Dh not a multiple of 16, or Dh past 128):
+//     flash_fwd_mma_kernel, 64-row tiles with both products on mma.sync m16n8k16.
 //   * float32: flash_fwd_kernel, float32 FMAs on the CUDA cores with the score tile in
-//     shared memory and the probabilities kept in float32, so float32 callers keep float32
-//     accuracy (the reference's 2e-5).
+//     shared memory, so float32 callers keep float32 accuracy (the reference's 2e-5).
+// The TPU kernel multiplies float32 probabilities by V; a bf16 product takes bf16 operands,
+// so both bf16 instances feed each probability as a pair of bf16 terms hi + lo (two
+// products for P V, 16 significant bits of p), not rounded to 8 bits: hi = bf16(p) and
+// lo = bf16(p - hi) (split_bf16, relative error at most 2^-17) in both.
 //
 // Bound: the bytes are q, k, v and out read or written once; the operations are
 // 4 * B * H * Dh (two products) times the (query, key) pairs the mask keeps (Sq * Sk, or
 // S (S + 1) / 2 causal), at the card's rate for the operands' type (bf16: 989 TFLOP/s dense
 // on the tensor cores).  At Zamba2-2.7B's attention with B = 4, S = 4096, H = Hkv = 32,
 // Dh = 80 in bf16: 336 MB (0.10 ms at 3.35 TB/s) and 344 GFLOP (0.35 ms): bound by
-// operations.  The hi + lo split issues P V twice, so the bf16 kernel does 1.5x the
-// function's product work, and mma.sync reaches a fraction of that rate (wgmma
-// is the instruction that reaches all of it), and this kernel stages each key tile through
-// shared memory with plain loads and a barrier, with no copy in flight during the products;
-// TMA, wgmma and a pipelined ring of tiles are later work.  Plain C entry point, loaded with
-// ctypes.
+// operations.  The hi + lo split issues P V twice (1.5x the function's products, a floor of
+// 0.52 ms), and whole 128 x 128 tiles on the diagonal add the masked half of each.  This
+// design keeps the loads off the consumers' path (TMA, up to three tiles ahead) but runs each
+// warpgroup's products and its softmax one after the other; overlapping them within a
+// warpgroup (two S tiles in flight) needs registers past the 168 a thread this block gets,
+// and making the two warpgroups take strict turns (FA3's ping-pong, with a producer
+// warpgroup and setmaxnreg) measured only 2% faster.  Plain C entry point, loaded with ctypes.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <math.h>
 
@@ -433,9 +452,638 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, i
   return cudaGetLastError();
 }
 
+// ---- bfloat16, Dh a multiple of 16 up to 128: wgmma + TMA with a pipelined K/V ring ----
+
+namespace wg {
+
+constexpr int kRows = 128;              // query rows of a block; key rows of a K/V tile
+constexpr int kStages = 3;              // K/V tiles in flight
+constexpr int kConsumers = 256;         // two consumer warpgroups of 64 query rows each
+constexpr int kThreads = kConsumers + 32;   // + one producer warp
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The head dim in pieces a swizzle span wide: 64 columns (128-byte rows, 128B swizzle), then
+// 32 (64B) and 16 (32B).  Dh = 80 is 64 + 16, 112 is 64 + 32 + 16, 128 is 64 + 64.
+template <int DH>
+struct Pieces {
+  static constexpr int w0 = DH >= 64 ? 64 : (DH >= 32 ? 32 : 16);
+  static constexpr int r0 = DH - w0;
+  static constexpr int w1 = r0 >= 64 ? 64 : (r0 >= 32 ? 32 : (r0 >= 16 ? 16 : 0));
+  static constexpr int r1 = r0 - w1;
+  static constexpr int w2 = r1 >= 32 ? 32 : (r1 >= 16 ? 16 : 0);
+  static_assert(DH % 16 == 0 && DH <= 128 && r1 - w2 == 0, "Dh a multiple of 16 up to 128");
+  static constexpr int count = 1 + (w1 > 0) + (w2 > 0);
+  __host__ __device__ static constexpr int width(int p) { return p == 0 ? w0 : (p == 1 ? w1 : w2); }
+  __host__ __device__ static constexpr int col(int p) {
+    return p == 0 ? 0 : (p == 1 ? w0 : w0 + w1);
+  }
+  // byte offset of piece p in a 128-row tile: the pieces lie one after another
+  __host__ __device__ static constexpr uint32_t offset(int p) {
+    return static_cast<uint32_t>(kRows * 2 * col(p));
+  }
+  static constexpr uint32_t tile_bytes = kRows * 2 * DH;
+  // V as atoms a swizzle span wide (the last one zero-filled past Dh), so that one wgmma of
+  // width Dh reads all of them through the descriptor's leading offset
+  static constexpr int v_atom = DH >= 64 ? 64 : (DH >= 32 ? 32 : 16);
+  static constexpr int v_atoms = (DH + v_atom - 1) / v_atom;
+  static constexpr uint32_t v_atom_bytes = kRows * 2 * v_atom;
+  static constexpr uint32_t v_tile_bytes = v_atom_bytes * v_atoms;
+};
+
+// The wgmma descriptor's layout for a piece of `w` columns: 1 = 128B, 2 = 64B, 3 = 32B swizzle.
+__host__ __device__ constexpr uint32_t layout_of(int w) {
+  return w == 64 ? 1u : (w == 32 ? 2u : 3u);
+}
+
+// Tensor maps, 4-D over (Dh, heads, seq, batch), whose box is (width, 1, 128, 1); rows past the
+// sequence and columns past Dh come in as zeros.  One map for each head-dim piece of q and k,
+// and one for the V atoms (v_atom wide).
+struct Maps {
+  CUtensorMap q[3];
+  CUtensorMap k[3];
+  CUtensorMap v;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// 2^x on the special-function unit (ex2.approx.ftz; 3.5% faster than exp2f at the long
+// prefill's attention, whose denormal handling the softmax does not need).
+__device__ __forceinline__ float fast_ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Spin until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One TMA copy of a (width, 1, 128, 1) box at (col, head, row, batch) into shared memory,
+// completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int col, int head,
+                                         int row, int batch, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(head), "r"(row), "r"(batch), "r"(bar)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor: start address, leading byte offset (the stride between
+// MN-major swizzle atoms; unused by the K-major layouts, which pass 16), the stride between
+// 8-row groups, and the swizzle (1 = 128B, 2 = 64B, 3 = 32B).
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo_bytes,
+                                              uint32_t sbo_bytes, uint32_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFFu) << 16) |
+         (static_cast<uint64_t>(sbo_bytes >> 4) << 32) | (static_cast<uint64_t>(layout) << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of wgmma operands across the asynchronous
+// product's issue and wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N, int M>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// d (64 x 128, float32) = A (64 x 16) B (16 x 128) (+ d when scale_d), both bf16 from shared
+// memory through descriptors, both K-major.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x N, float32) += A (64 x 16, bf16 fragments in registers) B (16 x N, bf16 from
+// shared memory, MN-major: the descriptor's transpose), N = 16 .. 128 by the size of d.
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[24], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[40], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[48], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[56], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55"
+      "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int DH>
+constexpr size_t smem_bytes() {
+  return 1024 + Pieces<DH>::tile_bytes +
+         static_cast<size_t>(Pieces<DH>::tile_bytes + Pieces<DH>::v_tile_bytes) * kStages +
+         8 * (2 * kStages + 1);
+}
+
+// The bfloat16 kernel for Dh a multiple of 16 up to 128.  A block owns 128 query rows of one
+// (batch, head): warps 0-7 are two consumer warpgroups of 64 rows, warp 8 the producer, whose
+// one thread loads Q once and keeps 128-row K and V tiles in flight by TMA in a ring of
+// kStages slots (a full and an empty mbarrier each).  Per K/V tile each consumer warpgroup
+//   * forms S = Q K^T with wgmma m64n128k16 from shared memory (Dh / 16 k steps),
+//   * runs the online softmax in registers in the log2 domain (ex2.approx, log2e folded
+//     into the scale), masking only a tile that crosses the diagonal or Sk,
+//   * converts the S accumulators in place into A fragments, each probability as the pair
+//     hi = bf16(p), lo = bf16(p - hi) (split_bf16), and adds P V with two wgmma of
+//     width Dh (A from registers) per 16 keys, V read in its natural (key, d) layout through
+//     the descriptor's transpose, in swizzle atoms v_atom columns wide that the descriptor's
+//     leading offset joins,
+//   * and releases the slot.  Rows past Sq are computed on zeros and not written.
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ Maps maps, __nv_bfloat16* __restrict__ out,
+                       int sq, int sk, int n_heads, int n_kv, int causal, float scale_log2) {
+  using PC = Pieces<DH>;
+  constexpr uint32_t kTile = PC::tile_bytes;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  const uint32_t raw = smem_u32(wg_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;   // swizzled tiles sit on 1024-byte bounds
+  const uint32_t sQ = base;
+  constexpr uint32_t kVTile = PC::v_tile_bytes;
+  const uint32_t bars = base + kTile + (kTile + kVTile) * kStages;
+  // slot s: K at sQ + kTile + s (kTile + kVTile), V right after; full[s], empty[s], then the
+  // Q barrier
+  auto k_slot = [&](int s) { return sQ + kTile + s * (kTile + kVTile); };
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (kStages + s); };
+  const uint32_t qbar = bars + 8u * 2 * kStages;
+
+  const int n_qt = (sq + kRows - 1) / kRows;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * kRows;   // longest rows first
+  const int b = blockIdx.y / n_heads;
+  const int h = blockIdx.y - b * n_heads;
+  const int hk = h / (n_heads / n_kv);
+  const int k_end = causal ? min(sk, q0 + kRows) : sk;
+  const int n_kt = (k_end + kRows - 1) / kRows;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumers);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {              // the producer warp
+    if (tid == kConsumers) {
+      mbar_expect_tx(qbar, kTile);
+#pragma unroll
+      for (int p = 0; p < PC::count; ++p) {
+        tma_load(sQ + PC::offset(p), &maps.q[p], PC::col(p), h, q0, b, qbar);
+      }
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % kStages;
+        mbar_wait(empty(s), ((kt / kStages) & 1) ^ 1);
+        mbar_expect_tx(full(s), kTile + kVTile);
+        const uint32_t sk_ = k_slot(s);
+#pragma unroll
+        for (int p = 0; p < PC::count; ++p) {
+          tma_load(sk_ + PC::offset(p), &maps.k[p], PC::col(p), hk, kt * kRows, b, full(s));
+        }
+#pragma unroll
+        for (int t = 0; t < PC::v_atoms; ++t) {
+          tma_load(sk_ + kTile + t * PC::v_atom_bytes, &maps.v, t * PC::v_atom, hk,
+                   kt * kRows, b, full(s));
+        }
+      }
+    }
+    return;
+  }
+
+  const int wgi = tid >> 7;             // consumer warpgroup: query rows 64 wgi ..
+  const int lane = tid & 31;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int row0 = q0 + wgi * 64 + ((tid & 127) >> 5) * 16 + gid;   // and row0 + 8
+  const int wg_first = q0 + wgi * 64;
+
+  float o[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+
+  // The two consumer warpgroups run independently on the same K/V slots; while one does its
+  // softmax the other's products can run.  (Making them take strict turns on named barriers,
+  // as FA3 does, measured slower here: it needs registers past this block's 168.)
+  float sc[64];
+  auto qk = [&](int kt) {               // S = Q K_kt^T: 64 rows x 128 keys a warpgroup
+    const int s = kt % kStages;
+    mbar_wait(full(s), (kt / kStages) & 1);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+    fence_regs(sc);
+    wg_fence();
+#pragma unroll
+    for (int p = 0; p < PC::count; ++p) {
+      const int w = PC::width(p);
+      const uint32_t lay = layout_of(w);
+      const uint32_t sbo = 16u * w;     // 8 rows of 2 w bytes
+#pragma unroll
+      for (int ks = 0; ks < w / 16; ++ks) {
+        const uint64_t da =
+            gmma_desc(sQ + PC::offset(p) + wgi * 64 * 2 * w + 32 * ks, 16, sbo, lay);
+        const uint64_t db = gmma_desc(k_slot(s) + PC::offset(p) + 32 * ks, 16, sbo, lay);
+        wgmma_ss_n128(sc, da, db, (p > 0 || ks > 0) ? 1 : 0);
+      }
+    }
+    wg_commit();
+    wg_wait0();
+    fence_regs(sc);
+  };
+
+  mbar_wait(qbar, 0);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int s = kt % kStages;
+    const uint32_t sV = k_slot(s) + kTile;
+    qk(kt);
+    // scale into the log2 domain; mask only a tile that crosses the diagonal or Sk.
+    // Element 4 j + e is row row0 (+ 8 for e >= 2), key k0 + 8 j + 2 tig (+ 1 for odd e).
+    const int k0 = kt * kRows;
+    const bool edge = k0 + kRows > sk || (causal && k0 + kRows - 1 > wg_first);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      float x = sc[i] * scale_log2;
+      if (edge) {
+        const int row = row0 + ((i >> 1) & 1) * 8;
+        const int col = k0 + (i >> 2) * 8 + tig * 2 + (i & 1);
+        if (col >= sk || (causal && col > row)) x = kNegInf;
+      }
+      sc[i] = x;
+    }
+
+    // online softmax; the 4 threads of a fragment row hold its 128 keys
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      const float corr = fast_ex2(m[r] - m_new);
+      m[r] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          const float pr = fast_ex2(sc[4 * j + e] - m_new);
+          sc[4 * j + e] = pr;
+          sum += pr;
+        }
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l[r] = l[r] * corr + sum;
+#pragma unroll
+      for (int i = 0; i < DH / 8; ++i) {
+        o[4 * i + 2 * r] *= corr;
+        o[4 * i + 2 * r + 1] *= corr;
+      }
+    }
+
+    // P as A fragments: key step kk is S column tiles 2 kk and 2 kk + 1, each probability
+    // as hi + lo (split_bf16)
+    uint32_t phi[8][4], plo[8][4];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        split_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1], phi[kk][e], plo[kk][e]);
+      }
+    }
+
+    // O += P V in one wgmma of width Dh per 16 keys and hi / lo: V (key, d) MN-major in atoms
+    // of v_atom columns, key step kk 16 rows down each atom
+    fence_regs(phi);
+    fence_regs(plo);
+    fence_regs(o);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint64_t db = gmma_desc(sV + kk * 16 * 2 * PC::v_atom, PC::v_atom_bytes,
+                                    16u * PC::v_atom, layout_of(PC::v_atom));
+      wgmma_rs(o, phi[kk], db);
+      wgmma_rs(o, plo[kk], db);
+    }
+    wg_commit();
+    wg_wait0();
+    fence_regs(phi);
+    fence_regs(plo);
+    fence_regs(o);
+    mbar_arrive(empty(s));              // this thread is done with the slot
+  }
+
+  // out = O / l; element 4 j + e of o is row row0 (+ 8 for e >= 2), column 8 j + 2 tig
+  // (+ 1 for odd e)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= sq) continue;
+    const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
+    __nv_bfloat16* orow = out + ((static_cast<int64_t>(b) * sq + row) * n_heads + h) * DH;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * tig) =
+          __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, a driver API call, through the runtime's driver entry point, so
+// that the library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D map over a contiguous (batch, seq, heads, dh) bf16 tensor whose box is (width, 1,
+// 128, 1), swizzled to the width's span.
+bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int batch, int seq, int heads,
+            int dh, int width) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(dh) * 2,
+                                 static_cast<cuuint64_t>(heads) * dh * 2,
+                                 static_cast<cuuint64_t>(seq) * heads * dh * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(width), 1, kRows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz = width == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : width == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DH>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, int batch, int sq,
+                   int sk, int n_heads, int n_kv, int causal, cudaStream_t stream) {
+  using PC = Pieces<DH>;
+  const EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  for (int p = 0; p < PC::count; ++p) {
+    const int w = PC::width(p);
+    if (!encode(fn, &maps.q[p], q, batch, sq, n_heads, DH, w) ||
+        !encode(fn, &maps.k[p], k, batch, sk, n_kv, DH, w)) {
+      return cudaErrorInvalidValue;
+    }
+  }
+  if (!encode(fn, &maps.v, v, batch, sk, n_kv, DH, PC::v_atom)) return cudaErrorInvalidValue;
+  constexpr size_t smem = smem_bytes<DH>();
+  auto kernel = flash_fwd_wgmma_kernel<DH>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const float scale_log2 = static_cast<float>(kLog2e / sqrt(static_cast<double>(DH)));
+  const dim3 grid((sq + kRows - 1) / kRows, batch * n_heads);
+  kernel<<<grid, kThreads, smem, stream>>>(maps, static_cast<__nv_bfloat16*>(out), sq, sk,
+                                           n_heads, n_kv, causal, scale_log2);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
+// The instance a launch runs: 0 flash_fwd_kernel (float32 FMA), 1 flash_fwd_mma_kernel
+// (bf16 mma.sync), 2 flash_fwd_wgmma_kernel (bf16 wgmma + TMA: Dh a multiple of 16 up to
+// 128), -1 a dtype no instance takes.
+int instance_of(int dh, int dtype) {
+  if (dtype == 0) return 0;
+  if (dtype != 1) return -1;
+  return dh % 16 == 0 && dh <= 128 ? 2 : 1;
+}
+
+cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v, void* out, int batch,
+                           int sq, int sk, int n_heads, int n_kv, int dh, int causal,
+                           cudaStream_t s) {
+  switch (dh) {
+    case 16: return wg::launch<16>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, s);
+    case 32: return wg::launch<32>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, s);
+    case 48: return wg::launch<48>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, s);
+    case 64: return wg::launch<64>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, s);
+    case 80: return wg::launch<80>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, s);
+    case 96: return wg::launch<96>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, s);
+    case 112: return wg::launch<112>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, s);
+    case 128: return wg::launch<128>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The bf16 instances: wgmma where instance_of says so, mma.sync at the smallest padded width
+// otherwise.
 cudaError_t dispatch_mma(const void* q, const void* k, const void* v, void* out, int batch,
                          int sq, int sk, int n_heads, int n_kv, int dh, int causal,
                          cudaStream_t s) {
+  if (instance_of(dh, 1) == 2) {
+    return dispatch_wgmma(q, k, v, out, batch, sq, sk, n_heads, n_kv, dh, causal, s);
+  }
   if (dh <= 16) return launch_mma<16>(q, k, v, out, batch, sq, sk, n_heads, n_kv, dh, causal, s);
   if (dh <= 32) return launch_mma<32>(q, k, v, out, batch, sq, sk, n_heads, n_kv, dh, causal, s);
   if (dh <= 64) return launch_mma<64>(q, k, v, out, batch, sq, sk, n_heads, n_kv, dh, causal, s);
@@ -499,3 +1147,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// Which instance a launch at this head dim and dtype runs (instance_of): 0 float32 FMA,
+// 1 bf16 mma.sync, 2 bf16 wgmma + TMA, -1 none.
+extern "C" int flash_attention_instance(int dh, int dtype) { return instance_of(dh, dtype); }

@@ -115,7 +115,8 @@ def load(name: str) -> ctypes.CDLL:
 # BR, vid and the stream.  Flash attention (``csrc/flash_attention.cu``):
 # q, k, v, out, then B, Sq, Sk, H, Hkv, Dh, causal, dtype (0 float32,
 # 1 bfloat16) and the stream.  The SSD scan (``csrc/ssd_scan.cu``): xs, B, C,
-# dt, a, y, the final state, then B, L, H, P, N, Q, dtype and the stream.
+# dt, a, y, the final state, the bf16 scratch (chunk states, decays), then B,
+# L, H, P, N, Q, dtype and the stream.
 TILE_ARGS = ([ctypes.c_void_p] * 5
              + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                 ctypes.c_void_p])
@@ -123,7 +124,7 @@ BITMAP_ARGS = ([ctypes.c_void_p] * 4
                + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                   ctypes.c_void_p])
 FLASH_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-SSD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+SSD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def _bind(name: str, entry: str, argtypes):
@@ -153,6 +154,14 @@ def flash_fn():
     """``flash_attention_launch``, built and bound on first use
     (``FLASH_ARGS``)."""
     return _bind("flash_attention", "flash_attention_launch", FLASH_ARGS)
+
+
+@functools.lru_cache(maxsize=None)
+def flash_instance_fn():
+    """``flash_attention_instance`` (Dh, dtype -> the instance a launch
+    runs), built and bound on first use."""
+    return _bind("flash_attention", "flash_attention_instance",
+                 [ctypes.c_int] * 2)
 
 
 @functools.lru_cache(maxsize=None)

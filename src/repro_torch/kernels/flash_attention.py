@@ -7,13 +7,18 @@ float32 or bfloat16, float32 inside; the output has q's shape and dtype.
 
 A CUDA tensor launches the hand-written kernel (``csrc/flash_attention.cu``:
 one block per (batch·head, query tile) that walks its key tiles with the
-online-softmax state on chip; bfloat16 on the tensor cores, float32 on the
-CUDA cores); a CPU tensor runs ``flash_attention_plain``, the materialised
-softmax in float32.  All three keep the probabilities in float32 for
-``p·v``, as the TPU kernel does (the bf16 kernel carries them as a hi + lo
-pair of bf16 terms, 16 significant bits); the JAX package's model code
-rounds them to bf16 first.  Sums run in other orders in each, so a bf16
-model agrees with the reference within bf16's rounding, not bit for bit.
+online-softmax state on chip), in one of three instances that ``instance``
+names by dtype and Dh alone: ``"wgmma"`` (bfloat16 with Dh a multiple of
+16 up to 128: wgmma products, K/V tiles by TMA in a pipelined ring),
+``"mma_sync"`` (the other bfloat16 head dims) or ``"fma"`` (float32 on the
+CUDA cores).  TMA reads from 16-byte boundaries, so the wrapper copies an
+operand that starts off one.  A CPU tensor runs
+``flash_attention_plain``, the materialised softmax in float32.  All keep
+the probabilities in float32 for ``p·v``, as the TPU kernel does (the bf16
+instances carry them as a hi + lo pair of bf16 terms, 16 significant
+bits); the JAX package's model code rounds them to bf16 first.  Sums run
+in other orders in each, so a bf16 model agrees with the reference within
+bf16's rounding, not bit for bit.
 
 Any Sq and Sk: the kernel masks the ragged last tiles, so the port serves
 every length the reference's ``forward`` serves (the TPU kernel needs
@@ -97,17 +102,38 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise PlanError(f"flash_attention runs on cuda or cpu, not "
                         f"{q.device}")
-    return _launch(q.contiguous(), k.contiguous(), v.contiguous(), causal)
+    return _launch(_aligned(q), _aligned(k), _aligned(v), causal)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and starting on a 16-byte boundary: a view that
+    starts off one is copied into a fresh allocation."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+INSTANCES = {0: "fma", 1: "mma_sync", 2: "wgmma"}
+
+
+def instance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The CUDA instance a launch on these operands runs, by the kernel
+    library's own rule (``instance_of`` in the source: dtype and Dh)."""
+    check_operands(q, k, v)
+    code = build.flash_instance_fn()(q.shape[3], _DTYPES[q.dtype])
+    return INSTANCES[code]
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool) -> torch.Tensor:
-    """One counted CUDA launch on contiguous (B, S, H, Dh) operands
-    (``chip_smoke.py`` times the kernel through this)."""
+    """One counted CUDA launch on contiguous (B, S, H, Dh) operands that
+    start on 16-byte boundaries (``chip_smoke.py`` times the kernel
+    through this)."""
     global LAUNCHES
     check_operands(q, k, v)
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise PlanError("q, k, v must be contiguous (B, S, H, Dh)")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in (q, k, v)):
+        raise PlanError("q, k, v must be contiguous (B, S, H, Dh) and start "
+                        "on 16-byte boundaries")
     b, sq, h, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)

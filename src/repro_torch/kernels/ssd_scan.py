@@ -12,10 +12,13 @@ after the softplus; a is (H,) float32 (``-exp(A_log)``).  xs, B, C and dt
 share float32 or bfloat16; everything is float32 inside; y comes back in
 xs's dtype, and the final state (B, H, P, N) in float32 beside it.
 
-A CUDA tensor launches the hand-written kernel (``csrc/ssd_scan.cu``: one
-block per (batch, head) that walks its chunks, the state in shared memory,
-y computed in row tiles of the chunk); a CPU tensor runs ``ssd_scan_plain``,
-the reference's chunk step in float32.
+A CUDA tensor launches the hand-written kernel (``csrc/ssd_scan.cu``):
+bfloat16 runs the chunk-parallel design on the tensor cores, three passes
+on one stream (chunk states, state passing, chunk outputs) counted as one
+launch, with the chunk states in a float32 scratch the wrapper allocates;
+float32 runs one block per (batch, head) that walks its chunks with float32
+FMAs.  A CPU tensor runs ``ssd_scan_plain``, the same three passes in
+float32 torch.
 
 The contract is the TPU kernel's (``repro.kernels.ssd_scan``): L is a
 multiple of the chunk ``Q = min(chunk, L)``; and the CUDA kernel's
@@ -74,40 +77,71 @@ def check_operands(xs, bmat, cmat, dt, a, chunk: int) -> int:
     return q
 
 
-def ssd_scan_plain(xs, bmat, cmat, dt, a, chunk: int = 256
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The plain torch version: the reference's chunk step in float32, one
-    chunk at a time (its (B, Q, Q, H) quadratics are the largest
-    temporaries).  Returns (y in xs's dtype, final state (B, H, P, N)
-    float32).  The CPU tests run it, and the card compares the kernel with
-    it."""
+def _chunks(xs, bmat, cmat, dt, a, q: int):
+    """The operands in float32, cut into chunks: x (B, nc, Q, H, P), B and
+    C (B, nc, Q, N), dt (B, nc, Q, H), and cum = cumsum(dt · a) within each
+    chunk (B, nc, Q, H)."""
     b, l, h, p = xs.shape
     n = bmat.shape[-1]
-    q = min(chunk, l)
     nc = l // q
     x = xs.float().reshape(b, nc, q, h, p)
     bm = bmat.float().reshape(b, nc, q, n)
     cm = cmat.float().reshape(b, nc, q, n)
     d = dt.float().reshape(b, nc, q, h)
-    a = a.float()
-    mask = torch.ones((q, q), dtype=torch.bool, device=xs.device).tril()
-    state = xs.new_zeros((b, h, p, n), dtype=torch.float32)
+    cum = torch.cumsum(d * a.float(), dim=2)
+    return x, bm, cm, d, cum
+
+
+def chunk_states(x, bm, d, cum) -> torch.Tensor:
+    """Pass 1: each chunk's own contribution to the state it hands on,
+    s_c = xᵀ (exp(cum_Q − cum) · dt ∘ B), (B, nc, H, P, N) float32."""
+    w = torch.exp(cum[:, :, -1:, :] - cum) * d                  # (B,nc,Q,H)
+    return torch.einsum("bcjh,bcjn,bcjhp->bchpn", w, bm, x)
+
+
+def state_passing(s_c, cum) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pass 2: the state entering each chunk, S_in[c] = S before chunk c,
+    with S = S · exp(cum_Q[c]) + s_c from zero; returns (S_in (B, nc, H, P,
+    N), the final state (B, H, P, N))."""
+    decay = torch.exp(cum[:, :, -1, :])[..., None, None]        # (B,nc,H,1,1)
+    state = torch.zeros_like(s_c[:, 0])
+    s_in = torch.empty_like(s_c)
+    for c in range(s_c.shape[1]):
+        s_in[:, c] = state
+        state = state * decay[:, c] + s_c[:, c]
+    return s_in, state
+
+
+def chunk_outputs(x, bm, cm, d, cum, s_in) -> torch.Tensor:
+    """Pass 3: y = ((C Bᵀ) ∘ L ∘ dt_j) x + (C ∘ exp(cum)) S_inᵀ chunk by
+    chunk (the (B, Q, Q, H) quadratics of one chunk are the largest
+    temporaries); (B, nc, Q, H, P) float32."""
+    q = x.shape[2]
+    mask = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
     ys = []
-    for c in range(nc):
-        x1, b1, c1, d1 = x[:, c], bm[:, c], cm[:, c], d[:, c]
-        cum = torch.cumsum(d1 * a, dim=1)                          # (B,Q,H)
+    for c in range(x.shape[1]):
+        x1, b1, c1, d1, cum1 = x[:, c], bm[:, c], cm[:, c], d[:, c], cum[:, c]
         lmat = torch.where(mask[None, :, :, None],
-                           torch.exp(cum[:, :, None, :] - cum[:, None, :, :]),
+                           torch.exp(cum1[:, :, None, :] - cum1[:, None, :, :]),
                            0.0)
         cb = torch.einsum("bin,bjn->bij", c1, b1)
         att = cb[..., None] * lmat * d1[:, None, :, :]
         y = torch.einsum("bijh,bjhp->bihp", att, x1)
-        y = y + torch.einsum("bin,bih,bhpn->bihp", c1, torch.exp(cum), state)
-        decay = torch.exp(cum[:, -1:, :] - cum)
-        s = torch.einsum("bjh,bjn,bjhp->bhpn", decay * d1, b1, x1)
-        state = state * torch.exp(cum[:, -1])[..., None, None] + s
-        ys.append(y)
-    y = torch.stack(ys, dim=1).reshape(b, l, h, p)
+        ys.append(y + torch.einsum("bin,bih,bhpn->bihp", c1, torch.exp(cum1),
+                                   s_in[:, c]))
+    return torch.stack(ys, dim=1)
+
+
+def ssd_scan_plain(xs, bmat, cmat, dt, a, chunk: int = 256
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain torch version, in float32, as the bf16 kernel's three
+    passes: chunk states, state passing, chunk outputs.  Returns (y in xs's
+    dtype, final state (B, H, P, N) float32).  The CPU tests run it, and
+    the card compares the kernel with it."""
+    b, l, h, p = xs.shape
+    x, bm, cm, d, cum = _chunks(xs, bmat, cmat, dt, a, min(chunk, l))
+    s_in, state = state_passing(chunk_states(x, bm, d, cum), cum)
+    y = chunk_outputs(x, bm, cm, d, cum, s_in).reshape(b, l, h, p)
     return y.to(xs.dtype), state
 
 
@@ -136,11 +170,18 @@ def _launch(xs, bmat, cmat, dt, a, chunk: int
     n = bmat.shape[2]
     y = torch.empty_like(xs)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=xs.device)
+    scratch = [None, None]            # the float32 instance needs none
+    if xs.dtype == torch.bfloat16:
+        scratch = [torch.empty((b, l // q, h, p, n), dtype=torch.float32,
+                               device=xs.device),
+                   torch.empty((b, l // q, h), dtype=torch.float32,
+                               device=xs.device)]
     fn = build.ssd_fn()
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream(xs.device).cuda_stream
         err = fn(xs.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
                  dt.data_ptr(), a.data_ptr(), y.data_ptr(), state.data_ptr(),
+                 *(t.data_ptr() if t is not None else None for t in scratch),
                  b, l, h, p, n, q, _DTYPES[xs.dtype], stream)
     build.check_launch(err, "ssd_scan")
     LAUNCHES += 1

@@ -454,15 +454,20 @@ def test_cuda_versioned_dataset_matches_numpy(cuda_device):
 
 
 # flash cases: (B, Sq, Sk, H, Hkv, Dh, causal) — GQA groups 1, 2, 4 and
-# MQA; Dh 16, 32, 64, 80, 128 and 256; S from 16 to 1024, and lengths off
-# the kernel's 64-row tiles and the TPU kernel's 128 (200, 77, Sk 192, 328)
+# MQA; Dh 16, 32, 48, 64, 80, 112, 128 and 256; S from 16 to 4096 + 77, and
+# lengths off the wgmma instance's 128-row tiles, the mma.sync instance's 64
+# and the TPU kernel's 128 (200, 77, 4173, Sk 192, 328, 136); Sq != Sk
+# without the mask
 FLASH_CASES = [(2, 256, 256, 4, 4, 64, True), (1, 512, 512, 4, 2, 128, True),
                (2, 128, 128, 8, 2, 80, False),
                (1, 1024, 1024, 4, 1, 80, True),
                (1, 384, 384, 2, 2, 256, True), (2, 16, 16, 4, 4, 16, True),
                (1, 256, 256, 6, 3, 80, False), (1, 200, 200, 4, 2, 64, True),
                (2, 77, 77, 2, 1, 80, True), (1, 128, 192, 4, 4, 32, False),
-               (1, 200, 328, 2, 2, 128, False)]
+               (1, 200, 328, 2, 2, 128, False),
+               (1, 4173, 4173, 2, 1, 80, True), (1, 200, 200, 8, 2, 80, True),
+               (2, 300, 136, 4, 2, 64, False), (1, 333, 333, 4, 4, 48, True),
+               (1, 256, 256, 2, 2, 112, True), (1, 130, 130, 4, 4, 72, True)]
 # the reference's tolerances (tests/test_flash_attention.py,
 # tests/test_ssd_kernel.py): the kernel and the plain version sum in
 # different orders; bf16 outputs are one rounding apart at most
@@ -494,10 +499,11 @@ def test_cuda_flash_attention_matches_plain(cuda_device, case, dtype):
 
 
 # ssd cases: (B, L, H, P, N, chunk) — chunk 16, 64, 256; N 16, 64, 128;
-# P 16, 64; 1 to 8 chunks
+# P 16, 64; 1 to 16 chunks (chunk 256: 1 and 16)
 SSD_CASES = [(2, 256, 4, 64, 128, 128), (1, 512, 2, 64, 64, 256),
              (2, 128, 8, 16, 16, 16), (1, 512, 3, 64, 128, 64),
-             (1, 256, 2, 16, 64, 256)]
+             (1, 256, 2, 16, 64, 256), (2, 4096, 2, 64, 64, 256),
+             (1, 4096, 2, 64, 128, 256), (1, 96, 3, 20, 36, 96)]
 
 
 def _ssd_inputs(b, l, h, p, n, dtype, device, seed=0):
@@ -527,21 +533,51 @@ def test_cuda_ssd_scan_matches_plain(cuda_device, case, dtype):
     torch.testing.assert_close(state, state_want, atol=tol, rtol=tol)
 
 
-def test_cuda_ssd_scan_carries_the_state(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_ssd_scan_carries_the_state(cuda_device, dtype):
     """Decay about 1 and x zero past the first chunk: the last chunks see
-    only the carried state (tests/test_ssd_kernel.py's case)."""
+    only the carried state (tests/test_ssd_kernel.py's case), through the
+    float32 instance and through the bf16 instance's state-passing pass."""
     b, l, h, p, n = 1, 256, 2, 32, 64
-    xs = torch.zeros((b, l, h, p), device=cuda_device)
-    xs[:, :64] = _randn((b, 64, h, p), 0, torch.float32, cuda_device)
-    bm = _randn((b, l, n), 1, torch.float32, cuda_device, 0.3)
-    cm = _randn((b, l, n), 2, torch.float32, cuda_device, 0.3)
-    dt = torch.full((b, l, h), 0.05, device=cuda_device)
+    xs = torch.zeros((b, l, h, p), device=cuda_device, dtype=dtype)
+    xs[:, :64] = _randn((b, 64, h, p), 0, dtype, cuda_device)
+    bm = _randn((b, l, n), 1, dtype, cuda_device, 0.3)
+    cm = _randn((b, l, n), 2, dtype, cuda_device, 0.3)
+    dt = torch.full((b, l, h), 0.05, device=cuda_device, dtype=dtype)
     a = torch.full((h,), -0.01, device=cuda_device)
-    y, _ = ops.ssd_scan(xs, bm, cm, dt, a, chunk=64)
-    want, _ = ss.ssd_scan_plain(xs, bm, cm, dt, a, 64)
+    y, state = ops.ssd_scan(xs, bm, cm, dt, a, chunk=64)
+    want, state_want = ss.ssd_scan_plain(xs, bm, cm, dt, a, 64)
     torch.cuda.synchronize()
-    assert float(y[:, 200:].abs().max()) > 1e-4
-    torch.testing.assert_close(y, want, atol=2e-4, rtol=2e-4)
+    assert float(y[:, 200:].float().abs().max()) > 1e-4
+    tol = {torch.float32: 2e-4, torch.bfloat16: SSD_TOL[torch.bfloat16]}[dtype]
+    torch.testing.assert_close(y.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(state, state_want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dh", [16, 48, 64, 80, 112, 128])
+def test_cuda_flash_attention_runs_the_wgmma_instance(cuda_device, dh):
+    """bf16 with Dh a multiple of 16 up to 128 runs the wgmma + TMA
+    instance, wherever its operands start: the wrapper copies one that
+    starts off a 16-byte boundary, and the counted launch refuses it.
+    Other bf16 head dims run mma.sync, and float32 the FMA instance."""
+    q = _randn((1, 128, 2, dh), 1, torch.bfloat16, cuda_device)
+    assert fa.instance(q, q, q) == "wgmma"
+    assert fa.instance(q.float(), q.float(), q.float()) == "fma"
+    odd = _randn((1, 128, 2, dh + 8), 1, torch.bfloat16, cuda_device)
+    assert fa.instance(odd, odd, odd) == "mma_sync"
+    flat = torch.zeros(2 * 128 * dh + 1, dtype=torch.bfloat16,
+                       device=cuda_device)
+    shifted = flat[1:].view(1, 128, 2, dh)           # 2 bytes off 16
+    shifted.copy_(q)
+    assert fa.instance(shifted, q, q) == "wgmma"
+    with pytest.raises(build.PlanError, match="16-byte"):
+        fa._launch(shifted, q, q, True)
+    before = fa.LAUNCHES
+    got = ops.flash_attention(shifted, q, q)
+    assert fa.LAUNCHES == before + 1
+    torch.testing.assert_close(got.float(), fa.flash_attention_plain(
+        shifted, q, q).float(), atol=2e-2, rtol=2e-2)
 
 
 def test_cuda_model_kernels_refuse(cuda_device):
@@ -564,6 +600,12 @@ def test_cuda_model_kernels_refuse(cuda_device):
     stream = torch.cuda.current_stream().cuda_stream
     ptr = q.data_ptr()
     assert fn(ptr, ptr, ptr, ptr, 1, 128, 128, 3, 2, 64, 1, 0, stream) != 0
+    # bf16 at Dh 64 runs the wgmma instance, whose tensor map refuses a q
+    # that starts off a 16-byte boundary
+    assert fn(ptr + 2, ptr, ptr, ptr, 1, 128, 128, 2, 2, 64, 1, 1, stream) != 0
+    sfn = build.ssd_fn()          # the bf16 instance without its scratch
+    assert sfn(ptr, ptr, ptr, ptr, ptr, ptr, ptr, None, None, 1, 64, 2, 16,
+               16, 64, 1, stream) != 0
 
 
 @pytest.mark.parametrize("arch", ["zamba2_2_7b", "internlm2_1_8b",

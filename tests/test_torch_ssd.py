@@ -92,6 +92,56 @@ def test_ssd_scan_state_carries_across_chunks():
     np.testing.assert_allclose(got.numpy(), want, atol=2e-4, rtol=2e-4)
 
 
+def _entering_states_read_off_the_reference(xs, bm, cm, dt, a, chunk):
+    """The state entering each chunk, and the final state, read off the
+    reference oracle ``ssd_chunk_ref``'s own output: the first c·Q rows are
+    followed by probe rows with x = 0 and dt = 0 (no input, no decay) whose
+    C rows are the unit vectors e_0 .. e_{N-1}, so probe row i outputs
+    column i of the state carried past those c chunks: (nc + 1, B, H, P, N)
+    float32."""
+    b, l, h, p = xs.shape
+    n = bm.shape[-1]
+    m = -(-n // chunk) * chunk          # whole chunks of probe rows
+    probe_c = np.zeros((b, m, n), np.float32)
+    probe_c[:, np.arange(n), np.arange(n)] = 1.0
+    probes = (np.zeros((b, m, h, p), np.float32),
+              np.zeros((b, m, n), np.float32), probe_c,
+              np.zeros((b, m, h), np.float32))
+    out = []
+    for c in range(l // chunk + 1):
+        r = c * chunk
+        args = [jnp.asarray(np.concatenate([arr[:, :r], probe], axis=1))
+                for arr, probe in zip((xs, bm, cm, dt), probes)]
+        y = np.asarray(ssd_chunk_ref(*args, jnp.asarray(a), chunk=chunk))
+        out.append(y[:, r:r + n].transpose(0, 2, 3, 1))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("l,chunk", [(64, 64), (96, 32), (128, 16)],
+                         ids=["1chunk", "3chunks", "8chunks"])
+def test_ssd_plain_passes_match_the_pallas_kernel(l, chunk):
+    """The plain version's three passes (chunk states, state passing, chunk
+    outputs) at 1, 3 and 8 chunks and N 128 against the Pallas kernel in
+    interpret mode, and its pass-2 entering states and final state against
+    the states read off the reference oracle's output."""
+    b, h, p, n = 1, 2, 16, 128
+    arrays = _inputs(b, l, h, p, n, seed=11)
+    jargs, targs = _both(arrays, "f32")
+    want = np.asarray(pallas_ssd_scan(*jargs, chunk=chunk, interpret=True))
+    y, state = ss.ssd_scan_plain(*targs, chunk)
+    np.testing.assert_allclose(y.numpy(), want, atol=2e-4, rtol=2e-4)
+    x, bm, cm, d, cum = ss._chunks(*targs, chunk)
+    s_in, final = ss.state_passing(ss.chunk_states(x, bm, d, cum), cum)
+    assert torch.equal(final, state)
+    read = _entering_states_read_off_the_reference(*arrays, chunk)
+    carried, ref_final = read[:-1], read[-1]
+    np.testing.assert_allclose(s_in.transpose(0, 1).numpy(), carried,
+                               atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(final.numpy(), ref_final, atol=2e-4,
+                               rtol=2e-4)
+    assert not np.allclose(carried[-1], 0.0) or l == chunk
+
+
 def test_ssd_chunk_ref_twin_matches_the_reference_oracle():
     arrays = _inputs(2, 64, 2, 16, 16, seed=9)
     jargs, targs = _both(arrays, "f32")
