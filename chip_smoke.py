@@ -17,8 +17,10 @@ Phases, each of which raises on failure:
    sel, runs ending at the last rows of a source, all-delta and all-pad
    plans; an out-of-bounds run must raise ValueError), the two gathers
    (unsorted rids with repeats, the last row and tile) and the bitmap
-   kernels (W = 1 and 40 words, bit 31); out-of-range indices and vids
-   must raise;
+   kernels (W = 1, 32 and 40 words, bit 31; ``version_aggregate`` exact on
+   integer values, within ``sum_rtol`` on signed, near-2^120 and
+   near-2^-100 ones, the same bits at three block_r, NaN and inf where the
+   plain version has them); out-of-range indices and vids must raise;
 3. read path — the versioning benchmark's SCI workload at the paper's
    SCI_1M scale (1,000 versions, 944,685 records of 100 int32 attributes),
    partitioned by LyreSplit at a storage budget of 2|R|, served by a
@@ -369,8 +371,9 @@ def phase_gather_bitmap_small(torch, np, report: dict) -> None:
     """The gathers and the bitmap kernels against their plain versions on
     hand-made inputs: unsorted rids with repeats and the last row, tiles
     out of order with the last one, in int32 (D=128) and float16 (D=256);
-    bitmaps of W = 1 and 40 words, R not a multiple of BR, version 31 (bit
-    31) and the last version, integer values (exact sums).  Out-of-range
+    bitmaps of W = 1, 32 and 40 words over R = 2500 rows (a multiple
+    neither of BR nor of 16 nor of the aggregate's chunk), version 31 (bit
+    31) and the last version, and ``aggregate_cases``.  Out-of-range
     indices and vids must raise PlanError on the host."""
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import checkout_gather as cg
@@ -400,10 +403,11 @@ def phase_gather_bitmap_small(torch, np, report: dict) -> None:
             raise AssertionError(f"{fn.__name__} took indices {bad}")
     rng = np.random.default_rng(13)
     r = 2500
-    for n_versions in (20, 1270):
+    for n_versions in (20, 1000, 1270):
         rlists = [np.flatnonzero(rng.random(r) < 0.3)
                   for _ in range(n_versions)]
-        words = ops.as_bitmap(ops.build_bitmap(rlists, r), "cuda")
+        bm = ops.build_bitmap(rlists, r)
+        words = ops.as_bitmap(bm, "cuda")
         for vid in sorted({0, min(31, n_versions - 1), n_versions - 1}):
             mask, cnt = vm.membership_scan(words, vid, block_r=1024)
             want_m, want_c = vm.membership_scan_plain(words, vid,
@@ -414,13 +418,7 @@ def phase_gather_bitmap_small(torch, np, report: dict) -> None:
                 raise AssertionError(f"membership_scan != plain, W="
                                      f"{words.shape[1]} vid={vid}")
             n += 1
-        values = torch.from_numpy(
-            rng.integers(0, 100, r).astype(np.float32)).cuda()
-        got = va.version_aggregate(words, values)
-        if not torch.equal(got, va.version_aggregate_plain(words, values)):
-            raise AssertionError(f"version_aggregate != plain, W="
-                                 f"{words.shape[1]}")
-        n += 1
+        n += aggregate_cases(torch, np, rng, bm, words)
         try:
             vm.membership_scan(words, 32 * words.shape[1])
         except build.PlanError:
@@ -430,6 +428,71 @@ def phase_gather_bitmap_small(torch, np, report: dict) -> None:
     report["gather_bitmap_small_cases"] = n
     print(f"gather and bitmap kernels vs plain: {n} hand-made cases equal "
           "or refused")
+
+
+def aggregate_cases(torch, np, rng, bm, words) -> int:
+    """``version_aggregate`` on the card against its plain version over
+    one bitmap: integer values (sums exact, ``torch.equal``), signed
+    floats, signed floats with 64 seeded rows of magnitude 2^120 to 2^121
+    (whose sums stay below FLT_MAX in any order) and magnitudes near
+    2^-100 (within ``sum_rtol`` of the sum of the terms' absolute values,
+    taken in float64 on the host), each at block_r 1024, 96 and 100 with
+    the same bits every time; then a NaN row and +inf rows (NaN and inf
+    where the plain version has them, the same bits on two runs).  Returns
+    the number of cases."""
+    from repro_torch.kernels import version_agg as va
+    r = bm.shape[0]
+    bits = np.unpackbits(bm.view(np.uint8), axis=1, bitorder="little")
+    bits = bits.T.astype(np.float64)
+    sign = np.where(rng.random(r) < 0.5, -1.0, 1.0)
+    ints = rng.integers(0, 100, r).astype(np.float32)
+    big = rng.random(r) * 2 - 1
+    rows = rng.choice(r, 64, replace=False)
+    big[rows] = sign[rows] * np.ldexp(1 + rng.random(64), 120)
+    cases = [("ints", ints, True),
+             ("signed", rng.random(r) * 2 - 1, False),
+             ("2^120", big, False),
+             ("2^-100", sign * np.ldexp(1 + rng.random(r), -100), False)]
+    w, n = bm.shape[1], 0
+    for name, values, exact in cases:
+        values = values.astype(np.float32)
+        vals = torch.from_numpy(values).cuda()
+        runs = [va.version_aggregate(words, vals, block_r=br)
+                for br in (1024, 96, 100)]
+        want = va.version_aggregate_plain(words, vals)
+        torch.cuda.synchronize()
+        got = runs[0]
+        if not all(torch.equal(got, x) for x in runs[1:]):
+            raise AssertionError(f"version_aggregate ({name}, W={w}) "
+                                 "differs between runs")
+        if exact:
+            ok = torch.equal(got, want)
+        else:
+            bound = sum_rtol(r) * (bits @ np.abs(values.astype(np.float64)))
+            err = np.abs((got - want).cpu().numpy().astype(np.float64))
+            ok = bool(torch.isfinite(got).all()) and bool((err <= bound).all())
+        if not ok:
+            raise AssertionError(f"version_aggregate != plain ({name}, "
+                                 f"W={w})")
+        n += 1
+    for row, bad in ((7, np.nan), (r - 1, np.inf), (1234, np.inf)):
+        values = ints.copy()
+        values[row] = bad
+        vals = torch.from_numpy(values).cuda()
+        got = va.version_aggregate(words, vals)
+        again = va.version_aggregate(words, vals)
+        want = va.version_aggregate_plain(words, vals)
+        torch.cuda.synchronize()
+        if not (torch.equal(torch.isnan(got), torch.isnan(want))
+                and torch.equal(got.nan_to_num(), want.nan_to_num())
+                and torch.equal(torch.isnan(got), torch.isnan(again))
+                and torch.equal(got.nan_to_num(), again.nan_to_num())):
+            raise AssertionError(f"version_aggregate with {bad} at row {row}"
+                                 f" != plain (W={w}): nan at "
+                                 f"{int(torch.isnan(got).sum())} of "
+                                 f"{int(torch.isnan(want).sum())}")
+        n += 1
+    return n
 
 
 def make_store(np, seed: int, report: dict):
@@ -989,13 +1052,22 @@ def phase_dataset(torch, np, store, seed: int, report: dict) -> list:
     return vids
 
 
-def sum_rtol(r: int, block_r: int) -> float:
-    """The float32 sum's relative error bound for nonnegative values in
-    ``version_aggregate``: a row chunk of ``block_r`` terms added in order,
-    then ceil(chunks / 8) partials in order in each of 8 warps and the 8
-    warp sums in order, each add off by at most 2^-24 of the sum so far."""
-    chunks = -(-r // block_r)
-    return (block_r + -(-chunks // 8) + 8) * 2.0 ** -24
+def sum_rtol(r: int) -> float:
+    """The float32 sum's relative error bound in ``version_aggregate``'s
+    CUDA kernel, for nonnegative values (for signed ones, of the sum of the
+    terms' absolute values).  Derived from its summation order: each of a
+    chunk's ``CHUNK_ROWS`` / 16 tensor-core accumulates into the hi, mid and
+    lo columns counts as off by up to 2^-23 of the running sum (the ``mma``
+    accumulation is not promised to round to nearest; the products with
+    0/1 bits are exact, and every column's running sum is at most the
+    version's total); then two float32 adds, (hi + mid) + lo, and in the
+    second pass ceil(chunks / 8) partials in order in each of 8 warps and
+    the 8 warp sums in order, each add off by at most 2^-24 of the sum so
+    far.  ``block_r`` does not enter: on the card it sets no order."""
+    from repro_torch.kernels.version_agg import CHUNK_ROWS
+    chunks = -(-r // CHUNK_ROWS)
+    return ((CHUNK_ROWS // 16) * 2.0 ** -23
+            + (2 + -(-chunks // 8) + 8) * 2.0 ** -24)
 
 
 def phase_analytics(torch, np, store, seed: int, report: dict) -> dict:
@@ -1053,7 +1125,7 @@ def phase_analytics(torch, np, store, seed: int, report: dict) -> dict:
         raise AssertionError("count(col2 > 900) != per_version_aggregate")
     if data[:, 3].min() < 0:
         raise AssertionError("sum_rtol holds for nonnegative values only")
-    rtol = sum_rtol(r, 1024)
+    rtol = sum_rtol(r)
     rel = np.abs(sums["sum_col3"][:n] - ref_sum) / np.maximum(ref_sum, 1)
     if not (rel <= rtol).all():
         raise AssertionError(f"sum(col3) off by {rel.max():.3g} (relative),"
@@ -1080,6 +1152,42 @@ def phase_analytics(torch, np, store, seed: int, report: dict) -> dict:
           f"launches={launches}; {agg_ms:.2f} ms an aggregate, "
           f"{scan_ms:.2f} ms a scan (host clock, with the D2H copy)")
     return {"words": words, "values": queries, "vid": scan_vids[0]}
+
+
+def aggregate_design_floor(torch, r: int, w: int) -> dict:
+    """The least time of ``version_aggregate``'s tensor-core design (as
+    against the function's own bound): its bytes (the bitmap and values
+    once, the outputs, and the per-chunk partials written and read), its
+    ``mma`` count (2 a word per 16-row K-step, the chunks padded to 64-row
+    stages) at the bf16 peak, and its warp instructions at the card's peak
+    issue rate (4 a clock on each SM at the maximum SM clock nvidia-smi
+    reports): 10 of bit expansion (4 shifts, 8 prmt, 8 and per word and
+    K-step) and the mma itself, per mma."""
+    from repro_torch.kernels.version_agg import CHUNK_ROWS
+    chunks = -(-r // CHUNK_ROWS)
+    last = r - (chunks - 1) * CHUNK_ROWS
+    ksteps = 4 * ((chunks - 1) * (CHUNK_ROWS // 64) + -(-last // 64))
+    mma = 2 * w * ksteps
+    partial_bytes = 2 * 4 * chunks * 32 * w
+    design_bytes = 4 * r * w + 4 * r + 128 * w + partial_bytes
+    try:
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=30, check=True).stdout.split()[0])
+    except (OSError, subprocess.SubprocessError, IndexError, ValueError):
+        mhz = float("nan")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    issue_per_s = 4 * sms * mhz * 1e6
+    out = {"chunk_rows": CHUNK_ROWS, "chunks": chunks,
+           "partial_bytes": partial_bytes, "bytes": design_bytes,
+           "mma": mma, "expand_warp_instr": 10 * mma,
+           "sm_clock_max_mhz": mhz, "sms": sms,
+           "bytes_ms": 1e3 * design_bytes / HBM_BYTES_PER_S,
+           "mma_ms": 1e3 * mma * 2 * 16 * 8 * 16 / BF16_OPS_PER_S,
+           "issue_ms": 1e3 * 11 * mma / issue_per_s}
+    out["floor_ms"] = max(out["bytes_ms"], out["mma_ms"], out["issue_ms"])
+    return out
 
 
 def phase_dataset_analytics_timing(torch, np, store, vids, inputs: dict,
@@ -1190,7 +1298,7 @@ def phase_dataset_analytics_timing(torch, np, store, vids, inputs: dict,
         vals = torch.from_numpy(values).cuda()
         got = va._launch(words, vals, 1024)
         want = va.version_aggregate_plain(words, vals)
-        tol = sum_rtol(r, 1024) * want.abs()
+        tol = sum_rtol(r) * want.abs()
         diff = (got - want).abs()
         if not (diff <= tol).all():
             raise AssertionError(f"full-size version_aggregate != plain "
@@ -1206,6 +1314,7 @@ def phase_dataset_analytics_timing(torch, np, store, vids, inputs: dict,
         "bytes_ms": bytes_ms, "ops_ms": ops_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "design": aggregate_design_floor(torch, r, w),
         "ms": queued_ms(torch, lambda: va._launch(words, vals, 1024), 20,
                         flush),
         "plain_ms": queued_ms(torch, lambda: va.version_aggregate_plain(
@@ -1221,6 +1330,13 @@ def phase_dataset_analytics_timing(torch, np, store, vids, inputs: dict,
         print(f"{name} ({o['bytes_min'] / 1e6:.1f} MB): kernel "
               f"{o['ms']:.4f} ms, plain {o['plain_ms']:.4f} ms, {lib}, "
               f"bound {o['bound_ms']:.4f} ms")
+    d = out["version_aggregate"]["design"]
+    print(f"version_aggregate design floor: {d['floor_ms']:.4f} ms = max("
+          f"bytes {d['bytes'] / 1e6:.1f} MB with {d['chunks']} chunks' "
+          f"partials {d['bytes_ms']:.4f} ms, {d['mma']} mma "
+          f"{d['mma_ms']:.4f} ms, {11 * d['mma'] / 1e6:.1f} M warp "
+          f"instructions at {d['sms']} SMs x 4 x {d['sm_clock_max_mhz']:.0f}"
+          f" MHz {d['issue_ms']:.4f} ms)")
     print(f"a tiled checkout's parts (mean of 8): block upload "
           f"{checkout['block_bytes'] / 1e6:.1f} MB pageable "
           f"{checkout['upload_ms']:.3f} ms, pad {checkout['pad_ms']:.3f} ms, "

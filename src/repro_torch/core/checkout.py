@@ -38,6 +38,12 @@ under the byte budget, pinned on demand with LRU eviction, ONE fused launch
 per touched pinned group, the per-partition engine only for unpinned
 stragglers.
 
+Failure-site catalogue: every stateful step above carries a named
+``fault_point`` (a no-op until a deterministic ``FaultPlan`` is armed), so
+the recovery tests can exercise each failure mode on purpose.  22
+catalogued fault sites (``core.faults.SITES``; the count is checked
+against the catalogue by ``tools.analyze`` rule REPRO001).
+
 The failure sites of this module (``core.faults``): ``superblock.upload``
 fires in ``Superblock.device()`` before the transfer; ``wave.launch`` after
 planning and upload, before the launch; ``group.pin``/``group.evict`` before

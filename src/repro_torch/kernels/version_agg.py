@@ -9,12 +9,16 @@ uint32 bits), with out of shape (32·W,) float32; mask ``values`` upstream
 for a predicate, pass ones for COUNT.
 
 A CUDA tensor launches the hand-written kernel (``csrc/version_aggregate.cu``:
-per-chunk partials, then a fixed-order sum, so the result is the same on
-every run); a CPU tensor runs ``version_aggregate_plain``.  The two sum in
-different orders (as the JAX package's Pallas kernel and its einsum oracle
-do), so float results agree within a tolerance and integer-valued sums
-below 2^24 exactly.  Rows past R count as zero rows (the reference pads to
-a multiple of BR with zeros).
+the sums as a bits-times-values product on the tensor cores, each value
+split exactly into three bf16 parts (``split_bf16x3``), per-chunk partials
+of ``CHUNK_ROWS`` rows, then a fixed-order sum, so the result is the same
+on every run); a CPU tensor runs ``version_aggregate_plain``.  The two sum
+in different orders (as the JAX package's Pallas kernel and its einsum
+oracle do), so float results agree within a tolerance and integer-valued
+sums below 2^24 exactly; NaN and inf land where the plain version puts
+them.  Rows past R count as zero rows (the reference pads to a multiple of
+BR with zeros).  ``block_r`` sets the reference's summation order only:
+any positive value is accepted, and the kernel chunks rows its own way.
 """
 from __future__ import annotations
 
@@ -25,6 +29,9 @@ from .build import PlanError
 from .vlist_membership import as_words
 
 DEFAULT_BR = 1024   # record rows per block
+# record rows of the CUDA kernel's chunk, one partial sum a version each (a
+# multiple of its 64-row stage; the launcher refuses others)
+CHUNK_ROWS = 1024
 
 # CUDA launches of ``version_aggregate`` in this process; the plain torch
 # version never counts
@@ -46,6 +53,24 @@ def version_aggregate_plain(bitmap: torch.Tensor,
         for k in range(words.shape[1])])
 
 
+def split_bf16x3(values: torch.Tensor) -> tuple:
+    """The kernel's exact split of float32 ``values`` into three parts,
+    each exactly a bf16 (returned as float32): hi = v with its low 16 bits
+    cleared, r = v - hi (exact), mid = r with its low 16 bits cleared,
+    lo = bf16(r - mid).  hi + mid + lo == v bit for bit for every finite v
+    with |v| >= 2^-102; a non-finite v splits as (v, 0, 0), a NaN as the
+    canonical one.  Used by the tests only: the kernel splits on the
+    card."""
+    v = values.to(torch.float32)
+    finite = torch.isfinite(v)
+    hi = (v.view(torch.int32) & -65536).view(torch.float32)
+    r = torch.where(finite, v - hi, torch.zeros_like(v))
+    mid = (r.view(torch.int32) & -65536).view(torch.float32)
+    lo = (r - mid).to(torch.bfloat16).to(torch.float32)
+    hi = torch.where(torch.isnan(v), torch.full_like(v, float("nan")), hi)
+    return hi, mid, lo
+
+
 def _check_values(words: torch.Tensor, values: torch.Tensor) -> None:
     r = words.shape[0]
     if not isinstance(values, torch.Tensor) or values.shape != (r,):
@@ -58,7 +83,9 @@ def _check_values(words: torch.Tensor, values: torch.Tensor) -> None:
 def version_aggregate(bitmap: torch.Tensor, values: torch.Tensor, *,
                       block_r: int = DEFAULT_BR) -> torch.Tensor:
     """Per-version sums (32·W,) float32 of ``values`` (R,) over a (R, W)
-    bitmap tensor, on its device (the CUDA kernel's two passes)."""
+    bitmap tensor, on its device (the CUDA kernel's two passes).
+    ``block_r`` must be positive; on the card it does not change the
+    result."""
     words = as_words(bitmap)
     _check_values(words, values)
     if block_r <= 0:
@@ -87,13 +114,13 @@ def _launch(words: torch.Tensor, values: torch.Tensor,
     out = torch.empty(32 * w, dtype=torch.float32, device=words.device)
     if r == 0 or w == 0:
         return out.zero_()
-    partials = torch.empty((-(-r // block_r), 32 * w), dtype=torch.float32,
-                           device=words.device)
+    partials = torch.empty((-(-r // CHUNK_ROWS), 32 * w),
+                           dtype=torch.float32, device=words.device)
     fn = build.bitmap_fn("version_aggregate")
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream(words.device).cuda_stream
         err = fn(words.data_ptr(), values.data_ptr(), partials.data_ptr(),
-                 out.data_ptr(), r, w, block_r, 0, stream)
+                 out.data_ptr(), r, w, CHUNK_ROWS, 0, stream)
     build.check_launch(err, "version_aggregate")
     LAUNCHES += 1
     return out

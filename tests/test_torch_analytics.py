@@ -216,3 +216,52 @@ def test_bitmap_analytics_run_on_the_card_by_default(monkeypatch):
 
 def test_bitmap_constants_match_reference():
     assert vm.DEFAULT_BR == rvm.DEFAULT_BR and va.DEFAULT_BR == rva.DEFAULT_BR
+
+
+def _bf16_exact(x):
+    """Every entry of float32 ``x`` is exactly a bf16 (low 16 bits clear)."""
+    return bool(((x.view(torch.int32) & 0xFFFF) == 0).all())
+
+
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_split_bf16x3_is_exact(sign):
+    """The CUDA kernel's value split (``split_bf16x3``): hi + mid + lo ==
+    v bit for bit over seeded float32 across the exponent range down to
+    2^-102 and at FLT_MAX, each part exactly a bf16."""
+    rng = np.random.default_rng(7)
+    mant = rng.integers(0, 1 << 23, 20000)
+    exps = rng.integers(-102, 128, 20000)
+    v = np.ldexp(1.0 + mant / float(1 << 23), exps).astype(np.float32)
+    v = np.concatenate([v, [np.finfo(np.float32).max, 2.0 ** -102,
+                            np.float32(1 + 2 ** -23), 1.0]]).astype(np.float32)
+    v = torch.from_numpy(sign * v)
+    hi, mid, lo = va.split_bf16x3(v)
+    for part in (hi, mid, lo):
+        assert part.dtype == torch.float32 and _bf16_exact(part)
+        assert torch.equal(part.to(torch.bfloat16).to(torch.float32), part)
+    assert torch.equal((hi + mid) + lo, v)
+    exact = hi.double() + mid.double() + lo.double()
+    assert torch.equal(exact, v.double())
+    assert torch.isfinite(hi).all()            # no overflow at FLT_MAX
+    # each part carries the sign of v (or is zero)
+    assert ((hi * sign >= 0) & (mid * sign >= 0) & (lo * sign >= 0)).all()
+
+
+def test_split_bf16x3_integers_and_non_finite():
+    """Integers below 2^24 split into integers; inf and NaN split as
+    (v, 0, 0), a NaN as the canonical bf16 NaN."""
+    rng = np.random.default_rng(8)
+    ints = np.concatenate([rng.integers(-(1 << 24) + 1, 1 << 24, 5000),
+                           [0, 1, 255, 256, 65535, (1 << 24) - 1]])
+    v = torch.from_numpy(ints.astype(np.float32))
+    parts = va.split_bf16x3(v)
+    for part in parts:
+        assert torch.equal(part, part.round())
+    assert torch.equal((parts[0] + parts[1]) + parts[2], v)
+    payload = np.array([0x7F800001, 0xFFC00000], np.uint32).view(np.float32)
+    odd = torch.from_numpy(np.concatenate([
+        np.array([np.inf, -np.inf, np.nan], np.float32), payload]))
+    hi, mid, lo = va.split_bf16x3(odd)
+    assert not mid.any() and not lo.any()
+    assert hi[:2].tolist() == [np.inf, -np.inf]
+    assert torch.isnan(hi[2:]).all() and _bf16_exact(hi)

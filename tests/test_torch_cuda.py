@@ -10,6 +10,9 @@ a machine with a GPU and no jax:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Every test needs the card and skips without one."""
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -38,6 +41,9 @@ from repro_torch.data import VersionedDataset
 from repro_torch.launch.serve import prefill_bound
 from repro_torch.models import forward, init_params
 from repro_torch.serve import BatchedCheckoutServer, RetryPolicy
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import aggregate_cases  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -345,15 +351,18 @@ def _bitmap(r, n_versions, seed):
 @pytest.mark.parametrize("n_versions", [20, 1000, 1270])   # W = 1, 32, 40
 def test_cuda_bitmap_kernels_match_plain(cuda_device, n_versions):
     """membership_scan and version_aggregate against their plain versions
-    at W = 1, 32 and 40 words, R not a multiple of BR.  Masks and counts
-    are exact; so are sums of small integers (below 2^24).  Float sums
-    agree within rtol 1e-5: the kernel and the plain version sum in
-    another order.  The kernel's sums are the same bits on every run."""
+    at W = 1, 32 and 40 words, R = 2500 (a multiple neither of 16 nor of
+    the aggregate's chunk), block_r 1024, 96 and 100.  Masks and counts
+    are exact.  ``chip_smoke.aggregate_cases`` holds the aggregate's sums:
+    integer sums exact, other float sums (signed, near 2^120, near 2^-100)
+    within ``chip_smoke.sum_rtol`` of the sum of the terms' absolute
+    values, NaN and inf where the plain version has them, and the same
+    bits on every run, whatever block_r."""
     r = 2500
     bm, rlists = _bitmap(r, n_versions, n_versions)
     words = ops.as_bitmap(bm, cuda_device)
     vids = sorted({0, 5, min(31, n_versions - 1), n_versions - 1})
-    for br in (1024, 96):
+    for br in (1024, 96, 100):
         for vid in vids:
             before = vm.LAUNCHES
             mask, cnt = vm.membership_scan(words, vid, block_r=br)
@@ -363,23 +372,12 @@ def test_cuda_bitmap_kernels_match_plain(cuda_device, n_versions):
             assert torch.equal(mask, want_m) and torch.equal(cnt, want_c)
             assert cnt.shape == (-(-r // br),)
             assert int(cnt.sum()) == len(rlists[vid])
-    rng = np.random.default_rng(1)
-    ints = torch.from_numpy(rng.integers(0, 100, r).astype(np.float32))
-    floats = torch.from_numpy(rng.random(r).astype(np.float32))
-    for values, exact in ((ints, True), (floats, False)):
-        values = values.to(cuda_device)
-        before = va.LAUNCHES
-        got = va.version_aggregate(words, values)
-        again = va.version_aggregate(words, values)
-        assert va.LAUNCHES == before + 2
-        want = va.version_aggregate_plain(words, values)
-        torch.cuda.synchronize()
-        assert got.shape == (32 * bm.shape[1],) and torch.equal(got, again)
-        if exact:
-            assert torch.equal(got, want)
-        else:
-            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    before = va.LAUNCHES
+    assert aggregate_cases(torch, np, np.random.default_rng(n_versions), bm,
+                           words) == 7
+    assert va.LAUNCHES == before + 4 * 3 + 3 * 2
     sizes = ops.version_aggregate(words, np.ones(r, np.float32)).cpu()
+    assert sizes.shape == (32 * bm.shape[1],)
     assert sizes[:n_versions].tolist() == [len(x) for x in rlists]
     assert not sizes[n_versions:].any()
 
@@ -411,9 +409,9 @@ def test_cuda_new_kernels_refuse_launches(cuda_device):
     words = ops.as_bitmap(np.zeros((40, 2), np.uint32), cuda_device)
     with pytest.raises(build.KernelError, match="cudaError"):
         vm._launch(words, 64, 1024)                          # vid past W
-    wide = torch.zeros((1, 8 * 65536), dtype=torch.int32, device=cuda_device)
+    wide = torch.zeros((1, 32 * 65536), dtype=torch.int32, device=cuda_device)
     with pytest.raises(build.KernelError, match="cudaError"):
-        va._launch(wide, torch.zeros(1, device=cuda_device), 1024)  # W tiles
+        va._launch(wide, torch.zeros(1, device=cuda_device), 1024)  # W groups
     with pytest.raises(build.PlanError, match="block_r"):
         va._launch(words, torch.zeros(40, device=cuda_device), 0)
     with pytest.raises(build.PlanError, match="outside"):
