@@ -36,13 +36,18 @@ Phases, each of which raises on failure:
    streams, every result checked bit for bit against numpy;
 6. analytics path — the store's bitset vlists (944,685 x 32 words, 121 MB,
    uploaded once): per-version sizes, a predicate count and a column sum
-   through ``version_aggregate``, and 32 versions' ``membership_scan``,
-   checked against the CSR and the port's numpy query layer;
+   through ``version_aggregate``, and 32 versions' ``membership_scan``
+   over the bitmap's word-major copy (``ops.word_major``, made once on the
+   card and timed), checked against the CSR and the port's numpy query
+   layer;
 7. dataset and analytics timings — the four kernels of phases 5-6 at
    those shapes against their plain versions on the full inputs, timed
-   beside ``torch.index_select`` (the gathers) and the bound; and the
-   parts of one checkout (block upload, lane pad, kernel, device-to-host
-   copy) apart;
+   beside ``torch.index_select`` (the gathers) and the bound;
+   ``membership_scan`` on both layouts, each beside its own bound (the
+   word-major time is the kernels line's), and the word-major copy beside
+   its bound with the number of scans that pay for it; and the parts of
+   one checkout (block upload, lane pad, kernel, device-to-host copy)
+   apart;
 8. write path — the same workload's first 900 versions as a LyreSplit
    store on the card behind a pipelined server with a
    ``RepartitionTrigger``; versions 900-999 arrive as write waves of 16
@@ -371,10 +376,10 @@ def phase_gather_bitmap_small(torch, np, report: dict) -> None:
     """The gathers and the bitmap kernels against their plain versions on
     hand-made inputs: unsorted rids with repeats and the last row, tiles
     out of order with the last one, in int32 (D=128) and float16 (D=256);
-    bitmaps of W = 1, 32 and 40 words over R = 2500 rows (a multiple
-    neither of BR nor of 16 nor of the aggregate's chunk), version 31 (bit
-    31) and the last version, and ``aggregate_cases``.  Out-of-range
-    indices and vids must raise PlanError on the host."""
+    bitmaps of W = 1, 32 and 40 words: ``membership_cases`` and, over R =
+    2500 rows (a multiple neither of BR nor of 16 nor of the aggregate's
+    chunk), ``aggregate_cases``.  Out-of-range indices and vids must raise
+    PlanError on the host."""
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import checkout_gather as cg
     from repro_torch.kernels import version_agg as va
@@ -404,20 +409,11 @@ def phase_gather_bitmap_small(torch, np, report: dict) -> None:
     rng = np.random.default_rng(13)
     r = 2500
     for n_versions in (20, 1000, 1270):
+        n += membership_cases(torch, np, rng, n_versions)
         rlists = [np.flatnonzero(rng.random(r) < 0.3)
                   for _ in range(n_versions)]
         bm = ops.build_bitmap(rlists, r)
         words = ops.as_bitmap(bm, "cuda")
-        for vid in sorted({0, min(31, n_versions - 1), n_versions - 1}):
-            mask, cnt = vm.membership_scan(words, vid, block_r=1024)
-            want_m, want_c = vm.membership_scan_plain(words, vid,
-                                                      block_r=1024)
-            torch.cuda.synchronize()
-            if not (torch.equal(mask, want_m) and torch.equal(cnt, want_c)
-                    and int(cnt.sum()) == len(rlists[vid])):
-                raise AssertionError(f"membership_scan != plain, W="
-                                     f"{words.shape[1]} vid={vid}")
-            n += 1
         n += aggregate_cases(torch, np, rng, bm, words)
         try:
             vm.membership_scan(words, 32 * words.shape[1])
@@ -428,6 +424,60 @@ def phase_gather_bitmap_small(torch, np, report: dict) -> None:
     report["gather_bitmap_small_cases"] = n
     print(f"gather and bitmap kernels vs plain: {n} hand-made cases equal "
           "or refused")
+
+
+def membership_cases(torch, np, rng, n_versions: int) -> int:
+    """``membership_scan`` on the card against its plain version, exactly
+    one launch a case, over seeded bitmaps of ``n_versions`` versions
+    (version 31 on every 7th row, the last on every row) at R = 2500, 2501
+    and 2503 (R mod 4 = 0, 1, 3) and 7 (below every BR), each in three
+    layouts: row-major, ``word_major`` and a word-major view whose runs
+    start 4 bytes past a 16-byte boundary; BR 1024, 96, 100 and 98 (not a
+    multiple of 4); versions 0, 5, 31 (bit 31) and the last.  Masks and
+    counts are exact and the counts sum to the version's size; the ``vec4``
+    instance runs exactly where the run is word-major, 16-byte aligned and
+    BR % 4 == 0 (W = 1 row-major is such a run), ``strided`` elsewhere.
+    Returns the number of cases."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import vlist_membership as vm
+    n = 0
+    vids = sorted({0, 5, min(31, n_versions - 1), n_versions - 1})
+    for r in (2500, 2501, 2503, 7):
+        rlists = [np.flatnonzero(rng.random(r) < 0.3)
+                  for _ in range(n_versions)]
+        if n_versions > 31:
+            rlists[31] = np.arange(0, r, 7)
+        rlists[-1] = np.arange(r)
+        words = ops.as_bitmap(ops.build_bitmap(rlists, r), "cuda")
+        w = words.shape[1]
+        wm = ops.word_major(words)
+        storage = torch.empty((w, wm.stride(1) + 4), dtype=torch.int32,
+                              device=words.device)
+        off = storage[:, 1:r + 1]
+        off.copy_(words.t())
+        layouts = (("row-major", words, w == 1), ("word-major", wm, True),
+                   ("word-major off 16 bytes", off.t(), False))
+        for name, x, aligned in layouts:
+            for br in (1024, 96, 100, 98):
+                for vid in vids:
+                    want_i = "vec4" if aligned and br % 4 == 0 else "strided"
+                    before = vm.LAUNCHES
+                    mask, cnt = vm.membership_scan(x, vid, block_r=br)
+                    launched = vm.LAUNCHES - before
+                    want_m, want_c = vm.membership_scan_plain(x, vid,
+                                                              block_r=br)
+                    torch.cuda.synchronize()
+                    if not (launched == 1 and torch.equal(mask, want_m)
+                            and torch.equal(cnt, want_c)
+                            and cnt.shape == (-(-r // br),)
+                            and int(cnt.sum()) == len(rlists[vid])
+                            and vm.instance(x, vid, br) == want_i):
+                        raise AssertionError(
+                            f"membership_scan != plain ({launched} launches"
+                            f", instance {vm.instance(x, vid, br)}), {name} "
+                            f"R={r} W={w} BR={br} vid={vid}")
+                    n += 1
+    return n
 
 
 def aggregate_cases(torch, np, rng, bm, words) -> int:
@@ -1074,14 +1124,19 @@ def phase_analytics(torch, np, store, seed: int, report: dict) -> dict:
     """The analytics path at full width over the store's bitset vlists
     (built on the host, uploaded once): per-version sizes (values of ones),
     the count of records with col2 > 900 and the sum of col3, through
-    ``version_aggregate``; ``SCAN_VERSIONS`` seeded versions'
-    ``membership_scan``.  Sizes and counts must equal the CSR and the
+    ``version_aggregate`` on the row-major tensor; ``SCAN_VERSIONS``
+    seeded versions' ``membership_scan`` on its word-major copy, made once
+    after the upload (its time is ``word_major_ms``), all through the
+    kernel's vec4 instance; then the same scans again outside the window
+    on both layouts in turns, on the host clock.  Sizes and counts must
+    equal the CSR and the
     port's ``core.query.per_version_aggregate`` exactly; the sum must match
     its float64 result within ``sum_rtol``; every mask must equal the CSR
     membership and its counts the version's size.  Returns the kernel
     inputs for the timing phase."""
     from repro_torch.core.query import per_version_aggregate
     from repro_torch.kernels import ops
+    from repro_torch.kernels import vlist_membership as vm
     graph, data = store.graph, store.data
     n, r = graph.n_versions, graph.n_records
     t = time.perf_counter()
@@ -1091,6 +1146,13 @@ def phase_analytics(torch, np, store, seed: int, report: dict) -> dict:
     words = ops.as_bitmap(bm, store.device)
     torch.cuda.synchronize()
     upload_s = time.perf_counter() - t
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    start.record()
+    words_wm = ops.word_major(words)          # made once, read by the scans
+    end.record()
+    end.synchronize()
+    word_major_ms = start.elapsed_time(end)
     queries = {"sizes": np.ones(r, np.float32),
                "count_col2_gt_900": (data[:, 2] > 900).astype(np.float32),
                "sum_col3": data[:, 3].astype(np.float32)}
@@ -1102,7 +1164,8 @@ def phase_analytics(torch, np, store, seed: int, report: dict) -> dict:
             for k, v in queries.items()}
     agg_ms = 1e3 * (time.perf_counter() - t) / len(queries)
     t = time.perf_counter()
-    scans = {v: tuple(x.cpu().numpy() for x in ops.membership_scan(words, v))
+    scans = {v: tuple(x.cpu().numpy()
+                      for x in ops.membership_scan(words_wm, v))
              for v in scan_vids}
     scan_ms = 1e3 * (time.perf_counter() - t) / len(scan_vids)
     launches = launch_counts()                # the window closes
@@ -1111,6 +1174,22 @@ def phase_analytics(torch, np, store, seed: int, report: dict) -> dict:
     if any(launches[k] != want.get(k, 0) for k in launches):
         raise AssertionError(f"analytics path launches {launches}, "
                              f"expected {want}")
+    # the same scans again, outside the window, on each layout in turn
+    # (row-major, word-major, word-major, row-major): what the layout alone
+    # costs on the host clock, in one process
+    turns: dict = {"row_major": [], "word_major": []}
+    for name in ("row_major", "word_major", "word_major", "row_major"):
+        x = words if name == "row_major" else words_wm
+        t = time.perf_counter()
+        for v in scan_vids:
+            for y in ops.membership_scan(x, v):
+                y.cpu().numpy()
+        turns[name].append(1e3 * (time.perf_counter() - t) / len(scan_vids))
+    instances = {vm.instance(words_wm, v, min(vm.DEFAULT_BR, max(8, r)))
+                 for v in scan_vids}
+    if instances != {"vec4"}:
+        raise AssertionError(f"the analytics path's scans ran {instances}, "
+                             "not the vec4 instance")
     t = time.perf_counter()
     ref_count = per_version_aggregate(graph, data, 2, "count",
                                       predicate=lambda d: d[:, 2] > 900)
@@ -1141,17 +1220,26 @@ def phase_analytics(torch, np, store, seed: int, report: dict) -> dict:
     report["analytics"] = {
         "bitmap_shape": list(bm.shape), "bitmap_bytes": int(bm.nbytes),
         "build_bitmap_s": build_s, "upload_s": upload_s,
+        "word_major_ms": word_major_ms,
         "launches": launches, "scan_versions": scan_vids,
         "aggregate_host_ms": agg_ms, "scan_host_ms": scan_ms,
+        "scan_host_ms_turns": turns,
         "numpy_query_s": query_s, "sum_rel_err_max": float(rel.max()),
         "sum_rtol": rtol}
     print(f"analytics: bitmap {bm.shape} ({bm.nbytes / 1e6:.0f} MB, built "
-          f"in {build_s:.2f} s, uploaded in {1e3 * upload_s:.0f} ms); sizes "
+          f"in {build_s:.2f} s, uploaded in {1e3 * upload_s:.0f} ms, its "
+          f"word-major copy made in {word_major_ms:.4f} ms); sizes "
           f"and count(col2>900) exact, sum(col3) within {rel.max():.2g} "
-          f"(bound {rtol:.2g}), {len(scan_vids)} membership scans exact; "
+          f"(bound {rtol:.2g}), {len(scan_vids)} membership scans of the "
+          f"word-major view exact (vec4); "
           f"launches={launches}; {agg_ms:.2f} ms an aggregate, "
-          f"{scan_ms:.2f} ms a scan (host clock, with the D2H copy)")
-    return {"words": words, "values": queries, "vid": scan_vids[0]}
+          f"{scan_ms:.2f} ms a scan (host clock, with the D2H copy); the "
+          f"scans again in turns, row-major "
+          f"{'/'.join(f'{x:.3f}' for x in turns['row_major'])} ms and "
+          f"word-major {'/'.join(f'{x:.3f}' for x in turns['word_major'])}"
+          f" ms")
+    return {"words": words, "words_wm": words_wm, "values": queries,
+            "vid": scan_vids[0]}
 
 
 def aggregate_design_floor(torch, r: int, w: int) -> dict:
@@ -1274,25 +1362,49 @@ def phase_dataset_analytics_timing(torch, np, store, vids, inputs: dict,
     checkout = {k: float(np.mean([x[k] for x in parts]))
                 for k in parts[0] if k != "version"}
 
-    words, vid = inputs["words"], inputs["vid"]
+    words, words_wm = inputs["words"], inputs["words_wm"]
+    vid = inputs["vid"]
     r, w = words.shape
     word = vid // 32
+    n_blocks = -(-r // 1024)
+    # row-major, each row's word costs the 32-byte sector it lies in;
+    # word-major, the version's words are one 4R-byte run
     sectors = int(np.unique((np.arange(r, dtype=np.int64) * w + word)
                             * 4 // 32).size)
-    n_blocks = -(-r // 1024)
-    mask, cnt = vm._launch(words, vid, 1024)
-    want_m, want_c = vm.membership_scan_plain(words, vid, block_r=1024)
-    if not (torch.equal(mask, want_m) and torch.equal(cnt, want_c)):
-        raise AssertionError("full-size membership_scan != plain")
-    scan_bytes = 32 * sectors + 4 * r + 4 * n_blocks
-    out["membership_scan"] = {
-        "bytes_min": scan_bytes, "sectors": sectors, "max_abs_err": 0,
-        "bound_ms": 1e3 * scan_bytes / HBM_BYTES_PER_S,
-        "ms": queued_ms(torch, lambda: vm._launch(words, vid, 1024), 20,
-                        flush),
-        "plain_ms": queued_ms(torch, lambda: vm.membership_scan_plain(
-            words, vid, block_r=1024), 10, flush),
-        "library_ms": None}
+    for key, label, x, bytes_min, want_i in (
+            ("membership_scan_row_major", "strided row-major", words,
+             32 * sectors + 4 * r + 4 * n_blocks, "strided"),
+            ("membership_scan", "vec4 word-major", words_wm,
+             4 * r + 4 * r + 4 * n_blocks, "vec4")):
+        mask, cnt = vm._launch(x, vid, 1024)
+        want_m, want_c = vm.membership_scan_plain(x, vid, block_r=1024)
+        if not (torch.equal(mask, want_m) and torch.equal(cnt, want_c)
+                and vm.instance(x, vid, 1024) == want_i):
+            raise AssertionError(f"full-size {key} != plain, or not "
+                                 f"{want_i}")
+        out[key] = {
+            "label": f"membership_scan {label}",
+            "bytes_min": bytes_min, "max_abs_err": 0,
+            "bound_ms": 1e3 * bytes_min / HBM_BYTES_PER_S,
+            "ms": queued_ms(torch, lambda x=x: vm._launch(x, vid, 1024), 20,
+                            flush),
+            "plain_ms": queued_ms(
+                torch, lambda x=x: vm.membership_scan_plain(
+                    x, vid, block_r=1024), 10, flush),
+            "library_ms": None}
+    out["membership_scan_row_major"]["sectors"] = sectors
+    # the same launch over one count block: what a launch costs whatever R
+    out["membership_scan"]["one_block_ms"] = queued_ms(
+        torch, lambda: vm._launch(words_wm[:1024], vid, 1024), 20, flush)
+    del mask, cnt, want_m, want_c
+    copy_bytes = 2 * 4 * r * w
+    copy = {"bytes_min": copy_bytes,
+            "bound_ms": 1e3 * copy_bytes / HBM_BYTES_PER_S,
+            "ms": queued_ms(torch, lambda: ops.word_major(words), 5, flush)}
+    gain = (out["membership_scan_row_major"]["ms"]
+            - out["membership_scan"]["ms"])
+    copy["break_even_scans"] = copy["ms"] / gain if gain > 0 else None
+    report["word_major_copy"] = copy
     err = 0.0
     for name, values in inputs["values"].items():
         vals = torch.from_numpy(values).cuda()
@@ -1327,9 +1439,17 @@ def phase_dataset_analytics_timing(torch, np, store, vids, inputs: dict,
     for name, o in out.items():
         lib = ("no single torch call" if o["library_ms"] is None
                else f"index_select {o['library_ms']:.4f} ms")
-        print(f"{name} ({o['bytes_min'] / 1e6:.1f} MB): kernel "
+        print(f"{o.get('label', name)} ({o['bytes_min'] / 1e6:.1f} MB): "
+              f"kernel "
               f"{o['ms']:.4f} ms, plain {o['plain_ms']:.4f} ms, {lib}, "
               f"bound {o['bound_ms']:.4f} ms")
+    print(f"membership_scan vec4 over one block of 1024 rows: "
+          f"{out['membership_scan']['one_block_ms']:.4f} ms")
+    even = copy["break_even_scans"]
+    print(f"word_major copy ({copy['bytes_min'] / 1e6:.1f} MB read and "
+          f"written): {copy['ms']:.4f} ms, bound "
+          f"{copy['bound_ms']:.4f} ms; it pays for itself after "
+          f"{'no number of' if even is None else f'{even:.2f}'} scans")
     d = out["version_aggregate"]["design"]
     print(f"version_aggregate design floor: {d['floor_ms']:.4f} ms = max("
           f"bytes {d['bytes'] / 1e6:.1f} MB with {d['chunks']} chunks' "

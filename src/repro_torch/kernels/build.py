@@ -110,9 +110,11 @@ def load(name: str) -> ctypes.CDLL:
 # The binding shapes of the port's C entry points; each returns a
 # ``cudaError_t``.  Tile copies (``launch_tiles`` in ``csrc/tile_launch.cuh``):
 # four input pointers, the output, the tile count, BN, the row bytes and the
-# stream.  Bitmap kernels (``csrc/membership_scan.cu``,
-# ``csrc/version_aggregate.cu``): the bitmap, the values, two outputs, R, W,
-# BR, vid and the stream.  Flash attention (``csrc/flash_attention.cu``):
+# stream.  The bitmap aggregate (``csrc/version_aggregate.cu``): the bitmap,
+# the values, two outputs, R, W, BR, vid and the stream.  The membership
+# scan (``csrc/membership_scan.cu``): the bitmap, two outputs, R, W, the row
+# and word strides in elements, BR, vid and the stream.  Flash attention
+# (``csrc/flash_attention.cu``):
 # q, k, v, out, then B, Sq, Sk, H, Hkv, Dh, causal, dtype (0 float32,
 # 1 bfloat16) and the stream.  The SSD scan (``csrc/ssd_scan.cu``): xs, B, C,
 # dt, a, y, the final state, the bf16 scratch (chunk states, decays), then B,
@@ -123,6 +125,10 @@ TILE_ARGS = ([ctypes.c_void_p] * 5
 BITMAP_ARGS = ([ctypes.c_void_p] * 4
                + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                   ctypes.c_void_p])
+MEMBERSHIP_ARGS = ([ctypes.c_void_p] * 3
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
 FLASH_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 SSD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
@@ -147,6 +153,23 @@ def bitmap_fn(name: str):
     """The bitmap kernel ``<name>_launch`` of library ``name``, built and
     bound on first use, with the ``BITMAP_ARGS`` signature."""
     return _bind(name, f"{name}_launch", BITMAP_ARGS)
+
+
+@functools.lru_cache(maxsize=None)
+def membership_fn():
+    """``membership_scan_launch``, built and bound on first use
+    (``MEMBERSHIP_ARGS``)."""
+    return _bind("membership_scan", "membership_scan_launch", MEMBERSHIP_ARGS)
+
+
+@functools.lru_cache(maxsize=None)
+def membership_instance_fn():
+    """``membership_scan_instance`` (bitmap, row and word strides, BR, vid
+    -> 1 for the vec4 instance, 0 for the strided one), built and bound on
+    first use."""
+    return _bind("membership_scan", "membership_scan_instance",
+                 [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                  ctypes.c_int, ctypes.c_int])
 
 
 @functools.lru_cache(maxsize=None)

@@ -257,7 +257,10 @@ def membership_scan(bitmap, vid: int, *, block_r: int = _vm.DEFAULT_BR,
     ``vid`` over the bitset vlists, ONE launch, with the JAX package's
     padding rule ``br = min(block_r, max(8, R))``: R_pad is R rounded up to
     br, and the rows past R count as zero rows (they are not copied).
-    PlanError for a vid outside the bitmap."""
+    PlanError for a vid outside the bitmap.  A numpy bitmap is uploaded
+    row-major, as ``as_bitmap`` does; a tensor is read in the layout it
+    has.  Only a caller that holds the ``word_major`` view (made once, read
+    by many scans) gets the kernel's contiguous reads."""
     words = as_bitmap(bitmap, device)
     br = min(block_r, max(8, words.shape[0]))
     return _vm.membership_scan(words, vid, block_r=br)
@@ -282,5 +285,6 @@ def version_aggregate(bitmap, values, *, block_r: int = _va.DEFAULT_BR,
 flash_attention = _fa.flash_attention
 ssd_scan = _ss.ssd_scan
 build_bitmap = _vm.build_bitmap
+word_major = _vm.word_major
 plan_tiles = _cg.plan_tiles
 plan_batched = _cb.plan_batched

@@ -80,6 +80,17 @@ def _check_values(words: torch.Tensor, values: torch.Tensor) -> None:
                         f"{words.device}")
 
 
+def _check_row_major(words: torch.Tensor) -> None:
+    """The kernel reads every word of a row: it takes the contiguous (R, W)
+    bitmap only, and refuses the word-major view on both devices."""
+    if not words.is_contiguous():
+        kind = ("a word_major view" if words.stride(0) == 1
+                else "a non-contiguous tensor")
+        raise PlanError(f"version_aggregate reads the contiguous row-major "
+                        f"(R, W) bitmap, not {kind}: pass the row-major "
+                        f"tensor")
+
+
 def version_aggregate(bitmap: torch.Tensor, values: torch.Tensor, *,
                       block_r: int = DEFAULT_BR) -> torch.Tensor:
     """Per-version sums (32·W,) float32 of ``values`` (R,) over a (R, W)
@@ -90,6 +101,7 @@ def version_aggregate(bitmap: torch.Tensor, values: torch.Tensor, *,
     _check_values(words, values)
     if block_r <= 0:
         raise PlanError(f"block_r must be positive, got {block_r}")
+    _check_row_major(words)
     if words.device.type == "cpu":
         return version_aggregate_plain(words, values)
     if words.device.type != "cuda":
@@ -104,8 +116,9 @@ def _launch(words: torch.Tensor, values: torch.Tensor,
     the kernel through this)."""
     global LAUNCHES
     _check_values(words, values)
-    if not (words.is_contiguous() and values.is_contiguous()):
-        raise PlanError("bitmap and values must be contiguous")
+    _check_row_major(words)
+    if not values.is_contiguous():
+        raise PlanError("values must be contiguous")
     if values.dtype != torch.float32:
         raise PlanError("values must be float32")
     if block_r <= 0:

@@ -15,6 +15,15 @@ popcount of BR rows each.  A CUDA tensor launches the hand-written kernel
 Rows past R count as zero rows, so the counts equal the reference's on a
 bitmap zero-padded to a multiple of BR without the bitmap being copied.
 The wrapper checks ``0 <= vid < 32 * W`` on the host (PlanError).
+
+Layouts.  The scan reads one word of every row.  Row-major, those words lie
+4·W bytes apart, so the card moves a 32-byte sector for each 4 useful bytes.
+``word_major`` makes a copy whose storage is (W, Rp), Rp = R rounded up to
+a multiple of 4, and returns it as an (R, W) view with strides (1, Rp): the
+same shape, values and semantics, so every function here (and the plain
+version) takes it, and a version's words are one contiguous run that the
+kernel moves 16 bytes a thread.  ``layout`` names the two layouts the
+kernel reads; any other raises PlanError on both devices.
 """
 from __future__ import annotations
 
@@ -25,6 +34,10 @@ from . import build
 from .build import PlanError
 
 DEFAULT_BR = 1024   # rows per block
+# bytes of the row-major bitmap that ``word_major`` transposes a copy at a
+# time: the copy reads each row's W words at once only through the L2, so
+# a chunk well inside the card's 50 MB L2 is read from device memory once
+WORD_MAJOR_CHUNK_BYTES = 16 << 20
 
 # CUDA launches of ``membership_scan`` in this process; the plain torch
 # version never counts
@@ -52,6 +65,39 @@ def check_vid(vid, n_words: int) -> int:
     return vid
 
 
+def word_major(words: torch.Tensor) -> torch.Tensor:
+    """A word-major copy of a (R, W) bitmap tensor, on its device: an
+    (R, W) int32 view with strides (1, Rp) over fresh (W, Rp) storage, Rp
+    = R rounded up to a multiple of 4.  Equal to ``words`` element for
+    element; the Rp - R padding rows of the storage are never read.  The
+    transpose is torch's strided copy, ``WORD_MAJOR_CHUNK_BYTES`` of rows
+    at a time (layout preparation, made once per bitmap)."""
+    words = as_words(words)
+    r, w = words.shape
+    storage = torch.empty((w, -(-r // 4) * 4), dtype=torch.int32,
+                          device=words.device)
+    step = max(4, WORD_MAJOR_CHUNK_BYTES // (4 * max(w, 1)))
+    for a in range(0, r, step):
+        b = min(a + step, r)
+        storage[:, a:b].copy_(words[a:b].t())
+    return storage[:, :r].t()
+
+
+def layout(words: torch.Tensor) -> tuple[int, int]:
+    """(row stride, word stride) in elements of a (R, W) bitmap tensor in a
+    layout the kernel reads: row-major (``stride(1) == 1``, ``stride(0) >=
+    W``, the contiguous tensor among them) or word-major (``stride(0) ==
+    1``, ``stride(1) >= R``, the view ``word_major`` makes).  A tensor of
+    no elements is in either.  PlanError for any other."""
+    r, w = words.shape
+    s0, s1 = words.stride()
+    if (s1 == 1 and s0 >= w) or (s0 == 1 and s1 >= r) or not r * w:
+        return s0, s1
+    raise PlanError(f"bitmap strides {(s0, s1)} for shape {(r, w)} are "
+                    "neither row-major nor word-major: pass a contiguous "
+                    "tensor or its word_major view")
+
+
 def membership_scan_plain(bitmap: torch.Tensor, vid: int, *,
                           block_r: int = DEFAULT_BR
                           ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -69,11 +115,13 @@ def membership_scan(bitmap: torch.Tensor, vid: int, *,
                     block_r: int = DEFAULT_BR
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """(mask (R,) int32, per-block counts (ceil(R/BR),) int32) for version
-    ``vid`` over a (R, W) bitmap tensor, in ONE launch on its device."""
+    ``vid`` over a (R, W) bitmap tensor, row-major or word-major, in ONE
+    launch on its device."""
     words = as_words(bitmap)
     vid = check_vid(vid, words.shape[1])
     if block_r <= 0:
         raise PlanError(f"block_r must be positive, got {block_r}")
+    layout(words)
     if words.device.type == "cpu":
         return membership_scan_plain(words, vid, block_r=block_r)
     if words.device.type != "cuda":
@@ -82,23 +130,33 @@ def membership_scan(bitmap: torch.Tensor, vid: int, *,
     return _launch(words, vid, block_r)
 
 
+def instance(words: torch.Tensor, vid: int, block_r: int) -> str:
+    """The kernel instance a launch on these operands runs, by the kernel
+    library's own rule: ``vec4`` (16-byte loads and stores, 4 rows a
+    thread) for a word-major run that starts 16-byte aligned with
+    ``block_r % 4 == 0``, ``strided`` for every other case."""
+    rs, ws = layout(words)
+    fn = build.membership_instance_fn()
+    return "vec4" if fn(words.data_ptr(), rs, ws, block_r, vid) else \
+        "strided"
+
+
 def _launch(words: torch.Tensor, vid: int, block_r: int
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """One counted CUDA launch on a checked vid (``chip_smoke.py`` times
     the kernel through this)."""
     global LAUNCHES
-    if not words.is_contiguous():
-        raise PlanError("bitmap must be contiguous")
+    rs, ws = layout(words)
     r, w = words.shape
     mask = torch.empty(r, dtype=torch.int32, device=words.device)
     cnt = torch.empty(-(-r // block_r), dtype=torch.int32, device=words.device)
     if r == 0:
         return mask, cnt
-    fn = build.bitmap_fn("membership_scan")
+    fn = build.membership_fn()
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream(words.device).cuda_stream
-        err = fn(words.data_ptr(), None, mask.data_ptr(), cnt.data_ptr(), r,
-                 w, block_r, vid, stream)
+        err = fn(words.data_ptr(), mask.data_ptr(), cnt.data_ptr(), r, w, rs,
+                 ws, block_r, vid, stream)
     build.check_launch(err, "membership_scan")
     LAUNCHES += 1
     return mask, cnt

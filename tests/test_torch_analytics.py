@@ -74,14 +74,26 @@ def _vids(n_versions):
                    n_versions - 1, max(0, n_versions - 33)})
 
 
+def _in_layout(bm, layout):
+    """The numpy bitmap as an int32 CPU tensor, row-major or as its
+    ``word_major`` view."""
+    words = torch.from_numpy(bm.view(np.int32))
+    return words if layout == "row_major" else vm.word_major(words)
+
+
+@pytest.mark.parametrize("layout", ["row_major", "word_major"])
 @pytest.mark.parametrize("r,n_versions,block_r", SHAPES)
-def test_membership_scan_matches_reference(r, n_versions, block_r):
+def test_membership_scan_matches_reference(r, n_versions, block_r, layout):
+    """Both layouts the kernel reads give the reference's masks and counts
+    bit for bit: the ``ops`` wrapper against the reference's, the plain
+    version against the Pallas kernel in interpret mode, the oracles."""
     rls = _rlists(r, n_versions, r + 1)
     bm = ops.build_bitmap(rls, r)
+    words = _in_layout(bm, layout)
     br = min(block_r, max(8, r))
     padded = np.pad(bm, ((0, (-r) % br), (0, 0)))
     for vid in _vids(n_versions):
-        mask, cnt = ops.membership_scan(bm, vid, block_r=block_r,
+        mask, cnt = ops.membership_scan(words, vid, block_r=block_r,
                                         device="cpu")
         rmask, rcnt = rops.membership_scan(bm, vid=vid, block_r=block_r)
         assert mask.dtype == cnt.dtype == torch.int32
@@ -91,8 +103,7 @@ def test_membership_scan_matches_reference(r, n_versions, block_r):
         # the Pallas kernel in interpret mode on the padded one
         kmask, kcnt = rvm.membership_scan(jnp.asarray(padded), vid=vid,
                                           block_r=br, interpret=True)
-        pmask, pcnt = vm.membership_scan_plain(
-            torch.from_numpy(bm.view(np.int32)), vid, block_r=br)
+        pmask, pcnt = vm.membership_scan_plain(words, vid, block_r=br)
         np.testing.assert_array_equal(pmask.numpy(), np.asarray(kmask)[:r])
         np.testing.assert_array_equal(pcnt.numpy(), np.asarray(kcnt))
         omask, ocnt = tref.membership_scan_ref(torch.from_numpy(padded),
@@ -104,6 +115,61 @@ def test_membership_scan_matches_reference(r, n_versions, block_r):
         expect[rls[vid]] = 1
         np.testing.assert_array_equal(mask.numpy(), expect)
         assert int(cnt.sum()) == len(rls[vid])
+
+
+@pytest.mark.parametrize("r,n_versions,block_r", SHAPES)
+def test_word_major_is_a_strided_copy(r, n_versions, block_r):
+    """``word_major`` is equal to the row-major tensor, has strides (1, Rp)
+    with Rp a multiple of 4 at least R, owns fresh storage, and is the
+    layout ``layout`` calls word-major; ``ops.word_major`` is the same
+    function."""
+    bm = ops.build_bitmap(_rlists(r, n_versions, r + 3), r)
+    words = torch.from_numpy(bm.view(np.int32))
+    wm = ops.word_major(words)
+    assert ops.word_major is vm.word_major
+    assert wm.dtype == torch.int32 and torch.equal(wm, words)
+    rp = wm.stride(1)
+    assert wm.stride(0) == 1 and rp % 4 == 0 and r <= rp < r + 4
+    assert wm.untyped_storage().data_ptr() != \
+        words.untyped_storage().data_ptr()
+    assert vm.layout(wm) == (1, rp) and vm.layout(words) == (bm.shape[1], 1)
+    # a uint32 tensor goes through as_words, and a word-major view is
+    # copied again into a fresh one
+    again = vm.word_major(torch.from_numpy(bm))
+    assert torch.equal(vm.word_major(wm), words) and torch.equal(again, wm)
+
+
+def test_bitmap_layouts_the_kernels_refuse():
+    """A bitmap tensor in neither layout (every other word of a wider
+    bitmap, a transposed view with gaps between rows) raises PlanError
+    naming ``word_major`` in ``membership_scan`` and its counted launch
+    (before any CUDA call); ``version_aggregate`` refuses the word-major
+    view on both devices, as its launch does."""
+    bm = ops.build_bitmap(_rlists(50, 70, 0), 50)        # W = 3
+    words = torch.from_numpy(bm.view(np.int32))
+    wide = torch.from_numpy(ops.build_bitmap(_rlists(50, 192, 1), 50)
+                            .view(np.int32))
+    odd = (wide[:, ::2],                                 # strides (6, 2)
+           torch.as_strided(words.clone(), (25, 3), (1, 20)),   # overlap
+           wide[::2, :3])                                # fine: row-major
+    for bad in odd[:2]:
+        with pytest.raises(PlanError, match="word_major"):
+            vm.membership_scan(bad, 1)
+        with pytest.raises(PlanError, match="word_major"):
+            vm._launch(bad, 1, 1024)
+    assert vm.layout(odd[2]) == (12, 1)
+    mask, _ = vm.membership_scan(odd[2], 33)
+    assert torch.equal(mask, vm.membership_scan_plain(odd[2], 33)[0])
+    wm = vm.word_major(words)
+    values = torch.ones(50)
+    with pytest.raises(PlanError, match="word_major view"):
+        va.version_aggregate(wm, values)
+    with pytest.raises(PlanError, match="word_major view"):
+        ops.version_aggregate(wm, np.ones(50), device="cpu")
+    with pytest.raises(PlanError, match="word_major view"):
+        va._launch(wm, values, 1024)
+    with pytest.raises(PlanError, match="non-contiguous"):
+        va.version_aggregate(wide[:, ::2], values)
 
 
 @pytest.mark.parametrize("r,n_versions,block_r", SHAPES)

@@ -43,7 +43,7 @@ from repro_torch.models import forward, init_params
 from repro_torch.serve import BatchedCheckoutServer, RetryPolicy
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import aggregate_cases  # noqa: E402
+from chip_smoke import aggregate_cases, membership_cases  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -349,6 +349,20 @@ def _bitmap(r, n_versions, seed):
 
 
 @pytest.mark.parametrize("n_versions", [20, 1000, 1270])   # W = 1, 32, 40
+def test_cuda_membership_scan_layouts_match_plain(cuda_device, n_versions):
+    """membership_scan against its plain version at W = 1, 32 and 40 words
+    in both layouts and a word-major view off 16 bytes, R = 2500, 2501,
+    2503 and 7, block_r 1024, 96, 100 and 98, bit 31 and the last version
+    (``chip_smoke.membership_cases``): one launch a case, masks and counts
+    exact, the vec4 instance exactly on aligned word-major runs."""
+    vids = {0, 5, min(31, n_versions - 1), n_versions - 1}
+    before = vm.LAUNCHES
+    cases = membership_cases(torch, np, np.random.default_rng(n_versions),
+                             n_versions)
+    assert cases == 4 * 3 * 4 * len(vids) == vm.LAUNCHES - before
+
+
+@pytest.mark.parametrize("n_versions", [20, 1000, 1270])   # W = 1, 32, 40
 def test_cuda_bitmap_kernels_match_plain(cuda_device, n_versions):
     """membership_scan and version_aggregate against their plain versions
     at W = 1, 32 and 40 words, R = 2500 (a multiple neither of 16 nor of
@@ -357,7 +371,8 @@ def test_cuda_bitmap_kernels_match_plain(cuda_device, n_versions):
     integer sums exact, other float sums (signed, near 2^120, near 2^-100)
     within ``chip_smoke.sum_rtol`` of the sum of the terms' absolute
     values, NaN and inf where the plain version has them, and the same
-    bits on every run, whatever block_r."""
+    bits on every run, whatever block_r.  The aggregate refuses the
+    word-major view."""
     r = 2500
     bm, rlists = _bitmap(r, n_versions, n_versions)
     words = ops.as_bitmap(bm, cuda_device)
@@ -380,6 +395,10 @@ def test_cuda_bitmap_kernels_match_plain(cuda_device, n_versions):
     assert sizes.shape == (32 * bm.shape[1],)
     assert sizes[:n_versions].tolist() == [len(x) for x in rlists]
     assert not sizes[n_versions:].any()
+    if bm.shape[1] > 1:          # at W = 1 the two layouts are one
+        with pytest.raises(build.PlanError, match="word_major view"):
+            ops.version_aggregate(ops.word_major(words),
+                                  np.ones(r, np.float32))
 
 
 def test_cuda_bitmap_kernels_small_and_empty(cuda_device):
