@@ -46,7 +46,7 @@ test-cov:       ## tier-1 + line-coverage floor on src/repro/core (CI gate)
 # findings; tests/fixtures/ holds deliberately-broken analyzer fixtures.
 LINT_PATHS := src/repro/core src/repro/serve src/repro/kernels \
 	src/repro/train src/repro/launch src/repro/sharding.py \
-	tools benchmarks $(wildcard tests/*.py)
+	src/repro_torch tools benchmarks $(wildcard tests/*.py)
 
 lint: lint-invariants ## syntax/undefined-name gate + invariant suite
 	@$(PY) -c "import pyflakes" 2>/dev/null || \
@@ -55,6 +55,7 @@ lint: lint-invariants ## syntax/undefined-name gate + invariant suite
 
 lint-invariants: ## repro-analyze AST invariant suite (REPRO001-006, stdlib-only)
 	$(PY) -m tools.analyze src/repro
+	$(PY) -m tools.analyze src/repro_torch
 
 bench:          ## batched checkout perf trajectory (BENCH_batched_checkout.json)
 	$(PY) -m benchmarks.batched_checkout

@@ -82,11 +82,29 @@ Phases, each of which raises on failure:
     shared attention's and first SSD layer's inputs: kernel, plain,
     ``scaled_dot_product_attention`` (flash), the bound and each design's
     own floor (flash's products with P·V twice; the scan's bytes with its
-    float32 chunk states).
+    float32 chunk states);
+14. durable multi-tenant path (run after phase 9) — a store of its own,
+    built as phase 8 builds its own (the first 900 versions, LyreSplit at
+    twice their records, no superblock budget), under ``StoreDurability``
+    in a fresh directory under ``build/`` (removed at the end): a
+    snapshot; a ``MultiTenantServer`` of 4 threaded tenants (waves of 64
+    tickets), three reading 256-ticket batches that include fresh
+    versions, one writing versions 900-963 in waves of 16 commits (one
+    ``commit.batch`` record and one fsync a wave); an injected
+    ``journal.fsync`` fault on the next wave that leaves no trace; a
+    second snapshot with the tenants' watermarks; versions 964-995 in two
+    more acknowledged waves; a kill (no snapshot; the store is dropped and
+    the card's allocated memory checked back to where it was);
+    ``restore(device="cuda")`` timed as read + verify, replay and the
+    first batch (the superblock's re-pin); 16 batches on the restored
+    store; versions 996-999, a journaled migration (``segment_move``) and
+    4 batches; a clean ``scrub()``.  Every ticket is checked against
+    numpy, the restored store against the killed one.
 
-Phases 3, 5, 6, 8, 11 and 12 each set every kernel's launch count to 0
-just before they drive their path and read the counts just after;
-launches made to compare or time a kernel fall outside those windows.
+Phases 3, 5, 6, 8, 11, 12 and 14 (twice: from the tenants to the kill, and
+from the restore to the end) each set every kernel's launch count to 0 just
+before they drive their path and read the counts just after; launches made
+to compare or time a kernel fall outside those windows.
 TF32 is off (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` False): the float32 plain versions
 compare in full float32.
@@ -140,6 +158,10 @@ DATASET_SEQ_LEN = 1023   # tokens a sequence (a training row is 1024)
 SCAN_VERSIONS = 32       # membership scans in the analytics phase
 WRITE_BASE = 900         # versions in the write phase's starting store
 WRITE_WAVE = 16          # commits per write wave
+DURABLE_READERS = ("r0", "r1", "r2")   # the durable phase's read tenants
+DURABLE_WRITER = "w"                   # and its write tenant
+DURABLE_MAX_WAVE = 64    # tickets a granted wave (the tenancy bench's)
+DURABLE_RESTORED_BATCHES = 16   # 256-ticket batches on the restored store
 # the write phase's RepartitionTrigger: every wave below density 1.0 counts
 # toward the streak, so it fires on a wave count: 6 read waves in a row fire
 # LyreSplit once, after the 6th write wave, and the 5 read waves left cannot
@@ -997,6 +1019,431 @@ def phase_write_timing(torch, np, captured: dict, report: dict) -> dict:
     torch.cuda.synchronize()
     report["write_timing"] = out
     return out
+
+
+def commit_wave(w, tree, lo: int, hi: int, cur: int):
+    """The commits of versions ``lo..hi-1`` as ``commit_many`` dicts, and
+    the record pool after them (the generator allocates rids densely in
+    version order: a version's fresh rids are those past the pool before
+    it)."""
+    commits = []
+    for v in range(lo, hi):
+        rl = w.graph.rlist(v)
+        fresh = rl[rl >= cur]
+        commits.append({"parent": int(tree.parent[v]), "rlist": rl,
+                        "new_rows": w.data[fresh]})
+        cur += len(fresh)
+    return commits, cur
+
+
+def durable_window(grants: list, readers) -> dict:
+    """The grant log's contention window, windowed as the multi-tenant
+    benchmark windows it: the read tenants' grants up to the first one
+    that drains (a tenant's total grants reached)."""
+    total = {t: grants.count(t) for t in readers}
+    window = {t: 0 for t in readers}
+    for g in grants:
+        if g not in window:
+            continue
+        window[g] += 1
+        if window[g] == total[g]:
+            break
+    return window
+
+
+def resume_tickets(mts, watermarks: dict) -> None:
+    """Start each tenant's tickets, client and server side, at its
+    restored watermark: the coordinator has no restore hook of its own,
+    and a restored stream must not re-mint a pre-kill ticket id."""
+    for t, server in mts.tenant_servers().items():
+        mts._tenant(t).next_ticket = server._next_ticket = int(watermarks[t])
+
+
+def phase_durable(torch, np, w, tree, seed: int, gpu: str,
+                  report: dict) -> None:
+    """The durable multi-tenant write path at SCI_1M, on a store of its
+    own built as the write phase builds its own (the first
+    ``WRITE_BASE`` versions, LyreSplit at twice their records, no
+    superblock budget): a snapshot; four threaded tenants (three readers,
+    one writer of ``WRITE_WAVE``-commit waves, each one ``commit.batch``
+    record and one fsync); an injected ``journal.fsync`` fault that leaves
+    no trace; a second snapshot with the tenants' watermarks; two more
+    acknowledged write waves; a kill; ``restore(device="cuda")`` timed in
+    its parts; 16 read batches on the restored store; the last commits, a
+    journaled migration and 4 read batches; and a clean scrub.  Every
+    ticket is checked against numpy."""
+    import shutil
+    import tempfile
+    import types
+    import weakref
+    from repro_torch.core import durability as dmod
+    from repro_torch.core import lyresplit_for_budget, store_from_arrays
+    from repro_torch.core.checkout import (migrate_superblock,
+                                           peek_superblock, take_superblock)
+    from repro_torch.core.durability import (StoreDurability,
+                                             snapshot_roundtrip_equal)
+    from repro_torch.core.faults import FaultPlan, InjectedFault, install
+    from repro_torch.core.journal import get_journal, read_records
+    from repro_torch.core.partition import plan_migration
+    from repro_torch.core.version_graph import WeightedTree
+    from repro_torch.serve import MultiTenantServer, TenantQuota, jain_index
+    readers, writer = DURABLE_READERS, DURABLE_WRITER
+    tenants = (*readers, writer)
+    rng = np.random.default_rng(seed + 3)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    n0 = WRITE_BASE
+    ip, ind = w.graph.indptr, w.graph.indices
+    pool = int(ind[:ip[n0]].max()) + 1
+    base_tree = WeightedTree(parent=tree.parent[:n0].copy(),
+                             n_records=tree.n_records[:n0].copy(),
+                             edge_w=tree.edge_w[:n0].copy())
+    split = lyresplit_for_budget(base_tree, 2 * pool)
+    store = store_from_arrays(ip[:n0 + 1], ind[:ip[n0]], pool, w.data[:pool],
+                              split.best.assignment, device=DEVICE)
+    root = tempfile.mkdtemp(prefix="durable-", dir=ROOT / "build")
+    out: dict = {"gpu": gpu, "dir_bytes": {}}
+
+    def dir_bytes() -> int:
+        return sum(p.stat().st_size for p in Path(root).iterdir())
+
+    oracle: dict = {}
+
+    def check(tickets_vids, results):
+        for v, m in zip(tickets_vids, results):
+            want = oracle.get(v)
+            if want is None:
+                want = oracle[v] = w.data[w.graph.rlist(v)]
+            if not np.array_equal(np.asarray(m), want):
+                raise AssertionError(f"durable phase: ticket for version {v}"
+                                     " differs from data[rlist(v)]")
+        return len(tickets_vids)
+
+    opened: list = []     # servers to stop if a check fails
+
+    def make_mts(s):
+        # room for every batch the restored store's serving submits
+        # before it collects: no shed is part of this path
+        cap = 256 * DURABLE_RESTORED_BATCHES
+        opened.append(MultiTenantServer(
+            s, threads=True, max_backlog=len(tenants) * cap,
+            quotas={t: TenantQuota(max_inflight=cap,
+                                   max_wave=DURABLE_MAX_WAVE)
+                    for t in tenants}))
+        return opened[-1]
+
+    def read_round(mts, n_live, fresh):
+        """One 256-ticket batch for every reader; returns the tickets."""
+        sub = {}
+        for t in readers:
+            vids = read_wave_vids(np, rng, n_live, fresh)
+            sub[t] = (vids, mts.submit_many(t, vids))
+        return sub
+
+    def collect(mts, sub):
+        n = 0
+        for t, (vids, tks) in sub.items():
+            n += check(vids, mts.results(t, tks, timeout=600))
+        return n
+
+    try:
+        # 1. store and first snapshot
+        dur = StoreDurability(root)
+        t = time.perf_counter()
+        dur.snapshot(store)
+        out["snapshot1_s"] = time.perf_counter() - t
+        out["dir_bytes"]["snapshot1"] = dir_bytes()
+        print(f"durable store: {n0} versions, {pool} records, "
+              f"{len(store.partitions)} partitions; snapshot 1 in "
+              f"{out['snapshot1_s']:.2f} s, {out['dir_bytes']['snapshot1']} "
+              f"bytes on disk (host clock; {gpu})")
+        # 2. tenants: three readers and a writer, on worker threads
+        mts = make_mts(store)
+        mts.warmup()
+        torch.cuda.synchronize()
+        zero_launch_counts()                          # window 1 opens
+        cur, fresh, acked, checked, write_waves = pool, [], [], 0, 0
+        journals = []                                 # (write_s, synced)
+        j = dur.journal
+        for lo in range(n0, n0 + 4 * WRITE_WAVE, WRITE_WAVE):
+            commits, cur = commit_wave(w, tree, lo, lo + WRITE_WAVE, cur)
+            synced = j.synced
+            wt = mts.submit_commit(writer, commits)
+            sub = read_round(mts, store.graph.n_versions, fresh)
+            fresh = [int(v) for v in mts.results(writer, wt, timeout=600)]
+            if fresh != list(range(lo, lo + WRITE_WAVE)):
+                raise AssertionError(f"write tickets gave {fresh}")
+            if j.synced != synced + 1:
+                raise AssertionError(f"a write wave paid {j.synced - synced}"
+                                     " fsyncs, not one")
+            acked += fresh
+            write_waves += 1
+            checked += collect(mts, sub)
+        # 3. a fault: the next write wave's fsync fails
+        lo = n0 + 4 * WRITE_WAVE
+        commits, cur_after = commit_wave(w, tree, lo, lo + WRITE_WAVE, cur)
+        n_before, epoch_before = store.graph.n_versions, store.epoch
+        repairs, synced = j.repairs, j.synced
+        plan = FaultPlan.single("journal.fsync")
+        install(store, plan)
+        try:
+            mts.drain(timeout=600)
+            wt = mts.submit_commit(writer, commits)
+            for k in wt:
+                try:
+                    mts.result(writer, k, timeout=600)
+                except InjectedFault:
+                    continue
+                raise AssertionError("the faulted write wave was "
+                                     "acknowledged")
+        finally:
+            install(store, None)
+        recs, bad = read_records(j.path)
+        if ([r.site for r in plan.fired] != ["journal.fsync"]
+                or j.repairs != repairs + 1 or j.synced != synced
+                or (store.graph.n_versions, store.epoch)
+                != (n_before, epoch_before) or bad is not None
+                or any(r.kind == "commit.batch"
+                       and r.payload["vid0"] >= lo for r in recs)):
+            raise AssertionError("the failed write wave left a trace: "
+                                 f"fired {plan.fired}, repairs "
+                                 f"{j.repairs - repairs}, versions "
+                                 f"{store.graph.n_versions}")
+        # 4. second snapshot, with the tenants' watermarks
+        if not mts.drain(timeout=600):
+            raise AssertionError("the tenants did not drain")
+        journals.append((j.write_s, j.synced))
+        t = time.perf_counter()
+        snap2 = dur.snapshot(store, servers=mts)
+        out["snapshot2_s"] = time.perf_counter() - t
+        out["dir_bytes"]["snapshot2"] = dir_bytes()
+        out["dedup_ratio"] = dur.dedup_ratio()
+        print(f"snapshot 2 (tenant watermarks "
+              f"{snap2.meta['ticket_watermarks']}) in "
+              f"{out['snapshot2_s']:.2f} s, dedup ratio "
+              f"{out['dedup_ratio']:.4f} against snapshot 1, "
+              f"{out['dir_bytes']['snapshot2']} bytes on disk (host clock; "
+              f"{gpu})")
+        j = dur.journal
+        for lo in range(lo, lo + 2 * WRITE_WAVE, WRITE_WAVE):
+            commits, cur = commit_wave(w, tree, lo, lo + WRITE_WAVE, cur)
+            synced = j.synced
+            wt = mts.submit_commit(writer, commits)
+            sub = read_round(mts, store.graph.n_versions, fresh)
+            fresh = [int(v) for v in mts.results(writer, wt, timeout=600)]
+            if fresh != list(range(lo, lo + WRITE_WAVE)) \
+                    or j.synced != synced + 1:
+                raise AssertionError(f"write wave {fresh}: "
+                                     f"{j.synced - synced} fsyncs")
+            acked += fresh
+            write_waves += 1
+            checked += collect(mts, sub)
+        checked += collect(mts, read_round(mts, store.graph.n_versions,
+                                           fresh))
+        journals.append((j.write_s, j.synced))
+        # 5. kill: the servers close without a snapshot
+        mts.close()
+        launches1 = launch_counts()                   # window 1 closes
+        # the servers' counters, folded up to the coordinator's: every
+        # ticket id a client was handed before the kill is below them
+        marks = {t: s._next_ticket for t, s in mts.tenant_servers().items()}
+        stats1 = {t: dataclasses.asdict(mts.stats(t)) for t in tenants}
+        lat1 = {t: {"p50_ms": 1e3 * s.stats.p50_latency_s,
+                    "max_ms": 1e3 * s.stats.max_latency_s}
+                for t, s in mts.tenant_servers().items()}
+        grants1 = list(mts.grant_log)
+        jain1 = jain_index(list(durable_window(grants1, readers).values()))
+        live = types.SimpleNamespace(
+            epoch=store.epoch, assignment=store.assignment.copy(),
+            data=store.data, graph=types.SimpleNamespace(
+                indptr=store.graph.indptr.copy(),
+                indices=store.graph.indices.copy()))
+        n_live = store.graph.n_versions
+        if acked != list(range(n0, n_live)) or n_live != n0 + 6 * WRITE_WAVE:
+            raise AssertionError(f"acknowledged {len(acked)} versions, the "
+                                 f"store holds {n_live}")
+        head_path = dur.journal.path
+        dead = weakref.ref(store)
+        del mts, store, dur, j, sub
+        opened.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        leaked = torch.cuda.memory_allocated() - mem0
+        if dead() is not None or leaked:
+            raise AssertionError(f"the killed store is still referenced "
+                                 f"({dead() is not None}) or {leaked} bytes "
+                                 "are still allocated on the card")
+        # 6. restore, timed in its parts
+        replay_s = [0.0]
+        real_replay = dmod.replay_into
+
+        def timed_replay(s, recs):
+            t0 = time.perf_counter()
+            try:
+                return real_replay(s, recs)
+            finally:
+                replay_s[0] += time.perf_counter() - t0
+
+        zero_launch_counts()                          # window 2 opens
+        dmod.replay_into = timed_replay
+        try:
+            t = time.perf_counter()
+            dur = StoreDurability(root)
+            rs = dur.restore(device=DEVICE)
+            restore_s = time.perf_counter() - t
+        finally:
+            dmod.replay_into = real_replay
+        store = rs.store
+        head, bad = read_records(head_path)
+        n_data = sum(r.kind == "commit.batch" for r in head)
+        if (rs.snapshot.vid != snap2.vid or bad is not None
+                or rs.replayed != len(head) or n_data != 2):
+            raise AssertionError(f"restore replayed {rs.replayed} records "
+                                 f"of the {len(head)} after snapshot 2 "
+                                 f"({n_data} data)")
+        if not snapshot_roundtrip_equal(store, live) \
+                or store.epoch != live.epoch:
+            raise AssertionError("the restored store differs from the "
+                                 "store at the kill")
+        if (store.device != torch.device(DEVICE)
+                or peek_superblock(store) is not None):
+            raise AssertionError("restore pinned a superblock or left the "
+                                 "card")
+        low = {t: (rs.ticket_watermarks.get(t, 0), marks[t])
+               for t in tenants if rs.ticket_watermarks.get(t, 0) < marks[t]}
+        if low:
+            raise AssertionError(f"restored watermarks below the kill's: "
+                                 f"{low}")
+        mts = make_mts(store)
+        resume_tickets(mts, rs.ticket_watermarks)
+        # 7. serve the restored store: the first batch re-pins the
+        # superblock
+        t = time.perf_counter()
+        vids = read_wave_vids(np, rng, n_live, acked[-WRITE_WAVE:])
+        tks = mts.submit_many(readers[0], vids)
+        first = mts.results(readers[0], tks, timeout=600)
+        first_s = time.perf_counter() - t
+        if min(tks) < marks[readers[0]]:
+            raise AssertionError("a restored ticket id collides with a "
+                                 "pre-kill one")
+        checked2 = check(vids, first)
+        sub_all = []
+        for b in range(1, DURABLE_RESTORED_BATCHES):
+            t = tenants[b % len(tenants)]
+            vids = read_wave_vids(np, rng, n_live, acked[-WRITE_WAVE:])
+            sub_all.append((t, vids, mts.submit_many(t, vids)))
+        for t, vids, tks in sub_all:
+            checked2 += check(vids, mts.results(t, tks, timeout=600))
+        # 8. continue: the last commits, a journaled migration, 4 batches
+        hi = w.n_versions
+        commits, cur = commit_wave(w, tree, n_live, hi, cur)
+        j = get_journal(store)
+        synced = j.synced
+        got = [int(v) for v in mts.results(
+            writer, mts.submit_commit(writer, commits), timeout=600)]
+        if got != list(range(n_live, hi)) or j.synced != synced + 1:
+            raise AssertionError(f"restored store's write wave gave {got}")
+        if not mts.drain(timeout=600):
+            raise AssertionError("the tenants did not drain")
+        t = time.perf_counter()
+        assignment = lyresplit_for_budget(tree, 2 * w.n_records
+                                          ).best.assignment
+        mplan = plan_migration(store, assignment)
+        old_sb = take_superblock(store)
+        store.apply_migration(mplan)
+        _, mstats = migrate_superblock(store, old_sb, mplan)
+        migration_s = time.perf_counter() - t
+        recs, _ = read_records(head_path)
+        if [r.kind for r in recs[len(head):] if r.kind != "ticket"] != \
+                ["commit.batch", "migration.intent", "migration.commit"]:
+            raise AssertionError("the restored store did not journal its "
+                                 "commit wave and migration")
+        for _ in range(4):
+            sub = read_round(mts, hi, list(range(n_live, hi)))
+            checked2 += collect(mts, sub)
+        mts.close()
+        launches2 = launch_counts()                   # window 2 closes
+        lat2 = {t: {"p50_ms": 1e3 * s.stats.p50_latency_s,
+                    "max_ms": 1e3 * s.stats.max_latency_s}
+                for t, s in mts.tenant_servers().items()}
+        jain2 = jain_index(list(durable_window(list(mts.grant_log),
+                                               readers).values()))
+        if not (np.array_equal(store.graph.indptr, w.graph.indptr)
+                and np.array_equal(store.graph.indices, w.graph.indices)):
+            raise AssertionError("the restored store's CSR differs from "
+                                 "the workload's")
+        # 9. scrub
+        t = time.perf_counter()
+        scrub = dur.scrub()
+        scrub_s = time.perf_counter() - t
+        findings = sum(len(b) for b in scrub["snapshots"].values()) + sum(
+            j_["bad_offset"] is not None for j_ in scrub["journals"].values())
+        if not scrub["clean"] or findings:
+            raise AssertionError(f"scrub found {findings}: {scrub}")
+        # 10. launch counts
+        others = {k: n for k, n in {**launches1, **launches2}.items()
+                  if n and k not in ("checkout_wave", "segment_append",
+                                     "segment_move")}
+        if (launches1["checkout_wave"] <= 0
+                or launches2["checkout_wave"] <= 0
+                or launches1["segment_append"] != write_waves
+                or launches2["segment_append"] != 1
+                or launches1["segment_move"] != 0
+                or launches2["segment_move"] != 1 or others):
+            raise AssertionError(f"durable launches off: before the kill "
+                                 f"{launches1}, after {launches2}")
+        if mstats is None or not mstats.used_device:
+            raise AssertionError(f"the migration did not run on the card: "
+                                 f"{mstats}")
+        write_s = sum(a for a, _ in journals)
+        synced_n = sum(b for _, b in journals)
+        shed = sum(s["shed_overload"] + s["shed_quota"]
+                   for s in stats1.values())
+        out.update({
+            "versions": w.n_versions, "records": w.n_records,
+            "write_waves_before_kill": write_waves,
+            "acknowledged_versions": len(acked),
+            "tickets_before_kill": checked, "tickets_after_restore": checked2,
+            "fsync_ms_per_wave": 1e3 * write_s / synced_n,
+            "journal_write_s": write_s, "journal_synced": synced_n,
+            "restore_s": restore_s, "replay_s": replay_s[0],
+            "read_verify_s": restore_s - replay_s[0],
+            "first_batch_s": first_s, "replayed": rs.replayed,
+            "migration_s": migration_s, "scrub_s": scrub_s,
+            "latency_before_kill": lat1, "latency_after_restore": lat2,
+            "jain_before_kill": jain1, "jain_after_restore": jain2,
+            "grants_before_kill": len(grants1), "sheds": shed,
+            "tenant_stats_before_kill": stats1,
+            "launches_before_kill": launches1,
+            "launches_after_restore": launches2,
+            "watermarks": {"restored": rs.ticket_watermarks,
+                           "at_kill": marks}})
+        report["durable"] = out
+        print(f"durable path: {len(acked)} versions in {write_waves} "
+              f"acknowledged write waves (one fsync each, "
+              f"{out['fsync_ms_per_wave']:.2f} ms a wave on the host clock, "
+              f"{gpu}), the faulted wave "
+              f"left no trace; {checked} tickets before the kill and "
+              f"{checked2} after restore bit-identical; launches "
+              f"{launches1} then {launches2}; scrub clean")
+        print(f"restore (host clock): read + verify "
+              f"{out['read_verify_s']:.2f} s, replay of {rs.replayed} "
+              f"records {out['replay_s']:.2f} s, first batch (re-pin) "
+              f"{first_s:.2f} s; migration {migration_s:.2f} s; scrub "
+              f"{scrub_s:.2f} s; {gpu}")
+        print("tenant ticket latency p50/max ms (host clock, grant to "
+              "delivery): " + ", ".join(
+                  f"{t} {lat1[t]['p50_ms']:.1f}/{lat1[t]['max_ms']:.1f} then "
+                  f"{lat2[t]['p50_ms']:.1f}/{lat2[t]['max_ms']:.1f}"
+                  for t in tenants)
+              + f"; Jain {jain1:.4f} then {jain2:.4f} over the readers' "
+              f"contention window; {len(grants1)} grants, {shed} sheds "
+              f"before the kill; {gpu}")
+    finally:
+        for mts in opened:
+            mts.close(drain=False)
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def host_batches(np, rows, seq_len: int, global_batch: int, seed: int,
@@ -2042,7 +2489,9 @@ def main(argv=None) -> int:
     captured = phase_write(torch, np, w, tree, args.seed,
                            dict(TRIGGER, min_waves=args.min_waves), report)
     seg = phase_write_timing(torch, np, captured, report)
-    del captured, w, tree
+    del captured
+    phase_durable(torch, np, w, tree, args.seed, gpu, report)
+    del w, tree
     gc.collect()
     torch.cuda.empty_cache()
     model = phase_serve(torch, args.seed, report)

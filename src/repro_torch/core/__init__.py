@@ -1,6 +1,6 @@
 """OrpheusDB core on PyTorch: the CVD graph, LYRESPLIT partitioning, the
-partitioned store and its batched checkout engine, and the versioned query
-layer."""
+partitioned store and its batched checkout engine, the write-ahead journal
+and durable snapshots, and the versioned query layer."""
 from .bench_gen import Workload, generate
 from .checkout import (DensityStats, Superblock, WaveResult,
                        build_superblock, checkout_partitioned,
@@ -9,6 +9,9 @@ from .checkout import (DensityStats, Superblock, WaveResult,
                        checkout_wave, estimate_superblock_bytes,
                        evict_superblocks, get_density_stats, get_superblock,
                        plan_wave, take_superblock)
+from .datamodels import SplitByRlist
+from .durability import (RestoredStore, StoreDurability, StoreSnapshot,
+                         snapshot_roundtrip_equal)
 from .faults import (SITES as FAULT_SITES, FaultPlan, GuardedCounter,
                      InjectedFault, fault_point, inflight_counter)
 from .graph import BipartiteGraph, checkout_cost, storage_cost, union_size
@@ -28,7 +31,10 @@ __all__ = [
     "lyresplit", "lyresplit_for_budget", "SplitResult",
     "PartitionedCVD", "single_partition", "per_version_partitions",
     "store_from_arrays",
+    "SplitByRlist",
     "FAULT_SITES", "FaultPlan", "GuardedCounter", "InjectedFault",
     "fault_point", "inflight_counter",
+    "RestoredStore", "StoreDurability", "StoreSnapshot",
+    "snapshot_roundtrip_equal",
     "generate", "Workload",
 ]

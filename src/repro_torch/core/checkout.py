@@ -77,18 +77,9 @@ from ..kernels.checkout_batched import plan_batched
 from ..kernels.checkout_gather import DEFAULT_BD, DEFAULT_BN
 from .faults import fault_point
 from .graph import BipartiteGraph
+from .journal import journal_regroup
 
 logger = logging.getLogger(__name__)
-
-
-def _no_journal(owner, record: str) -> None:
-    """Journaled mutations land with the durability slice; until then a
-    store cannot carry a journal, and the append is skipped as the JAX
-    package skips it when none is attached."""
-    if getattr(owner, "_journal", None) is not None:
-        raise NotImplementedError(
-            f"journaling {record!r} records is not ported yet "
-            "(ROADMAP A.7, durability)")
 
 
 def _fused_host_gather(data: np.ndarray, rlists: Sequence[np.ndarray]
@@ -253,6 +244,7 @@ class _WavePart:
     mats: Optional[list] = None         # pre-materialized per-idx blocks
     packed: Optional[torch.Tensor] = None   # packed gather on the device
     event: object = None                # torch.cuda.Event after the launch
+    stream: object = None               # the stream the launch went on
     segments: Optional[list] = None     # per-idx row slices of ``packed``
     d: int = 0                          # valid feature width of ``packed``
 
@@ -266,13 +258,17 @@ class _WavePart:
             fault_point("serve.transfer")
             packed = self.packed
             if packed.is_cuda:
-                stream = torch.cuda.current_stream(packed.device)
-                stream.wait_event(self.event)
+                # the copy queues on the stream the wave launched on,
+                # whichever thread delivers it (tenant workers launch and
+                # deliver concurrently): launch, event and copy stay in
+                # stream order
+                stream = self.stream
                 host = torch.empty(packed.shape, dtype=packed.dtype,
                                    pin_memory=True)
-                host.copy_(packed, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(stream)
+                with torch.cuda.stream(stream):
+                    host.copy_(packed, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record(stream)
                 done.synchronize()
             else:
                 host = packed
@@ -280,6 +276,7 @@ class _WavePart:
             self.mats = [arr[seg] for seg in self.segments]
             self.packed = None          # release the device tensor
             self.event = None
+            self.stream = None
             self.segments = None
         return self.mats
 
@@ -769,12 +766,14 @@ class SuperblockGroups:
     def regroup(self) -> None:
         """Drop every pin and re-form the groups from the CURRENT hot
         ranking — the explicit consolidation knob for traffic shifts.  The
-        result would be journaled as an advisory layout record; no journal
-        can be attached yet (see ``_no_journal``)."""
+        RESULT (not the heat trigger) is journaled as an advisory record
+        when a ``core.journal`` journal is attached, so a restored store
+        replays the layout directly — heat EWMAs between snapshots are not
+        journaled per wave."""
         self.evict_all()
         self._plan_epoch = -1
         self.ensure_plan()
-        _no_journal(self.store, "regroup")
+        journal_regroup(self)
 
     def regroup_drift(self) -> float:
         """How far the LIVE hot ranking has drifted from the prefix the
@@ -1314,11 +1313,12 @@ def _gather_off_superblock(store, gvids: Sequence[int], sb: Superblock, *,
     fault_point("wave.launch", store)
     packed = K.checkout_wave(dev, wp.plan.starts, wp.plan.mode, wp.hi,
                              block_n=sb.block_n, block_d=sb.bd)
-    event = None
+    event = stream = None
     if packed.is_cuda:
+        stream = torch.cuda.current_stream(packed.device)
         event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(packed.device))
-    return _WavePart(idxs=idxs, packed=packed, event=event,
+        event.record(stream)
+    return _WavePart(idxs=idxs, packed=packed, event=event, stream=stream,
                      segments=[wp.segment(k, sb.block_n)
                                for k in range(len(gvids))],
                      d=sb.d), True, dt

@@ -32,12 +32,13 @@ import numpy as np
 
 from ..kernels.build import KernelError
 from ..kernels.ops import resolve_device
-from .checkout import (_no_journal, checkout_partitioned, evict_superblocks,
+from .checkout import (checkout_partitioned, evict_superblocks,
                        migrate_groups, refresh_superblocks_after_commit,
                        take_group_superblocks)
 from .datamodels import diff_against_parents
 from .faults import fault_point
 from .graph import BipartiteGraph, intersect_size
+from .journal import _enc, get_journal
 
 logger = logging.getLogger(__name__)
 
@@ -100,9 +101,18 @@ class PartitionedCVD:
         bumps the epoch and EAGERLY evicts cached superblocks — pinned
         partition-GROUP superblocks included — so stale device copies are
         released immediately.  Any attached hot-set ranking is dropped too
-        (partition indices changed meaning)."""
+        (partition indices changed meaning).
+
+        Journaled (``core.journal``): the ``repartition`` record is
+        appended + fsynced BEFORE the in-memory rebuild — a failed append
+        leaves the store untouched (plain retry), and a crash after the
+        append replays the rebuild deterministically."""
         assignment = np.asarray(assignment, dtype=np.int64)
-        _no_journal(self, "repartition")
+        j = get_journal(self)
+        if j is not None:
+            j.append("repartition", {"assignment": _enc(assignment),
+                                     "epoch_after": int(self.epoch) + 1},
+                     sync=True)
         self.assignment = assignment
         self.vid_to_pid = np.full(self.graph.n_versions, -1, np.int64)
         self._build()
@@ -130,9 +140,13 @@ class PartitionedCVD:
         TRANSACTIONAL in memory: the staged arrays AND the receiving
         partition's rebuild happen before any field swap, so a failure in
         staging (allocator, injected ``ingest.commit`` fault) leaves the
-        store bit-identical; the COMMIT half is pure field swaps.  A
-        journal record would be appended between the two
-        (``_no_journal``)."""
+        store bit-identical; the COMMIT half is pure field swaps.
+
+        Journaled (``core.journal``): the commit record is appended +
+        fsynced AFTER staging and BEFORE the swap.  A failed append mutates
+        nothing (retry-safe); once ``commit_version`` returns, the commit
+        survives any crash — the zero-RPO contract ``StoreDurability``
+        replays on restore."""
         rlist = np.unique(np.asarray(rlist, dtype=np.int64))
         if new_rows is not None and len(new_rows) == 0:
             new_rows = None
@@ -177,10 +191,19 @@ class PartitionedCVD:
                      else self.partitions[slot].grids)
         edge_w = (intersect_size(self.graph.rlist(parent), rlist)
                   if parent is not None else 0)
-        # fires at the stage->journal boundary: the store is untouched, so
-        # a plain retry re-stages from scratch
+        # fires at the stage->journal boundary: store AND journal are both
+        # still untouched, so a plain retry re-stages from scratch
         fault_point("ingest.commit", self)
-        _no_journal(self, "commit")
+        j = get_journal(self)
+        if j is not None:
+            j.append("commit", {
+                "vid": vid,
+                "parent": parent,
+                "pid": pid,
+                "rlist": _enc(rlist),
+                "new_rows": None if new_rows is None else _enc(new_rows),
+                "epoch_after": int(self.epoch) + 1,
+                "n_versions_after": vid + 1}, sync=True)
         # -- COMMIT: pure field swaps (nothing below can fail) --------------
         self.data = data
         self.graph.indptr = indptr
@@ -218,14 +241,18 @@ class PartitionedCVD:
 
         One wave does the batch's work once: a single bulk CSR /
         assignment / data append, ONE partition rebuild per touched
-        partition label, ONE epoch bump, and targeted superblock maintenance
+        partition label, ONE journal record (``commit.batch``) fsynced once
+        for the whole wave with all-or-nothing replay semantics, ONE epoch
+        bump, and targeted superblock maintenance
         (``refresh_superblocks_after_commit``) that extends the touched
         superblocks in place with BN-aligned new tiles — ONE
         ``segment_append`` launch each.
 
-        TRANSACTIONAL exactly like ``commit_version``.  Fault sites:
+        TRANSACTIONAL exactly like ``commit_version``: staging (including
+        every partition rebuild) completes before the journal append, and
+        the COMMIT half is pure field swaps.  Fault sites:
         ``ingest.extract`` at entry (nothing staged), ``ingest.commit`` at
-        the stage->journal boundary (store untouched).
+        the stage->journal boundary (store and journal untouched).
 
         Returns the new vids, ``[vid0, vid0 + K)``."""
         commits = [dict(c) for c in commits]
@@ -254,6 +281,7 @@ class PartitionedCVD:
         rlists: list[np.ndarray] = []
         parents: list[Optional[int]] = []
         pids: list[int] = []
+        new_blocks: list[Optional[np.ndarray]] = []
         for i, c in enumerate(commits):
             vid = vid0 + i
             parent = c.get("parent")
@@ -313,6 +341,7 @@ class PartitionedCVD:
             rlists.append(rlist)
             parents.append(parent)
             pids.append(pid)
+            new_blocks.append(new_rows)
         # -- STAGE 2: one bulk CSR append + one rebuild per touched
         #    partition label ---------------------------------------------
         counts = np.array([len(r) for r in rlists], dtype=np.int64)
@@ -342,10 +371,25 @@ class PartitionedCVD:
         edge_ws = [intersect_size(staged_graph.rlist(p), rlists[i])
                    if (p := parents[i]) is not None else 0
                    for i in range(len(commits))]
-        # fires at the stage->journal boundary: the store is untouched, so
-        # a plain retry re-stages from scratch
+        # fires at the stage->journal boundary: store AND journal are both
+        # still untouched, so a plain retry re-stages from scratch
         fault_point("ingest.commit", self)
-        _no_journal(self, "commit.batch")
+        j = get_journal(self)
+        if j is not None:
+            # group commit: ONE fsynced record covers the whole wave —
+            # replay applies all K commits or none of them
+            j.append("commit.batch", {
+                "vid0": vid0,
+                "commits": [{
+                    "vid": vid0 + i,
+                    "parent": parents[i],
+                    "pid": pids[i],
+                    "rlist": _enc(rlists[i]),
+                    "new_rows": (None if new_blocks[i] is None
+                                 else _enc(new_blocks[i]))}
+                    for i in range(len(commits))],
+                "epoch_after": int(self.epoch) + 1,
+                "n_versions_after": vid0 + len(commits)}, sync=True)
         # -- COMMIT: pure field swaps (nothing below can fail) --------------
         self.data = data
         self.graph.indptr = indptr
@@ -389,7 +433,15 @@ class PartitionedCVD:
         fields, bumps the epoch and migrates caches.  A failure during
         staging (including an injected ``migration.commit`` fault at the
         boundary) leaves the store bit-identical to its pre-migration state
-        — same epoch, same partitions, same pinned groups."""
+        — same epoch, same partitions, same pinned groups.
+
+        Journaled (``core.journal``) as an intent->commit pair bracketing
+        the stage: the buffered ``migration.intent`` record lands after
+        staging, the fsynced ``migration.commit`` record BEFORE the swap.
+        An intent without a commit is the crashed-mid-migration signature
+        replay ignores; a failed commit-record append leaves the store
+        unmutated (retry restages), and once the record is durable the
+        swap is deterministic."""
         if len(plan.assignment) != self.graph.n_versions:
             raise ValueError(
                 f"plan covers {len(plan.assignment)} versions, store has "
@@ -424,8 +476,16 @@ class PartitionedCVD:
                 vid_to_slot={int(v): k for k, v in enumerate(vids)}))
             vid_to_pid[vids] = i
         new_assignment = plan.assignment.copy()
+        j = get_journal(self)
+        if j is not None:
+            j.append_advisory("migration.intent",
+                              {"assignment": _enc(new_assignment),
+                               "epoch_before": int(self.epoch)})
         fault_point("migration.commit", self)
-        _no_journal(self, "migration.commit")
+        if j is not None:
+            j.append("migration.commit",
+                     {"assignment": _enc(new_assignment),
+                      "epoch_after": int(self.epoch) + 1}, sync=True)
         # -- COMMIT: point of no return --------------------------------------
         taken_groups = take_group_superblocks(self)
         self.assignment = new_assignment

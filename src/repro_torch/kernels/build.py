@@ -22,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -33,6 +34,7 @@ HEADERS = ("tile_launch.cuh",)   # included by the sources; part of each digest
 
 BUILD_LOG: dict[str, str] = {}         # name -> nvcc/ptxas output
 _LIBS: dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
 
 
 class KernelError(RuntimeError):
@@ -96,14 +98,20 @@ def build_all(names) -> dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel library ``name``, built on first use and cached."""
+    """The kernel library ``name``, built on first use and cached.  One
+    build at a time: tenant worker threads may launch a kernel for the
+    first time together, and a build's temporary file is named by the
+    process, not the thread."""
     lib = _LIBS.get(name)
     if lib is None:
-        path = build_all([name])[name]
-        try:
-            lib = _LIBS[name] = ctypes.CDLL(str(path))
-        except OSError as exc:
-            raise KernelError(f"cannot load {path}: {exc}") from exc
+        with _LOAD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                path = build_all([name])[name]
+                try:
+                    lib = _LIBS[name] = ctypes.CDLL(str(path))
+                except OSError as exc:
+                    raise KernelError(f"cannot load {path}: {exc}") from exc
     return lib
 
 

@@ -81,6 +81,7 @@ import numpy as np
 from ..core.checkout import (_validate_vids, checkout_partitioned,
                              get_superblock, get_superblock_groups)
 from ..core.faults import acquire_read_lease, fault_point, read_leases
+from ..core.journal import get_journal
 from ..kernels.build import KernelError
 
 logger = logging.getLogger(__name__)
@@ -236,6 +237,10 @@ class BatchedCheckoutServer:
                 repartitions are counted in ``stats.repartitions``.
     retry:      optional ``RetryPolicy`` (see the module docstring).  None
                 (default) keeps the raise-to-caller failure semantics.
+    tenant:     the ticket namespace (None = the anonymous one): global
+                ticket identity is (tenant, ticket), and
+                ``core.durability`` persists and journals each tenant's
+                watermark under it.
     write_drain_timeout_s: how long a write wave waits in the lease
                 registry's drain window for out-of-band epoch leases before
                 DEFERRING the commit to the next flush.  None (default)
@@ -247,6 +252,7 @@ class BatchedCheckoutServer:
                  deadline_s: Optional[float] = None,
                  trigger=None, pipeline: bool = True,
                  retry: Optional[RetryPolicy] = None,
+                 tenant: Optional[str] = None,
                  write_drain_timeout_s: Optional[float] = None,
                  clock: Callable[[], float] = time.monotonic):
         if trigger is not None and engine != "wave":
@@ -262,6 +268,7 @@ class BatchedCheckoutServer:
         self.trigger = trigger
         self.pipeline = pipeline
         self.retry = retry
+        self.tenant = tenant
         self._breaker = TierBreaker(retry.breaker_threshold
                                     if retry is not None else 3)
         self._closed = False
@@ -272,6 +279,7 @@ class BatchedCheckoutServer:
         # as ONE commit_many ingest wave at the next flush boundary
         self._pending_writes: list[tuple[int, dict, float]] = []
         self._next_ticket = 0
+        self._journaled_ticket = 0   # watermark last recorded in the journal
         self._inflight: Optional[_InflightWave] = None
         # a wave re-queued by a failed flush must NOT be re-fired by the
         # deadline flusher on the very next poll(); the next submit, or an
@@ -348,6 +356,21 @@ class BatchedCheckoutServer:
             self.flush()
         return tickets
 
+    def _journal_watermark(self) -> None:
+        """Advisory ``ticket`` record of this tenant's watermark, appended
+        when it has advanced since the last record.  Buffered and
+        failure-absorbed (``append_advisory``): the serve path must never
+        fail on telemetry, and a lost tail only widens the restored
+        watermark gap — never a ticket collision, since restore takes the
+        max of the snapshot and journal records."""
+        j = get_journal(self.store)
+        if j is None or self._next_ticket <= self._journaled_ticket:
+            return
+        if j.append_advisory("ticket", {
+                "tenant": "" if self.tenant is None else str(self.tenant),
+                "watermark": int(self._next_ticket)}):
+            self._journaled_ticket = self._next_ticket
+
     def poll(self) -> bool:
         """Event-loop hook: deliver the in-flight wave if its device result
         is ready (never blocks on the device), then deadline-flush iff the
@@ -377,6 +400,7 @@ class BatchedCheckoutServer:
         Every result is also retained for ``result(ticket)``.  Pending
         writes land first, as one ingest wave (``_flush_writes``)."""
         self._check_open()
+        self._journal_watermark()
         # land the write wave FIRST: the read wave detached below then
         # plans against (and serves) the post-commit epoch.  A failed or
         # deferred write wave leaves the pending reads untouched.
@@ -478,6 +502,7 @@ class BatchedCheckoutServer:
         ``RuntimeError`` afterwards (``poll()`` returns False)."""
         if self._closed:
             return
+        self._journal_watermark()    # final watermark record (advisory)
         wave, self._inflight = self._inflight, None
         if wave is not None:
             if deliver:

@@ -13,8 +13,10 @@ import pytest
 import torch
 
 import repro.core.checkout as rck
+import repro.core.journal as rjournal
 import repro.core.query as rq
 import repro_torch.core.checkout as ck
+import repro_torch.core.journal as pjournal
 import repro_torch.core.query as q
 from repro.core import generate
 from repro.core.graph import BipartiteGraph as RefGraph
@@ -165,7 +167,7 @@ def test_superblock_rejects_rows_beyond_int32_plans():
         ck.build_superblock(store)
 
 
-def test_evict_take_reinstall_and_repartition_match_reference():
+def test_evict_take_reinstall_and_repartition_match_reference(tmp_path):
     port, ref, w = _sci_pair(0)
     ck.get_superblock(port)[0].device()
     assert ck.peek_superblock(port) is not None
@@ -181,9 +183,21 @@ def test_evict_take_reinstall_and_repartition_match_reference():
     vids = [0, 4, 17, 39]
     _same_blocks(ck.checkout_wave(port, vids),
                  rck.checkout_wave(ref, vids, use_kernel=False))
-    port._journal = object()            # journaling lands with durability
-    with pytest.raises(NotImplementedError):
-        port.repartition(assignment)
+    # with journals attached, both write the same repartition record
+    # before the rebuild
+    pj = pjournal.Journal(str(tmp_path / "port.wal"))
+    rj = rjournal.Journal(str(tmp_path / "ref.wal"))
+    pjournal.attach_journal(port, pj)
+    rjournal.attach_journal(ref, rj)
+    port.repartition(np.arange(w.n_versions) % 2)
+    ref.repartition(np.arange(w.n_versions) % 2)
+    pj.close()
+    rj.close()
+    recs, bad = pjournal.read_records(pj.path)
+    assert bad is None and [r.kind for r in recs] == ["repartition"]
+    assert recs[0].payload["epoch_after"] == port.epoch == ref.epoch
+    assert (tmp_path / "port.wal").read_bytes() == \
+        (tmp_path / "ref.wal").read_bytes()
 
 
 # ----------------------------------------------------- partition groups --

@@ -2,9 +2,10 @@
 ``segment_move``, ``gather_rows``, ``gather_row_tiles``, ``membership_scan``,
 ``version_aggregate``, ``flash_attention`` and ``ssd_scan`` against their
 plain torch versions, and the wave engine, the server, the online write
-path (commit waves, a migration), a ``VersionedDataset``, the bitmap
-analytics on a CUDA store against numpy, and a ``SMOKE``-size model forward
-through both model kernels.  This file imports neither jax nor the JAX package, so it runs on
+path (commit waves, a migration), the durable path (a journaled commit
+wave, a kill and ``restore(device="cuda")``), four threaded tenants, a
+``VersionedDataset``, the bitmap analytics on a CUDA store against numpy,
+and a ``SMOKE``-size model forward through both model kernels.  This file imports neither jax nor the JAX package, so it runs on
 a machine with a GPU and no jax:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -34,13 +35,15 @@ from repro_torch.core import generate, store_from_arrays
 from repro_torch.core.checkout import (checkout_wave,
                                        estimate_superblock_bytes,
                                        get_superblock_groups, peek_superblock)
+from repro_torch.core.durability import StoreDurability
 from repro_torch.core.lyresplit import lyresplit_for_budget
 from repro_torch.core.partition import plan_migration
 from repro_torch.core.version_graph import to_tree
 from repro_torch.data import VersionedDataset
 from repro_torch.launch.serve import prefill_bound
 from repro_torch.models import forward, init_params
-from repro_torch.serve import BatchedCheckoutServer, RetryPolicy
+from repro_torch.serve import (BatchedCheckoutServer, MultiTenantServer,
+                               RetryPolicy, TenantQuota)
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import aggregate_cases, membership_cases  # noqa: E402
@@ -650,3 +653,131 @@ def test_cuda_smoke_forward_runs_both_kernels(cuda_device, arch):
     assert torch.isfinite(got).all()
     rel = (got.float().cpu() - want.float()).norm() / want.float().norm()
     assert rel <= prefill_bound(cfg), rel
+
+
+def _durable_workload(seed):
+    w = generate("SCI", n_versions=60, inserts=80, n_branches=6,
+                 n_attrs=20, seed=seed)
+    tree, _ = to_tree(w.graph, w.vgraph)
+    return w, tree
+
+
+def _commits(w, tree, lo, hi, cur):
+    out = []
+    for v in range(lo, hi):
+        rl = w.graph.rlist(v)
+        out.append({"parent": int(tree.parent[v]), "rlist": rl,
+                    "new_rows": w.data[rl[rl >= cur]]})
+        cur += int((rl >= cur).sum())
+    return out, cur
+
+
+def _base_store(w, n0, device):
+    ip = w.graph.indptr[:n0 + 1]
+    pool = int(w.graph.indices[:ip[-1]].max()) + 1
+    store = store_from_arrays(ip, w.graph.indices[:ip[-1]], pool,
+                              w.data[:pool], np.arange(n0) % 4,
+                              device=device)
+    return store, pool
+
+
+def test_cuda_journaled_commit_kill_restore(cuda_device, tmp_path):
+    """A journaled commit wave on a card store (one commit.batch record,
+    one fsync, one segment_append launch), a kill, and
+    ``restore(device="cuda")``: the wave replays, the restored store
+    equals the live one, and its first ``checkout_wave`` re-pins the
+    superblock on the card and is bit-identical to numpy."""
+    w, tree = _durable_workload(5)
+    n0 = 50
+    store, pool = _base_store(w, n0, cuda_device)
+    dur = StoreDurability(str(tmp_path / "d"))
+    dur.snapshot(store)
+    ck.get_superblock(store)[0].device()
+    commits, _ = _commits(w, tree, n0, 60, pool)
+    synced, appends = dur.journal.synced, sa.LAUNCHES
+    assert store.commit_many(commits) == list(range(n0, 60))
+    assert dur.journal.synced == synced + 1
+    assert sa.LAUNCHES == appends + 1
+    live = (store.epoch, store.graph.indptr, store.graph.indices,
+            store.assignment, store.data)
+    del store, dur                               # the kill
+    rs = StoreDurability(str(tmp_path / "d")).restore(device="cuda")
+    assert rs.replayed == 1 and rs.store.device.type == "cuda"
+    assert (rs.store.epoch, *(a.tobytes() for a in live[1:])) == \
+        (live[0], *(np.asarray(a).tobytes() for a in (
+            rs.store.graph.indptr, rs.store.graph.indices,
+            rs.store.assignment, rs.store.data)))
+    assert peek_superblock(rs.store) is None     # nothing pinned yet
+    vids = [0, 17, 49, 50, 59, 59]
+    before = cb.LAUNCHES
+    res = checkout_wave(rs.store, vids, device_out=True)
+    assert res.parts[0].packed.is_cuda
+    for m, v in zip(res.materialize(), vids):
+        np.testing.assert_array_equal(m, w.data[w.graph.rlist(v)])
+    assert cb.LAUNCHES == before + 1
+    assert peek_superblock(rs.store)._device.is_cuda
+
+
+def test_cuda_threaded_tenants_match_inline(cuda_device):
+    """Four tenants on worker threads launch concurrently over one card
+    store; every ticket equals the ``threads=False`` run's, bit for bit,
+    and numpy's."""
+    w, tree = _durable_workload(6)
+    ids = ("a", "b", "c", "d")
+    rng = np.random.default_rng(6)
+    vids = {t: rng.choice(w.n_versions, 48).tolist() for t in ids}
+    runs = {}
+    for threads in (False, True):
+        store, _ = _store(cuda_device, seed=6)
+        mts = MultiTenantServer(
+            store, threads=threads,
+            quotas={t: TenantQuota(max_wave=8) for t in ids})
+        before = cb.LAUNCHES
+        tks = {t: mts.submit_many(t, vids[t]) for t in ids}
+        runs[threads] = {t: [np.array(m) for m in
+                             mts.results(t, tks[t], timeout=120)]
+                         for t in ids}
+        mts.close()
+        assert cb.LAUNCHES - before >= 24
+        for t in ids:
+            assert mts.stats(t).delivered == 48
+            assert mts.stats(t).failed == 0
+        assert int(store._inflight_waves) == 0
+    for t in ids:
+        for a, b, v in zip(runs[True][t], runs[False][t], vids[t]):
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(a, w.data[w.graph.rlist(v)])
+
+
+def test_cuda_kernel_error_after_restore_reaches_caller(cuda_device,
+                                                        tmp_path,
+                                                        monkeypatch):
+    """A ``checkout_wave`` that fails to launch on a restored card store
+    raises ``KernelError`` to the caller — through a restored server with
+    a ``RetryPolicy`` and through a tenant's ticket — and is never served
+    by the CPU's host gather instead."""
+    store, w = _store(cuda_device, seed=7)
+    StoreDurability(str(tmp_path / "d")).snapshot(store)
+    rs = StoreDurability(str(tmp_path / "d")).restore(device="cuda")
+    srv = rs.make_server(retry=RetryPolicy(attempts=2, sleep=lambda s: None))
+    mts = MultiTenantServer(rs.store, threads=False,
+                            retry=RetryPolicy(sleep=lambda s: None),
+                            quotas={"t": TenantQuota(max_wave=4)})
+    vids = [0, 7, 31, 59]
+    kernel_fn = build.kernel_fn
+    with monkeypatch.context() as m:
+        m.setattr(build, "kernel_fn", lambda name: (
+            (lambda *args: 700) if name == "checkout_wave"
+            else kernel_fn(name)))
+        srv.submit_many(vids)
+        with pytest.raises(build.KernelError, match="cudaError 700"):
+            srv.flush()
+        tks = mts.submit_many("t", vids)
+        for tk in tks:
+            with pytest.raises(build.KernelError, match="cudaError 700"):
+                mts.result("t", tk)
+    assert srv.stats.degraded_waves == 0 and srv.stats.waves == 0
+    assert mts.stats("t").failed == 4 and mts.stats("t").delivered == 0
+    srv.close(deliver=False)
+    mts.close()
+    assert int(rs.store._inflight_waves) == 0

@@ -17,8 +17,10 @@ import repro_torch.core.partition as part
 import repro_torch.kernels.ops as ops
 from repro_torch import configs
 from repro_torch.core.bench_gen import generate
+from repro_torch.core.durability import StoreDurability
 from repro_torch.launch import serve as serve_driver
 from repro_torch.models import from_reference, init_params
+from repro_torch.serve import MultiTenantServer
 from repro_torch.serve.serve_step import make_prefill_step
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -66,7 +68,7 @@ def test_chip_smoke_imports_neither_jax_nor_the_reference():
         assert name.split(".")[0] not in ("jax", "jaxlib", "repro"), name
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     w = generate("SCI", n_versions=6, inserts=10, n_attrs=4, seed=0)
     args = (w.graph.indptr, w.graph.indices, w.graph.n_records, w.data,
@@ -81,6 +83,19 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         ops.checkout_batched(w.data, [[0, 1]])
     store = part.store_from_arrays(*args, device="cpu")
     assert store.device == torch.device("cpu")
+    # restore rebuilds on the card unless the caller names the CPU
+    dur = StoreDurability(str(tmp_path / "durable"))
+    dur.snapshot(store)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dur.restore()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dur.restore(device="cuda")
+    assert dur.restore(device="cpu").store.device == torch.device("cpu")
+    # a store on the default device, as made where the card was
+    card = part.store_from_arrays(*args, device="cpu")
+    card.device = torch.device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MultiTenantServer(card)
     with pytest.raises(ValueError):
         ops.resolve_device("meta")
     cfg = configs.smoke("zamba2_2_7b")
