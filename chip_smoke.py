@@ -60,8 +60,9 @@ Phases, each of which raises on failure:
    and ``segment_move`` at the real migration's, kernel against plain
    version, ``torch.index_select`` and the bandwidth bound;
 10. model kernels vs plain (run after phase 2) — ``flash_attention`` (GQA
-    groups 1-4 and MQA, Dh 16-128, S 128-4173 and lengths off the tiles,
-    causal or not; the instance each bf16 case ran) and
+    groups 1-4 and MQA, Dh 16-256 with latent attention's padded 192, S
+    128-4173 and lengths off the tiles, causal or not; the instance each
+    bf16 case ran) and
     ``ssd_scan`` (chunk 16-256, N 16-128, P 16 and 64, 1-16 chunks, a
     decay-about-1 state-carry case in both dtypes) against their plain
     versions in float32 and bfloat16, allclose at the reference's
@@ -82,7 +83,9 @@ Phases, each of which raises on failure:
     shared attention's and first SSD layer's inputs: kernel, plain,
     ``scaled_dot_product_attention`` (flash), the bound and each design's
     own floor (flash's products with P·V twice; the scan's bytes with its
-    float32 chunk states);
+    float32 chunk states); after phase 17, flash again at OLMoE's first
+    prefill layer's inputs (4, 512, 16, 16, 128: wgmma) and at
+    DeepSeek-V2-Lite's padded latent-attention inputs (Dh 192: mma_sync);
 14. durable multi-tenant path (run after phase 9) — a store of its own,
     built as phase 8 builds its own (the first 900 versions, LyreSplit at
     twice their records, no superblock budget), under ``StoreDurability``
@@ -99,12 +102,41 @@ Phases, each of which raises on failure:
     first batch (the superblock's re-pin); 16 batches on the restored
     store; versions 996-999, a journaled migration (``segment_move``) and
     4 batches; a clean ``scrub()``.  Every ticket is checked against
-    numpy, the restored store against the killed one.
+    numpy, the restored store against the killed one;
+15. MoE serve (run after phase 13, the Zamba2 model freed) — OLMoE-1B-7B
+    as its config gives it (16 layers, d_model 2048, 64 experts top-8;
+    6.92 B parameters from a seeded generator) through the serve driver
+    as phase 11: 4 prompts of 512 tokens, 32 greedy tokens, one prefill;
+    16 ``flash_attention`` launches (wgmma), all in the prefill;
+    ``checkout_wave`` on the prompt store; cache 543 of 544; finite
+    logits; the routed slots the dispatch dropped, per prefill layer.
+    The served prefill (capacity factor 1.25), drops and all, must meet
+    serve's prefill check against the same prefill through
+    ``capacity_oracle_ffn`` with its own experts imposed, and drop the
+    same slots (``served_capacity_check``).  It drops slots that the token
+    path never drops; where that breaks serve's prefill check, the same
+    prefill runs at capacity factor E / k (nothing drops), once with its
+    own routing and once with the token path's experts imposed, and the
+    latter must meet serve's prefill check and bound, its routing flips
+    held to ``routing_flips`` (``full_capacity_check``); then a
+    torch.profiler pass over 8 decode steps and one prefill with the MoE
+    block's route, dispatch (sort, scatter), expert products and combine
+    apart;
+16. latent attention and shared experts — DeepSeek-V2-Lite at full width
+    (kv_lora 512, qk 128 + 64, v 128, 64 routed experts top-6, 2 shared,
+    vocab 102,400 tied) cut to ``MLA_DEPTH`` = 4 layers (the dense layer +
+    3 MoE layers; 27 whole are 62 GB of float32 weights), the same
+    traffic and checks: 4 flash launches at Dh 192 (mma_sync);
+17. the dense configs — Qwen1.5-4B, Mistral-NeMo-12B and Phi3-medium-14B
+    at full width and vocab, 2 of 40 layers: 4 prompts of 128, 8 greedy
+    tokens, the prefill check, 2 flash launches each.
 
-Phases 3, 5, 6, 8, 11, 12 and 14 (twice: from the tenants to the kill, and
-from the restore to the end) each set every kernel's launch count to 0 just
-before they drive their path and read the counts just after; launches made
-to compare or time a kernel fall outside those windows.
+Phases 3, 5, 6, 8, 11, 12, 14 (twice: from the tenants to the kill, and
+from the restore to the end) and 15-17 (once a config) each set every
+kernel's launch count to 0 just before they drive their path and read the
+counts just after; launches made to compare or time a kernel fall outside
+those windows.  The kernels line's ``flash_attention`` launches are the
+sum over the model paths (phases 11 and 15-17).
 TF32 is off (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` False): the float32 plain versions
 compare in full float32.
@@ -172,6 +204,14 @@ MODEL_ARCH = "zamba2_2_7b"      # the serve phases' model, at full width
 SERVE_REQUESTS = 4               # the token-by-token cross-check: 4 prompts
 SERVE_PROMPT = 512               # of 512 tokens, then 32 greedy tokens
 SERVE_DECODE = 32
+MOE_ARCH = "olmoe_1b_7b"         # phase 15: MoE at full size
+MLA_ARCH = "deepseek_v2_lite_16b"  # phase 16: latent attention + shared
+MLA_DEPTH = 4        # experts at full width: the dense layer + 3 MoE layers
+#                      (27 whole: 62 GB of float32 weights)
+DENSE_ARCHS = ("qwen15_4b", "mistral_nemo_12b", "phi3_medium_14b")
+DENSE_DEPTH = 2      # phase 17: full width and vocab, 2 of 40 layers,
+DENSE_PROMPT = 128   # 4 prompts of 128 tokens, 8 greedy tokens
+DENSE_DECODE = 8
 LONG_BATCH = 4                   # the long prefill: prefill_32k (B 32,
 LONG_SEQ = 4096                  # S 32768) cut to one card and the time
 # the device kernels the long prefill runs through the two model kernels'
@@ -1981,16 +2021,18 @@ def _close_err(got, want, tol: float) -> tuple:
 
 def flash_cases(torch):
     """(B, Sq, Sk, H, Hkv, Dh, causal, dtype): GQA groups 1, 2, 4 and 3 and
-    MQA; Dh 16, 32, 64, 80 and 128 (bf16: the wgmma instance), 72 and 256
-    (bf16: the mma.sync instance); S from 128 to 4096 + 77, and lengths
-    off the 128- and 64-row tiles (200, 4173, 130, 300 against Sk 136, and
-    Sk 192 against Sq 128); causal and not; float32 and bfloat16."""
+    MQA; Dh 16, 32, 64, 80 and 128 (bf16: the wgmma instance), 72, 192
+    (latent attention's padded core) and 256 (bf16: the mma.sync
+    instance); S from 128 to 4096 + 77, and lengths off the 128- and
+    64-row tiles (200, 4173, 130, 300 against Sk 136, 333, and Sk 192
+    against Sq 128); causal and not; float32 and bfloat16."""
     shapes = [(2, 128, 128, 4, 4, 16, True), (1, 256, 256, 8, 4, 64, False),
               (2, 512, 512, 8, 2, 80, True), (1, 1024, 1024, 4, 1, 128, True),
               (1, 384, 384, 6, 2, 80, False), (1, 200, 200, 4, 2, 64, True),
               (1, 128, 192, 4, 4, 32, False), (1, 4173, 4173, 2, 1, 80, True),
               (2, 300, 136, 4, 2, 64, False), (1, 200, 200, 8, 2, 128, True),
-              (1, 130, 130, 4, 2, 72, True), (1, 384, 384, 2, 2, 256, True)]
+              (1, 130, 130, 4, 2, 72, True), (1, 384, 384, 2, 2, 256, True),
+              (1, 512, 512, 4, 4, 192, True), (2, 333, 333, 2, 2, 192, True)]
     return [s + (dt,) for s in shapes
             for dt in (torch.float32, torch.bfloat16)]
 
@@ -2250,28 +2292,22 @@ def phase_long_prefill(torch, model, seed: int, report: dict) -> dict:
     return captured
 
 
-def phase_model_timing(torch, captured: dict, report: dict) -> dict:
-    """Both model kernels at the long prefill's shapes (the first shared
-    attention's and the first SSD layer's inputs): kernel against plain
-    version on the full inputs, then the kernel's, the plain version's and
-    (flash only) ``scaled_dot_product_attention``'s times, beside the
-    bound max(bytes / 3.35 TB/s, FLOPs / 989 TFLOP/s bf16): bytes each
-    input read once and each output written once (the scan's final state
-    included), FLOPs the function's need — the (query, key) pairs the
-    causal mask keeps; C Bᵀ once per (batch, chunk) and the lower triangle
-    of each chunk for the scan."""
+def flash_timing(torch, q, k, v, causal: bool) -> dict:
+    """``flash_attention`` on these inputs: kernel against plain version on
+    the full inputs (and against the plain version's float32 result,
+    before its rounding to q's dtype: how far the kernel is from exact,
+    beyond that rounding), then the kernel's, the plain version's and
+    ``scaled_dot_product_attention``'s times (CUDA events), the bytes
+    (each input read and the output written once) and the operations (the
+    (query, key) pairs the causal mask keeps), and the design's own
+    products (P·V twice, P as hi + lo bf16 terms)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ssd_scan as ss
-    out = {}
-    q, k, v, causal = captured["flash_attention"]
     got = fa._launch(q, k, v, causal)
     ok, err = _close_err(got, fa.flash_attention_plain(q, k, v, causal),
                          FLASH_TOL[str(q.dtype)])
     if not ok:
         raise AssertionError(f"full-size flash_attention != plain ({err})")
-    # against the plain version's float32 result, before its rounding to
-    # q's dtype: how far the kernel is from exact, beyond that rounding
     exact = fa.flash_attention_plain(q.float(), k.float(), v.float(), causal)
     rel_l2 = float((got.float() - exact).norm() / exact.norm())
     del got, exact
@@ -2288,12 +2324,11 @@ def phase_model_timing(torch, captured: dict, report: dict) -> dict:
                      - fa.flash_attention_plain(q, k, v, causal).float()
                      ).abs().max())
     pairs = s * (s + 1) // 2 if causal else s * s
-    out["flash_attention"] = {
+    return {
         "shape": [b, s, h, hkv, dh], "causal": causal, "dtype": str(q.dtype),
         "instance": fa.instance(q, k, v),
         "bytes_min": (2 * b * s * h * dh + 2 * b * s * hkv * dh) * esz,
         "operations": 4 * b * h * dh * pairs,
-        # the design's own products: P V twice (P as hi + lo bf16 terms)
         "design_operations": 6 * b * h * dh * pairs,
         "max_abs_err": err, "library_max_abs_err": lib_err,
         "rel_l2_vs_float32": rel_l2,
@@ -2301,6 +2336,51 @@ def phase_model_timing(torch, captured: dict, report: dict) -> dict:
         "plain_ms": cuda_ms(torch, lambda: fa.flash_attention_plain(
             q, k, v, causal), 2),
         "library_ms": cuda_ms(torch, sdpa, 10)}
+
+
+def bound_and_print(torch, name: str, o: dict) -> None:
+    """Adds the bound max(bytes / 3.35 TB/s, operations / the peak of
+    their type), what binds it, the achieved rate and the design floor to
+    a timing ``o``, and prints it."""
+    o["bytes_ms"] = 1e3 * o["bytes_min"] / HBM_BYTES_PER_S
+    rate = BF16_OPS_PER_S if o["dtype"] == str(torch.bfloat16) \
+        else FP32_OPS_PER_S
+    o["ops_ms"] = 1e3 * o["operations"] / rate
+    o["bound_ms"] = max(o["bytes_ms"], o["ops_ms"])
+    o["bound_by"] = "bytes" if o["bytes_ms"] >= o["ops_ms"] else \
+        "operations"
+    o["achieved_tflops"] = o["operations"] / o["ms"] / 1e9
+    if "design_bytes" in o:
+        o["design_floor_ms"] = 1e3 * o["design_bytes"] / HBM_BYTES_PER_S
+    if "design_operations" in o:
+        o["design_floor_ms"] = 1e3 * o["design_operations"] / rate
+    lib = ("none: no single call" if o["library_ms"] is None else
+           f"scaled_dot_product_attention {o['library_ms']:.4f} ms")
+    print(f"{name} {o['shape']} {o['dtype']} ({o['bytes_min'] / 1e6:.1f} "
+          f"MB, {o['operations'] / 1e9:.2f} GFLOP): kernel "
+          f"{o['ms']:.4f} ms ({o['achieved_tflops']:.1f} TFLOP/s), plain "
+          f"{o['plain_ms']:.3f} ms, {lib}, bound {o['bound_ms']:.4f} ms "
+          f"({o['bound_by']}); max abs err vs plain {o['max_abs_err']:.3e}"
+          + (f", rel L2 vs float32 {o['rel_l2_vs_float32']:.3e}"
+             if "rel_l2_vs_float32" in o else "")
+          + (f"; instance {o['instance']}" if "instance" in o else "")
+          + (f"; design floor {o['design_floor_ms']:.4f} ms"
+             if "design_floor_ms" in o else ""))
+
+
+def phase_model_timing(torch, captured: dict, report: dict) -> dict:
+    """Both model kernels at the long prefill's shapes (the first shared
+    attention's and the first SSD layer's inputs): kernel against plain
+    version on the full inputs, then the kernel's, the plain version's and
+    (flash only) ``scaled_dot_product_attention``'s times, beside the
+    bound max(bytes / 3.35 TB/s, FLOPs / 989 TFLOP/s bf16): bytes each
+    input read once and each output written once (the scan's final state
+    included), FLOPs the function's need — the (query, key) pairs the
+    causal mask keeps; C Bᵀ once per (batch, chunk) and the lower triangle
+    of each chunk for the scan."""
+    from repro_torch.kernels import ssd_scan as ss
+    out = {"flash_attention": flash_timing(
+        torch, *captured["flash_attention"])}
     xs, bm, cm, dt, a, chunk = captured["ssd_scan"]
     y, st = ss._launch(xs, bm, cm, dt, a, chunk)
     y_want, st_want = ss.ssd_scan_plain(xs, bm, cm, dt, a, chunk)
@@ -2334,30 +2414,7 @@ def phase_model_timing(torch, captured: dict, report: dict) -> dict:
             xs, bm, cm, dt, a, chunk), 2),
         "library_ms": None}
     for name, o in out.items():
-        o["bytes_ms"] = 1e3 * o["bytes_min"] / HBM_BYTES_PER_S
-        rate = BF16_OPS_PER_S if o["dtype"] == str(torch.bfloat16) \
-            else FP32_OPS_PER_S
-        o["ops_ms"] = 1e3 * o["operations"] / rate
-        o["bound_ms"] = max(o["bytes_ms"], o["ops_ms"])
-        o["bound_by"] = "bytes" if o["bytes_ms"] >= o["ops_ms"] else \
-            "operations"
-        o["achieved_tflops"] = o["operations"] / o["ms"] / 1e9
-        if "design_bytes" in o:
-            o["design_floor_ms"] = 1e3 * o["design_bytes"] / HBM_BYTES_PER_S
-        if "design_operations" in o:
-            o["design_floor_ms"] = 1e3 * o["design_operations"] / rate
-        lib = ("none: no single call" if o["library_ms"] is None else
-               f"scaled_dot_product_attention {o['library_ms']:.3f} ms")
-        print(f"{name} {o['shape']} {o['dtype']} ({o['bytes_min'] / 1e6:.1f} "
-              f"MB, {o['operations'] / 1e9:.1f} GFLOP): kernel "
-              f"{o['ms']:.3f} ms ({o['achieved_tflops']:.1f} TFLOP/s), plain "
-              f"{o['plain_ms']:.3f} ms, {lib}, bound {o['bound_ms']:.4f} ms "
-              f"({o['bound_by']}); max abs err vs plain {o['max_abs_err']:.3e}"
-              + (f", rel L2 vs float32 {o['rel_l2_vs_float32']:.3e}"
-                 if "rel_l2_vs_float32" in o else "")
-              + (f"; instance {o['instance']}" if "instance" in o else "")
-              + (f"; design floor {o['design_floor_ms']:.4f} ms"
-                 if "design_floor_ms" in o else ""))
+        bound_and_print(torch, name, o)
     captured.clear()
     torch.cuda.synchronize()
     report["model_timing"] = out
@@ -2433,6 +2490,495 @@ def phase_model_profile(torch, model, seed: int, report: dict) -> None:
     report["model_profile"] = out
 
 
+def capture_first_flash(torch, captured: dict, key: str):
+    """A stand-in for ``flash_attention``'s counted launch that keeps a copy
+    of its first call's inputs under ``captured[key]`` and launches (and
+    counts) as the real one does; returns the real one, to put back."""
+    from repro_torch.kernels import flash_attention as fa
+    real = fa._launch
+
+    def launch(*args):
+        if key not in captured:
+            captured[key] = [x.clone() if isinstance(x, torch.Tensor) else x
+                             for x in args]
+        return real(*args)
+    fa._launch = launch
+    return real
+
+
+def recording_route(real_route, log: list):
+    """A stand-in for the port's ``moe._route`` that routes as it does and
+    appends (its experts (T, k), its float32 router logits (T, E)) to
+    ``log``, one entry a call."""
+    def route(x, router_w, mcfg):
+        top_w, top_e = real_route(x, router_w, mcfg)
+        log.append((top_e, x.float() @ router_w.float()))
+        return top_w, top_e
+    return route
+
+
+def imposing_route(real_route, queue: list, seen: list):
+    """A stand-in for the port's ``moe._route`` that takes, at each call,
+    the next entry of ``queue`` (experts (T, k) another path chose, and
+    that path's router logits (T, E)) in place of its own choice, weighted
+    by its own probabilities at those experts, renormalised; it appends
+    (its logits, its own experts, the experts taken, the other path's
+    logits) to ``seen`` for ``routing_flips``."""
+    def route(x, router_w, mcfg):
+        _, own = real_route(x, router_w, mcfg)
+        taken, z_other = queue.pop(0)
+        z = x.float() @ router_w.float()
+        seen.append((z, own, taken, z_other))
+        w = z.softmax(-1).gather(1, taken)
+        return w / w.sum(-1, keepdim=True).clamp_min(1e-9), taken
+    return route
+
+
+def routing_flips(seen: list, bound: float) -> dict:
+    """Where two paths' MoE routings part, over ``imposing_route``'s
+    ``seen`` entries.  A flip is a token whose two expert sets differ.  The
+    two paths' router logits of a token must agree within ``bound`` (a
+    relative L2 distance, the rounding bound of the logits they feed):
+    "drifted" counts the tokens that do not.  Where they agree, a flip can
+    only be a reordering within their difference: every expert in one set
+    but not the other must lie within 2 max|z - z_other| of the token's
+    k-th router logit (two experts swap only if their gap is within both
+    logits' moves); "untied" counts the flipped tokens with one that does
+    not.  Returns {"flips", "untied", "drifted", "tokens",
+    "rel_max"} summed over the entries."""
+    out = {"flips": 0, "untied": 0, "drifted": 0, "tokens": 0,
+           "rel_max": 0.0}
+    for z, own, taken, z_other in seen:
+        k = own.shape[1]
+        dz = z - z_other
+        rel = dz.norm(dim=-1) / z_other.norm(dim=-1).clamp_min(1e-30)
+        in_own = own.new_zeros(z.shape, dtype=bool).scatter_(1, own, True)
+        in_taken = own.new_zeros(z.shape, dtype=bool).scatter_(1, taken,
+                                                                True)
+        one_side = in_own ^ in_taken
+        kth = z.sort(-1, descending=True).values[:, k - 1:k]
+        far = ((z - kth).abs() > 2 * dz.abs().amax(-1, keepdim=True))
+        out["flips"] += int(one_side.any(-1).sum())
+        out["untied"] += int((far & one_side).any(-1).sum())
+        out["drifted"] += int((rel > bound).sum())
+        out["tokens"] += own.shape[0]
+        out["rel_max"] = max(out["rel_max"], float(rel.max()))
+    return out
+
+
+def capacity_oracle_ffn(p, x, cfg):
+    """``moe_ffn``'s function written out plainly, for the checks: every
+    expert on every token (the dense oracle ``moe_ffn_local``), and a
+    routed slot kept only while its expert has taken fewer than C slots
+    before it, counted in the reference's slot order t·k + j by a running
+    sum, not by the dispatch's sort.  Returns (y (B, S, d), dropped)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    top_w, top_e = MOE._route(xt, p.router.w, cfg)
+    t, k = top_e.shape
+    hot = F.one_hot(top_e.reshape(-1), cfg.n_experts)      # (t·k, E)
+    rank = (hot.cumsum(0) * hot).sum(-1) - 1
+    keep = (rank < MOE._capacity(t, cfg)).reshape(t, k)
+    h = F.silu(torch.einsum("td,edf->tef", xt, p.wg.to(x.dtype)))
+    h = h * torch.einsum("td,edf->tef", xt, p.wi.to(x.dtype))
+    out = torch.einsum("tef,efd->ted", h, p.wo.to(x.dtype))
+    sel = torch.take_along_dim(out, top_e[..., None], dim=1)  # (t, k, d)
+    w = (top_w * keep).to(x.dtype)
+    y = (sel * w[..., None]).sum(1).reshape(b, s, d)
+    if p.shared is not None:
+        y = y + L.swiglu(p.shared, x)
+    return y, int((~keep).sum())
+
+
+def phase_family_serve(torch, cfg, *, prompt_len: int, decode: int,
+                       seed: int, instance: str, report: dict, key: str,
+                       captured: dict, profile: bool = False) -> None:
+    """One config through ``repro_torch.launch.serve`` on the card, as
+    phase 11 drives Zamba2: seeded weights from ``init_params``, 4 prompts
+    of ``prompt_len`` tokens from the CUR prompt store (``checkout_wave``),
+    the cache filled token by token, ``decode`` greedy tokens, then
+    ``make_prefill_step`` on the same prompts.  Checks: one
+    ``flash_attention`` launch a layer (the ``instance`` named), all in the
+    prefill, and no other model kernel; ``checkout_wave`` launched; the
+    cache ``prompt_len + decode - 1`` long in ``prompt_len + decode``
+    slots; finite logits and tokens in range; the prefill's next-token
+    logits within serve's bf16 bound of the token path's.  With MoE
+    layers, the served prefill is also held against ``capacity_oracle_ffn``
+    (``served_capacity_check``), and where its drops break serve's check,
+    ``full_capacity_check`` must pass.  Prints the routed slots the MoE
+    dispatch dropped, per prefill layer.  The first prefill attention's
+    inputs go to ``captured[key]``; with ``profile``, ``phase_moe_profile``
+    runs on the model before it is freed."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve as driver
+    from repro_torch.models import init_params
+    from repro_torch.models import moe as MOE
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed),
+                        DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    real = capture_first_flash(torch, captured, key)
+    real_route, routes = MOE._route, []
+    MOE._route = recording_route(real_route, routes)   # every path's choices
+    try:
+        zero_launch_counts()                  # the serve path's window
+        t0 = time.perf_counter()
+        run = driver.serve(cfg, requests=SERVE_REQUESTS,
+                           prompt_len=prompt_len, decode_steps=decode,
+                           seed=seed, device=DEVICE, params=model,
+                           log=lambda *_: None)
+        wall_s = time.perf_counter() - t0
+        launches = launch_counts()            # the window closes
+    finally:
+        fa._launch, MOE._route = real, real_route
+    res, check, cache = run["result"], run["check"], run["cache"]
+    want = {"flash_attention": cfg.n_layers, "ssd_scan": 0}
+    if (run["launches"]["prefill"] != want
+            or any(run["launches"]["fill_decode"].values())
+            or launches["flash_attention"] != cfg.n_layers
+            or launches["checkout_wave"] <= 0
+            or any(n for k, n in launches.items()
+                   if k not in ("flash_attention", "checkout_wave"))):
+        raise AssertionError(f"{cfg.name}: launches {run['launches']} "
+                             f"(window {launches}), expected {want} in the "
+                             f"prefill alone and checkout_wave")
+    which = fa.instance(*captured[key][:3])
+    if which != instance:
+        raise AssertionError(f"{cfg.name}: the prefill's flash ran the "
+                             f"{which} instance, not {instance}")
+    max_len = prompt_len + decode
+    leaf = cache["ckv" if cfg.attn_type == "mla" else "k"]
+    if cache["len"] != max_len - 1 or leaf.shape[2] != max_len:
+        raise AssertionError(f"{cfg.name}: cache {cache['len']} of "
+                             f"{leaf.shape[2]} slots")
+    tokens = run["tokens"]
+    if not (torch.isfinite(run["fill_logits"]).all()
+            and torch.isfinite(run["prefill_logits"]).all()
+            and tokens.shape == (SERVE_REQUESTS, decode)
+            and 0 <= tokens.min() and tokens.max() < cfg.vocab):
+        raise AssertionError(f"{cfg.name}: non-finite logits or tokens out "
+                             f"of range")
+    dropped = run["dropped"]
+    served = full = None
+    if cfg.moe is not None:
+        n_moe = cfg.n_layers - cfg.first_dense
+        served = served_capacity_check(torch, model, cfg, run,
+                                       routes[-n_moe:])
+        if not check["ok"] and any(dropped["prefill"]):
+            full = full_capacity_check(torch, model, cfg, run,
+                                       routes[:prompt_len * n_moe])
+    del routes
+    report[key] = {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
+        "init_s": init_s, "wall_s": wall_s, "launches": run["launches"],
+        "flash_instance": which, "cache_len": cache["len"],
+        "cache_slots": max_len, "dropped": dropped, "check": check,
+        "served_capacity_check": served, "full_capacity_check": full,
+        "result": res}
+    print(f"{key}: {cfg.name} ({n_params:,} params, {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}) made in {init_s:.1f} s; "
+          f"{SERVE_REQUESTS} x {prompt_len} prompt tokens filled token by "
+          f"token in {res['prefill_s']} s, {decode} greedy tokens in "
+          f"{res['decode_s']} s ({res['ms_per_decode_step']:.2f} ms a "
+          f"step); make_prefill_step {res['prefill_step_s']:.3f} s; "
+          f"launches {run['launches']} (flash {which}); cache "
+          f"{cache['len']} of {max_len}")
+    print(f"{key} prefill vs token-by-token at position {prompt_len - 1}: "
+          f"rel L2 {[round(r, 5) for r in check['rel_l2']]} (bound "
+          f"{check['bound']:.4f}), argmax agree {check['argmax_agree']}, gap "
+          f"clear of the bound {check['gap_clear']}; routed slots dropped: "
+          f"prefill {dropped['prefill']} by layer, fill and decode "
+          f"{dropped['fill_decode']}")
+    for name, c in (("served prefill", served), ("full capacity", full)):
+        if c is None:
+            continue
+        for run_name in ("own", "imposed", "oracle"):
+            if run_name in c:
+                r = c[run_name]
+                print(f"{key} {name}, {run_name}: rel L2 "
+                      f"{[round(v, 5) for v in r['rel_l2']]} (bound "
+                      f"{r['bound']:.4f}), argmax agree {r['argmax_agree']}, "
+                      f"gap clear {r['gap_clear']}")
+        f = c["routing"]
+        print(f"{key} {name} routing: {f['flips']} of {f['tokens']} "
+              f"token-layer choices differ, {f['untied']} outside their "
+              f"logits' moves, {f['drifted']} with logits apart by more "
+              f"than the bound (max rel {f['rel_max']:.5f})"
+              + (f"; oracle drops {c['oracle_drops']}"
+                 if "oracle_drops" in c else ""))
+    if profile:
+        phase_moe_profile(torch, model, cfg, prompt_len, seed, report)
+    del model, run, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    if served is not None and not served["ok"]:
+        raise AssertionError(f"{cfg.name}: the served prefill vs the "
+                             f"capacity oracle: {served}; dropped {dropped}")
+    if not (check["ok"] or (full is not None and full["ok"])):
+        raise AssertionError(f"{cfg.name}: prefill vs token-by-token: "
+                             f"{check}; dropped {dropped}; at full capacity "
+                             f"{full}")
+
+
+def served_capacity_check(torch, model, cfg, run: dict, routes: list) -> dict:
+    """The served prefill, drops and all, against its function written out
+    plainly: the same prefill on the same prompts with every MoE block's
+    ``moe_ffn`` replaced by ``capacity_oracle_ffn`` and the served
+    prefill's own experts imposed (``routes``: its choices, layer by
+    layer), held to serve's prefill check and bound; each layer must drop
+    exactly the served prefill's slots, and the routing must part only as
+    ``routing_flips`` allows."""
+    from repro_torch.launch import serve as driver
+    from repro_torch.models import moe as MOE
+    from repro_torch.serve.serve_step import make_prefill_step
+    tokens = torch.from_numpy(run["prompts"]).to(DEVICE)
+    bound = run["check"]["bound"]
+    queue, seen, drops = list(routes), [], []
+    real_route, real_ffn = MOE._route, MOE.moe_ffn
+
+    def oracle(p, x, mcfg):
+        y, n = capacity_oracle_ffn(p, x, mcfg)
+        drops.append(n)
+        return y
+    MOE._route = imposing_route(real_route, queue, seen)
+    MOE.moe_ffn = oracle
+    try:
+        logits = make_prefill_step(cfg, device=DEVICE)(model,
+                                                       {"tokens": tokens})
+    finally:
+        MOE._route, MOE.moe_ffn = real_route, real_ffn
+    served = driver.prefill_check(logits[:, -1, :cfg.vocab].float(),
+                                  run["prefill_logits"], bound)
+    routing = routing_flips(seen, bound)
+    ok = (served["ok"] and drops == run["dropped"]["prefill"] and not queue
+          and routing["untied"] == 0 and routing["drifted"] == 0)
+    return {"oracle": served, "oracle_drops": drops, "routing": routing,
+            "ok": ok}
+
+
+def full_capacity_check(torch, model, cfg, run: dict, routes: list) -> dict:
+    """The served prefill dropped routed slots past its capacity, which
+    the token path (B tokens a step) never does, so the two compute
+    different functions.  This runs the same prefill on the same prompts
+    with the capacity factor at E / k (a capacity of every token: no slot
+    can drop) and holds it against the token path's logits with
+    serve's prefill check and bound, unchanged: once with its own routing
+    ("own"), and once taking the experts the token path chose at each
+    (position, layer) (``routes``: the fill's choices and router logits,
+    step by step and layer by layer) ("imposed").  A choice that differs
+    from the prefill's own is a routing discontinuity, not a rounding
+    error, and must part only as ``routing_flips`` allows; "ok" asks
+    that of the imposed run with its check."""
+    from repro_torch.launch import serve as driver
+    from repro_torch.models import moe as MOE
+    from repro_torch.serve.serve_step import make_prefill_step
+    factor = cfg.moe.n_experts / cfg.moe.top_k
+    wide = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=factor))
+    tokens = torch.from_numpy(run["prompts"]).to(DEVICE)
+    bound = run["check"]["bound"]
+    b, s = tokens.shape
+    n_moe = cfg.n_layers - cfg.first_dense
+    queue = [tuple(torch.stack([r[i] for r in routes[l::n_moe]], dim=1)
+                   .reshape(b * s, -1) for i in range(2))
+             for l in range(n_moe)]
+    real_route, seen = MOE._route, []
+    prefill = make_prefill_step(wide, device=DEVICE)
+    out = {"capacity_factor": factor}
+    for name in ("own", "imposed"):
+        if name == "imposed":
+            MOE._route = imposing_route(real_route, queue, seen)
+        try:
+            with MOE.counting_drops() as drops:
+                logits = prefill(model, {"tokens": tokens})
+        finally:
+            MOE._route = real_route
+        if any(MOE.drop_counts(drops)):
+            raise AssertionError(f"{cfg.name}: {MOE.drop_counts(drops)} "
+                                 f"slots dropped at capacity factor "
+                                 f"{factor}")
+        out[name] = driver.prefill_check(logits[:, -1, :cfg.vocab].float(),
+                                         run["fill_logits"], bound)
+    out["routing"] = routing_flips(seen, bound)
+    out["ok"] = (out["imposed"]["ok"] and not queue
+                 and out["routing"]["untied"] == 0
+                 and out["routing"]["drifted"] == 0)
+    return out
+
+
+MOE_RANGES = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine")
+
+
+def trace_ranges(label: str, names) -> dict:
+    """Device time of the kernels launched inside each ``record_function``
+    range named in ``names``, from the exported trace
+    chiprun_out/chip_smoke_trace_<label>.json: each kernel, copy or memset
+    is matched through its correlation id to the runtime call that
+    launched it, and that call to the innermost such range around it.
+    {range: {"ms", "launches", "by_kernel": [(name, ms, n)]}}."""
+    events = json.loads((ROOT / "chiprun_out" /
+                         f"chip_smoke_trace_{label}.json").read_text()
+                        )["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                   if e.get("cat") == "user_annotation"
+                   and e.get("name") in names)
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    out = {n: {"ms": 0.0, "launches": 0, "by_kernel": {}} for n in names}
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        ts = launched.get(e.get("args", {}).get("correlation"))
+        if ts is None:
+            continue
+        inside = [sp for sp in spans if sp[0] <= ts <= sp[1]]
+        if not inside:
+            continue
+        row = out[max(inside)[2]]             # the innermost: latest start
+        row["ms"] += e["dur"] / 1e3
+        row["launches"] += 1
+        ms, n = row["by_kernel"].get(e["name"], (0.0, 0))
+        row["by_kernel"][e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+    for row in out.values():
+        row["by_kernel"] = sorted(((k, ms, n) for k, (ms, n)
+                                   in row["by_kernel"].items()),
+                                  key=lambda r: -r[1])[:6]
+    return out
+
+
+def phase_moe_profile(torch, model, cfg, prompt_len: int, seed: int,
+                      report: dict) -> None:
+    """Where an MoE model's serving time goes: torch.profiler over 8 decode
+    steps at B = 4 (after 2 unprofiled ones, at the serve phase's cache
+    length) and over one serving prefill (4 x ``prompt_len``): wall ms,
+    device busy ms and share, device ms by kernel, and the MoE block's
+    parts apart: each of routing, dispatch (the sort and the scatter into
+    the expert buffer), the expert products (the weights' casts and the
+    batched products) and the combine wrapped in a ``record_function``
+    range for the pass, and the kernels launched in each range summed
+    (``trace_ranges``)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import init_cache
+    from repro_torch.models import moe as MOE
+    from repro_torch.serve.serve_step import (make_prefill_step,
+                                              make_serve_step)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 3)
+    tok = torch.randint(0, cfg.vocab, (SERVE_REQUESTS, 1), generator=gen,
+                        device=DEVICE)
+    tokens = torch.randint(0, cfg.vocab, (SERVE_REQUESTS, prompt_len),
+                           generator=gen, device=DEVICE)
+    step = make_serve_step(cfg, device=DEVICE)
+    prefill = make_prefill_step(cfg, device=DEVICE)
+    slots = prompt_len + SERVE_DECODE
+    state = {"cache": init_cache(cfg, SERVE_REQUESTS, slots,
+                                 fill_len=slots - 10, device=DEVICE)}
+
+    def decode():
+        _, state["cache"] = step(model, {"tokens": tok,
+                                         "cache": state["cache"]})
+
+    def serving_prefill():
+        prefill(model, {"tokens": tokens})
+
+    parts = {name: getattr(MOE, "_" + name.split(".")[1])
+             for name in MOE_RANGES}
+
+    def ranged(name, fn):
+        def wrapped(*args):
+            with record_function(name):
+                return fn(*args)
+        return wrapped
+
+    for _ in range(2):
+        decode()
+    out = {}
+    try:
+        for name, fn in parts.items():
+            setattr(MOE, "_" + name.split(".")[1], ranged(name, fn))
+        for label, n, fn in (("moe_decode", 8, decode),
+                             ("moe_prefill", 1, serving_prefill)):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                wall_ms = 1e3 * (time.perf_counter() - t0)
+            busy_ms, rows = trace_device_time(prof, label)
+            ranges = trace_ranges(label, MOE_RANGES)
+            (ROOT / "chiprun_out" / f"chip_smoke_trace_{label}.json").unlink()
+            out[label] = {"calls": n, "wall_ms": wall_ms,
+                          "device_busy_ms": busy_ms,
+                          "device_busy_share": busy_ms / wall_ms,
+                          "device_ms_by_op": rows[:12], "moe_parts": ranges}
+            print(f"profile ({cfg.name} {label}, {n} call{'s' * (n > 1)}): "
+                  f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+                  f"({100 * busy_ms / wall_ms:.1f}%)")
+            for name, ms, k in rows[:12]:
+                print(f"  {ms:9.3f} ms  {k:5d}x  {name[:90]}")
+            for name, row in ranges.items():
+                print(f"  {name}: {row['ms']:.3f} ms in {row['launches']} "
+                      f"launches: " + "; ".join(
+                          f"{k[:48]} {ms:.3f} ms/{n}"
+                          for k, ms, n in row["by_kernel"]))
+    finally:
+        for name, fn in parts.items():
+            setattr(MOE, "_" + name.split(".")[1], fn)
+    report["moe_profile"] = out
+
+
+def phase_families(torch, seed: int, report: dict) -> dict:
+    """Phases 15-17: OLMoE-1B-7B at full size, DeepSeek-V2-Lite at full
+    width and ``MLA_DEPTH`` layers, and the three dense configs at full
+    width and ``DENSE_DEPTH`` layers, each through ``phase_family_serve``.
+    Returns the first prefill attention's inputs of the first two (for
+    ``phase_family_flash_timing``)."""
+    from repro_torch import configs
+    captured: dict = {}
+    phase_family_serve(torch, configs.get(MOE_ARCH), prompt_len=SERVE_PROMPT,
+                       decode=SERVE_DECODE, seed=seed, instance="wgmma",
+                       report=report, key="moe_serve", captured=captured,
+                       profile=True)
+    phase_family_serve(torch, dataclasses.replace(configs.get(MLA_ARCH),
+                                                  n_layers=MLA_DEPTH),
+                       prompt_len=SERVE_PROMPT, decode=SERVE_DECODE,
+                       seed=seed, instance="mma_sync", report=report,
+                       key="mla_serve", captured=captured)
+    dense = {}
+    for arch in DENSE_ARCHS:
+        phase_family_serve(torch, dataclasses.replace(configs.get(arch),
+                                                      n_layers=DENSE_DEPTH),
+                           prompt_len=DENSE_PROMPT, decode=DENSE_DECODE,
+                           seed=seed, instance="wgmma", report=dense,
+                           key=arch, captured={})
+    report["dense_serve"] = dense
+    return captured
+
+
+def phase_family_flash_timing(torch, captured: dict, report: dict) -> None:
+    """Phase 13's flash timing (``flash_timing``) again at OLMoE's first
+    layer's prefill inputs (Dh 128, the wgmma instance) and at
+    DeepSeek-V2-Lite's padded latent-attention inputs (Dh 192, the
+    mma_sync instance)."""
+    out = {}
+    for key in ("moe_serve", "mla_serve"):
+        q, k, v, causal = captured.pop(key)
+        out[key] = flash_timing(torch, q, k, v, causal)
+        bound_and_print(torch, f"flash_attention at {report[key]['arch']}'s "
+                        f"prefill", out[key])
+        del q, k, v
+    torch.cuda.synchronize()
+    report["family_flash_timing"] = out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2501,6 +3047,8 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     model_t = phase_model_timing(torch, model_inputs, report)
+    family_inputs = phase_families(torch, args.seed, report)
+    phase_family_flash_timing(torch, family_inputs, report)
     report["total_s"] = time.perf_counter() - t_all
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -2525,9 +3073,11 @@ def main(argv=None) -> int:
             **{k: timed[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                            "bound_ms", "library_ms")},
             bound_by=timed[name].get("bound_by", "bytes"))
+    model_paths = [report[k] for k in ("serve", "moe_serve", "mla_serve")]
+    model_paths += list(report["dense_serve"].values())
     for name in ("flash_attention", "ssd_scan"):
         rows[name] = dict(
-            launches=report["serve"]["launches"]["prefill"][name],
+            launches=sum(r["launches"]["prefill"][name] for r in model_paths),
             **{k: model_t[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                              "bound_ms", "bound_by",
                                              "library_ms")})

@@ -1,9 +1,11 @@
 """Architecture registry of the port: ``get(name)`` -> ArchConfig,
 ``smoke(name)`` -> the reduced same-family config the CPU tests run.
 
-The port holds the configs of the families it serves (dense, ssm, hybrid);
-``ARCH_IDS`` names every assigned architecture, and ``get`` of one whose
-config is not ported yet raises ``NotImplementedError`` (ROADMAP A.11).
+The port holds the configs of the families it serves (dense, moe with GQA
+or latent attention, ssm, hybrid); ``ARCH_IDS`` names every assigned
+architecture, and ``get`` of one whose config is not ported yet (the
+``encdec`` and ``vlm`` families) raises ``NotImplementedError`` (ROADMAP
+A.11e).
 
 Shape cells (LM grid):
   train_4k      seq 4096,    global_batch 256   (train_step)
@@ -29,7 +31,9 @@ ARCH_IDS = [
     "mamba2_780m",
     "llava_next_34b",
 ]
-PORTED = ("internlm2_1_8b", "zamba2_2_7b", "mamba2_780m")
+PORTED = ("deepseek_v2_lite_16b", "olmoe_1b_7b", "phi3_medium_14b",
+          "mistral_nemo_12b", "qwen15_4b", "internlm2_1_8b", "zamba2_2_7b",
+          "mamba2_780m")
 
 # canonical shape grid
 SHAPES = {
@@ -49,7 +53,7 @@ def _module(name: str):
     if name not in PORTED:
         raise NotImplementedError(
             f"{name}: config not ported yet (the port holds {PORTED}; "
-            "ROADMAP A.11)" if name in ARCH_IDS else f"unknown arch {name}")
+            "ROADMAP A.11e)" if name in ARCH_IDS else f"unknown arch {name}")
     return importlib.import_module(f".{name}", __package__)
 
 

@@ -1,0 +1,16 @@
+"""qwen1.5-4b [dense] — 40L d_model=2560 20H (GQA kv=20) d_ff=6912
+vocab=151936; QKV bias.  [hf:Qwen/Qwen1.5-0.5B; hf]"""
+from ..models.transformer import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen1.5-4b", family="dense",
+    n_layers=40, d_model=2560, n_heads=20, n_kv=20, d_ff=6912,
+    vocab=151936, head_dim=128, qkv_bias=True, tie_embeddings=True,
+    microbatches=2,
+)
+
+SMOKE = ArchConfig(
+    name="qwen1.5-4b-smoke", family="dense",
+    n_layers=2, d_model=64, n_heads=4, n_kv=4, d_ff=128,
+    vocab=256, head_dim=16, qkv_bias=True, tie_embeddings=True, remat=False,
+)

@@ -51,7 +51,8 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """Materialised-softmax GQA attention oracle for flash_attention, with
     the reference's rounding: the probabilities are cast to q's dtype
-    before ``p·v``.  q: (B,Sq,H,Dh); k/v: (B,Sk,Hkv,Dh); query i sits at
+    before ``p·v``.  q: (B,Sq,H,Dh); k: (B,Sk,Hkv,Dh); v: (B,Sk,Hkv,Dv),
+    Dv = Dh but for latent attention's narrower values; query i sits at
     position ``q_offset + i`` (the model's decode step against its cache)."""
     b, sq, h, dh = q.shape
     hkv = k.shape[2]
@@ -64,7 +65,7 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = torch.where(m[None, None, None], logits, -1e30)
     p = torch.softmax(logits, -1).to(q.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v)
-    return out.reshape(b, sq, h, dh)
+    return out.reshape(b, sq, h, v.shape[-1])
 
 
 def ssd_chunk_ref(xs, bmat, cmat, dt, a, chunk: int = 256) -> torch.Tensor:

@@ -42,6 +42,7 @@ from ..kernels import flash_attention as _fa
 from ..kernels import ssd_scan as _ss
 from ..kernels.ops import resolve_device
 from ..models import layers as L
+from ..models import moe as MOE
 from ..models.transformer import (ArchConfig, check_supported, init_cache,
                                   init_params)
 from ..serve.checkout import BatchedCheckoutServer
@@ -50,18 +51,36 @@ from ..sharding import make_ctx
 from .mesh import make_host_mesh
 
 ROUNDINGS_PER_BLOCK = 6   # norm, projections, conv or probabilities, gate, out
+# an MoE block rounds where a dense one does outside its MLP (the dense
+# MLP's gate and out, 2 of the 6), and then in its routed experts: the
+# three expert products and the weighted combine (the dispatch buffer is
+# a copy of bf16 rows, exact), and the shared expert where there is one
+ROUNDINGS_PER_MOE_BLOCK = ROUNDINGS_PER_BLOCK - 2 + 4
+ROUNDINGS_SHARED_EXPERT = 1
+# a sub-layer multiplies two linear maps of its input (q·kᵀ, gate × in,
+# C·B), and d(ab)/ab = da/a + db/b: it passes a relative error on doubled
+SUBLAYER_GAIN = 2
 
 
 def reduced_config(cfg: ArchConfig) -> ArchConfig:
     """Shrink an assigned arch to host scale, same family/topology (the
-    reference's ``launch.train.reduced_config`` for the families the port
-    serves; its moe and mla branches wait for their slice)."""
+    reference's ``launch.train.reduced_config``, its moe and mla branches
+    included)."""
     kw = dict(n_layers=min(cfg.n_layers, 2), d_model=256, vocab=1024,
               remat=False)
     if cfg.n_heads:
         kw.update(n_heads=4, n_kv=max(1, min(cfg.n_kv, 2)), head_dim=64)
     if cfg.d_ff:
         kw["d_ff"] = 512
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, d_model=256, n_experts=8, top_k=2, d_ff_expert=128,
+            d_ff_shared=128 if cfg.moe.n_shared else 0)
+        kw["first_dense"] = min(cfg.first_dense, 1)
+    if cfg.mla is not None:
+        kw["mla"] = dataclasses.replace(cfg.mla, d_model=256, n_heads=4,
+                                        kv_lora=64, qk_nope=32, qk_rope=16,
+                                        v_head=32)
     if cfg.ssd is not None:
         kw["ssd"] = dataclasses.replace(cfg.ssd, d_model=256, d_state=16,
                                         headdim=64, chunk=64)
@@ -76,20 +95,37 @@ def reduced_config(cfg: ArchConfig) -> ArchConfig:
 
 
 def depth(cfg: ArchConfig) -> int:
-    """Residual blocks on the path: the layers, plus the hybrid's shared
-    block applications."""
+    """Residual blocks on the path: the layers (an MoE stack's dense and
+    MoE layers together), plus the hybrid's shared block applications."""
     shared = cfg.n_layers // cfg.shared_every if cfg.shared_every else 0
     return cfg.n_layers + shared
+
+
+def roundings(cfg: ArchConfig) -> int:
+    """Places on the path where a block rounds to bf16:
+    ``ROUNDINGS_PER_BLOCK`` a dense, SSD or shared block,
+    ``ROUNDINGS_PER_MOE_BLOCK`` (+ ``ROUNDINGS_SHARED_EXPERT`` with shared
+    experts) an MoE block: 6 a block but 8 an OLMoE block and 9 a
+    DeepSeek-V2 MoE block."""
+    if cfg.moe is None:
+        return ROUNDINGS_PER_BLOCK * depth(cfg)
+    per_moe = ROUNDINGS_PER_MOE_BLOCK + (ROUNDINGS_SHARED_EXPERT
+                                         if cfg.moe.n_shared else 0)
+    n_moe = cfg.n_layers - cfg.first_dense
+    return ROUNDINGS_PER_BLOCK * cfg.first_dense + per_moe * n_moe
 
 
 def prefill_bound(cfg: ArchConfig) -> float:
     """The relative L2 distance allowed between the prefill's and the
     token-by-token path's last-position logits in bf16: each block rounds
-    to bf16 (u = 2^-8) at about ``ROUNDINGS_PER_BLOCK`` places, the two
-    paths round at different places, and independent errors add in
-    quadrature over the blocks: sqrt(2 · k · depth) · 2^-8 (0.107 for
-    Zamba2-2.7B's 54 + 9 blocks)."""
-    return math.sqrt(2 * ROUNDINGS_PER_BLOCK * depth(cfg)) * 2.0 ** -8
+    to bf16 (u = 2^-8) at ``roundings`` places, the two paths round at
+    different places, and independent errors add in quadrature over the
+    blocks; a sub-layer downstream of a rounding passes its error on up to
+    ``SUBLAYER_GAIN`` times larger.  So 2 · sqrt(2 · roundings) · 2^-8,
+    2 · sqrt(2 · 6 · depth) · 2^-8 without MoE blocks (0.038 for a 2-layer
+    dense model, 0.215 for Zamba2-2.7B's 54 + 9 blocks; 0.125 for
+    OLMoE-1B-7B's 16 MoE blocks)."""
+    return SUBLAYER_GAIN * math.sqrt(2 * roundings(cfg)) * 2.0 ** -8
 
 
 def prompt_store(vocab: int, *, requests: int, prompt_len: int,
@@ -169,7 +205,11 @@ def serve(cfg: ArchConfig, *, requests: int = 16, prompt_len: int = 64,
 
     Returns {"result": the reference's JSON fields and the prefill's,
     "prompts", "tokens" (numpy), "fill_logits", "prefill_logits",
-    "cache", "launches" per phase, "check"}."""
+    "cache", "launches" per phase, "dropped", "check"}: "dropped" holds
+    the routed slots the MoE dispatch dropped, summed over the fill and
+    decode (none at B <= 8: a step routes B tokens, and a capacity is at
+    least 8) and, for the prefill, a list with one count per MoE layer
+    (empty without MoE layers)."""
     check_supported(cfg)
     dev = resolve_device(device)
     rows = prompt_store(cfg.vocab, requests=requests, prompt_len=prompt_len,
@@ -187,30 +227,34 @@ def serve(cfg: ArchConfig, *, requests: int = 16, prompt_len: int = 64,
     cache = init_cache(cfg, b, max_len, device=dev)
     _sync(dev)
     t0 = time.perf_counter()
-    for i in range(prompt_len):
-        logits, cache = step(params, {"tokens": prompts[:, i:i + 1],
-                                      "cache": cache})
-    _sync(dev)
-    t_fill = time.perf_counter() - t0
-    fill_logits = logits[:, -1].float()
-    tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
-    out = [tok]
-    t1 = time.perf_counter()
-    for _ in range(decode_steps - 1):
-        logits, cache = step(params, {"tokens": tok, "cache": cache})
+    with MOE.counting_drops() as fill_drops:
+        for i in range(prompt_len):
+            logits, cache = step(params, {"tokens": prompts[:, i:i + 1],
+                                          "cache": cache})
+        _sync(dev)
+        t_fill = time.perf_counter() - t0
+        fill_logits = logits[:, -1].float()
         tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
-        out.append(tok)
-    _sync(dev)
-    t_decode = time.perf_counter() - t1
+        out = [tok]
+        t1 = time.perf_counter()
+        for _ in range(decode_steps - 1):
+            logits, cache = step(params, {"tokens": tok, "cache": cache})
+            tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+            out.append(tok)
+        _sync(dev)
+        t_decode = time.perf_counter() - t1
     launches = {"fill_decode": _since(before)}
+    dropped = {"fill_decode": sum(MOE.drop_counts(fill_drops))}
 
     prefill = make_prefill_step(cfg, make_ctx(), device=dev)
     before = _launches()
     t2 = time.perf_counter()
-    pre_logits = prefill(params, {"tokens": prompts})
-    _sync(dev)
+    with MOE.counting_drops() as prefill_drops:
+        pre_logits = prefill(params, {"tokens": prompts})
+        _sync(dev)
     t_prefill = time.perf_counter() - t2
     launches["prefill"] = _since(before)
+    dropped["prefill"] = MOE.drop_counts(prefill_drops)
     pre_logits = pre_logits[:, -1, :cfg.vocab].float()
     check = prefill_check(pre_logits, fill_logits, prefill_bound(cfg))
 
@@ -226,10 +270,12 @@ def serve(cfg: ArchConfig, *, requests: int = 16, prompt_len: int = 64,
               "ms_per_decode_step": 1e3 * t_decode / max(decode_steps - 1, 1),
               "prefill_rel_l2_max": max(check["rel_l2"]),
               "prefill_bound": check["bound"],
-              "prefill_ok": check["ok"], "launches": launches}
+              "prefill_ok": check["ok"], "launches": launches,
+              "dropped": dropped}
     return {"result": result, "prompts": rows, "tokens": gen,
             "fill_logits": fill_logits, "prefill_logits": pre_logits,
-            "cache": cache, "launches": launches, "check": check}
+            "cache": cache, "launches": launches, "dropped": dropped,
+            "check": check}
 
 
 def main(argv=None) -> int:

@@ -6,8 +6,11 @@ test makes; this module imports no jax) and returns the port's ``Model``
 with the same weights.  The reference stacks every layer's parameters on a
 leading axis (its ``vmap``/``scan``); the port's modules are one per layer,
 so ``layers/ssd/in_proj/w`` of shape (L, d_in, d_out) becomes
-``layers.<i>.ssd.in_proj.w`` for i < L.  Every leaf must land on a
-parameter and every parameter must be filled, or it raises.
+``layers.<i>.ssd.in_proj.w`` for i < L, and an MoE stack's
+``dense_layers`` split the same way (an expert leaf ``layers/moe/wi`` of
+shape (L, E, d, f) becomes ``layers.<i>.moe.wi`` of shape (E, d, f)).
+Every leaf must land on a parameter and every parameter must be filled,
+or it raises.
 """
 from __future__ import annotations
 
@@ -16,6 +19,9 @@ import torch
 
 from ..kernels.ops import resolve_device
 from .transformer import ArchConfig, Model
+
+# the reference's stacked trees: a leading layer axis on every leaf
+STACKED = ("layers", "dense_layers")
 
 
 def _leaves(tree, prefix=()):
@@ -30,7 +36,7 @@ def state_dict_from_reference(tree) -> dict:
     """The port's parameter names -> float32 host tensors."""
     out = {}
     for path, arr in _leaves(tree):
-        if path[0] == "layers":
+        if path[0] in STACKED:
             for i in range(arr.shape[0]):
                 out[".".join((path[0], str(i)) + path[1:])] = \
                     torch.from_numpy(np.array(arr[i], np.float32))

@@ -1,18 +1,24 @@
 """Architecture assembly, forward only: the port of
-``repro.models.transformer`` for the families this slice serves.
+``repro.models.transformer`` for the families the port serves.
 
 Families:
   dense   — uniform [norm→attn→res, norm→swiglu→res] decoder stack
+  moe     — the same with the routed-expert FFN (``models.moe``), the
+            first ``first_dense`` layers dense (``dense_layers``)
   ssm     — uniform [norm→SSD→res] stack (attention-free)
   hybrid  — Zamba2: groups of SSD layers + one SHARED attention+MLP block
             applied between groups (same parameters every application,
             its own KV slot each time)
-``moe``, ``encdec``, ``vlm`` and latent attention (``mla``) raise
-``NotImplementedError``: they wait for their slice (ROADMAP A.11).
+Attention is GQA (``models.layers``) or, with ``attn_type="mla"``, latent
+attention (``models.mla``) with its compressed latent cache.  ``encdec``
+and ``vlm`` raise ``NotImplementedError``: they wait for their slice
+(ROADMAP A.11e).
 
 The model is an ``nn.Module`` whose parameter names follow the reference's
 tree with the stacked layer axis unrolled (``layers.3.ssd.in_proj.w`` is
-row 3 of the reference's ``layers/ssd/in_proj/w``); ``models.convert``
+row 3 of the reference's ``layers/ssd/in_proj/w``, and an expert leaf
+``layers.3.moe.wi`` of shape (E, d, f) is row 3 of ``layers/moe/wi``);
+``models.convert``
 carries a reference tree over.  The layer stacks the reference scans run as
 Python loops.  The decode cache is a dict of tensors in the reference's
 layout (leading layer axis); ``decode_step`` updates its tensors IN PLACE
@@ -22,16 +28,18 @@ new arrays).  ``len`` is a Python int.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Optional
 
 import torch
 from torch import nn
 
 from ..kernels.ops import resolve_device
 from . import layers as L
+from . import mla as MLA
+from . import moe as MOE
 from . import ssd as SSD
 
-SUPPORTED = ("dense", "ssm", "hybrid")
+SUPPORTED = ("dense", "moe", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,8 +56,8 @@ class ArchConfig:
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     attn_type: str = "gqa"        # gqa | mla
-    mla: Optional[Any] = None     # not ported yet (ROADMAP A.11)
-    moe: Optional[Any] = None     # not ported yet (ROADMAP A.11)
+    mla: Optional[MLA.MLAConfig] = None
+    moe: Optional[MOE.MoEConfig] = None
     first_dense: int = 0          # leading dense-FFN layers in an MoE stack
     ssd: Optional[SSD.SSDConfig] = None
     shared_every: int = 0         # hybrid: shared attn block between groups
@@ -78,12 +86,14 @@ class ArchConfig:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    if (cfg.family not in SUPPORTED or cfg.attn_type == "mla"
-            or cfg.mla is not None or cfg.moe is not None):
+    if cfg.family not in SUPPORTED:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (attn {cfg.attn_type!r}, "
-            f"moe {cfg.moe is not None}) is not ported yet; the port serves "
-            f"{', '.join(SUPPORTED)} (ROADMAP A.11)")
+            f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
+            f"serves {', '.join(SUPPORTED)} (ROADMAP A.11e)")
+    if cfg.family == "moe" and not isinstance(cfg.moe, MOE.MoEConfig):
+        raise ValueError(f"{cfg.name}: the moe family needs a MoEConfig")
+    if cfg.attn_type == "mla" and not isinstance(cfg.mla, MLA.MLAConfig):
+        raise ValueError(f"{cfg.name}: attn_type 'mla' needs an MLAConfig")
     if cfg.family == "hybrid" and (cfg.shared_every <= 0
                                    or cfg.n_layers % cfg.shared_every):
         raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not split "
@@ -92,13 +102,27 @@ def check_supported(cfg: ArchConfig) -> None:
 
 # =============================================================== blocks ====
 class AttnBlock(nn.Module):
-    def __init__(self, cfg: ArchConfig, generator=None, device=None):
+    """Attention (GQA, or latent with ``attn_type="mla"``) and a SwiGLU
+    MLP."""
+
+    def __init__(self, cfg: ArchConfig, generator=None, device=None,
+                 mlp: bool = True):
         super().__init__()
         g, dev = generator, device
         self.ln1 = L.param((cfg.d_model,), g, dev, fill=1.0)
         self.ln2 = L.param((cfg.d_model,), g, dev, fill=1.0)
-        self.attn = L.Attention(cfg.attn_cfg(), g, dev)
-        self.mlp = L.SwiGLU(cfg.d_model, cfg.d_ff, g, dev)
+        self.attn = (MLA.MLA(cfg.mla, g, dev) if cfg.attn_type == "mla"
+                     else L.Attention(cfg.attn_cfg(), g, dev))
+        if mlp:
+            self.mlp = L.SwiGLU(cfg.d_model, cfg.d_ff, g, dev)
+
+
+class MoEBlock(AttnBlock):
+    """An ``AttnBlock`` whose MLP is the routed experts (``moe``)."""
+
+    def __init__(self, cfg: ArchConfig, generator=None, device=None):
+        super().__init__(cfg, generator, device, mlp=False)
+        self.moe = MOE.MoE(cfg.moe, generator, device)
 
 
 class SSDBlock(nn.Module):
@@ -111,11 +135,18 @@ class SSDBlock(nn.Module):
 def _attn_block_apply(p: AttnBlock, x, cfg: ArchConfig, positions=None,
                       cache=None, causal=True):
     h = L.rms_norm(p.ln1, x)
-    a, cache = L.attention(p.attn, h, cfg.attn_cfg(causal=causal),
-                           positions=positions, kv_cache=cache)
+    if cfg.attn_type == "mla":
+        a, cache = MLA.mla_attention(p.attn, h, cfg.mla, positions=positions,
+                                     cache=cache)
+    else:
+        a, cache = L.attention(p.attn, h, cfg.attn_cfg(causal=causal),
+                               positions=positions, kv_cache=cache)
     x = x + a
     h = L.rms_norm(p.ln2, x)
-    x = x + L.swiglu(p.mlp, h)
+    if isinstance(p, MoEBlock):
+        x = x + MOE.moe_ffn(p.moe, h, cfg.moe)
+    else:
+        x = x + L.swiglu(p.mlp, h)
     return x, cache
 
 
@@ -133,7 +164,9 @@ def _ssd_block_apply(p: SSDBlock, x, cfg: ArchConfig, state=None):
 class Model(nn.Module):
     """Embedding (vocab_padded, d_model), the layer stack, the final norm,
     the lm head (tied to the embedding unless ``tie_embeddings`` is off)
-    and, for the hybrid, the shared attention block."""
+    and, for the hybrid, the shared attention block.  An MoE stack is
+    ``dense_layers`` (its first ``first_dense`` layers, dense) and then
+    ``layers`` (MoE blocks); every other family has no dense layers."""
 
     def __init__(self, cfg: ArchConfig, generator=None, device=None):
         super().__init__()
@@ -144,9 +177,13 @@ class Model(nn.Module):
         self.final_norm = L.param((d,), g, dev, fill=1.0)
         self.lm_head = (None if cfg.tie_embeddings
                         else L.param((d, v), g, dev, scale=d ** -0.5))
-        block = AttnBlock if cfg.family == "dense" else SSDBlock
+        block = {"dense": AttnBlock, "moe": MoEBlock}.get(cfg.family,
+                                                          SSDBlock)
+        n_dense = cfg.first_dense if cfg.family == "moe" else 0
+        self.dense_layers = nn.ModuleList(AttnBlock(cfg, g, dev)
+                                          for _ in range(n_dense))
         self.layers = nn.ModuleList(block(cfg, g, dev)
-                                    for _ in range(cfg.n_layers))
+                                    for _ in range(cfg.n_layers - n_dense))
         self.shared_block = (AttnBlock(cfg, g, dev)
                              if cfg.family == "hybrid" else None)
 
@@ -155,7 +192,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
                 device=None) -> Model:
     """Fresh weights from the reference's distributions (dense weights
     normal · d_in^-0.5, the embedding normal · d_model^-0.5, conv weights
-    normal · 0.1, norms and D ones, biases, A_log and dt_bias zeros), drawn
+    normal · 0.1, the experts' normal · d_in^-0.5, norms and D ones,
+    biases, A_log and dt_bias zeros), drawn
     from ``generator`` on its own device and placed on ``device`` (the card
     unless the caller names the CPU)."""
     return Model(cfg, generator, resolve_device(device))
@@ -178,8 +216,8 @@ def forward(params: Model, batch: dict, cfg: ArchConfig,
     prefill returns just the next-token distribution)."""
     check_supported(cfg)
     x = _embed(params, batch["tokens"])
-    if cfg.family == "dense":
-        for p in params.layers:
+    if cfg.family in ("dense", "moe"):
+        for p in (*params.dense_layers, *params.layers):
             x, _ = _attn_block_apply(p, x, cfg)
     elif cfg.family == "ssm":
         for p in params.layers:
@@ -207,7 +245,12 @@ def init_cache_abstract(cfg: ArchConfig, batch: int, max_len: int) -> dict:
         return torch.empty(shape, dtype=dtype, device="meta")
 
     length = leaf((), torch.int32)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
+        if cfg.attn_type == "mla":
+            m = cfg.mla
+            return {"ckv": leaf((cfg.n_layers, batch, max_len,
+                                 m.kv_lora + m.qk_rope), bf16),
+                    "len": length}
         shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.hd)
         return {"k": leaf(shape, bf16), "v": leaf(shape, bf16), "len": length}
     s = cfg.ssd
@@ -242,14 +285,18 @@ def decode_step(params: Model, batch: dict, cache: dict, cfg: ArchConfig):
     b = tokens.shape[0]
     x = _embed(params, tokens)
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
+        # an MoE stack's dense layers come first, and so do their slots
         pos = int(cache["len"])
         positions = torch.full((b, 1), pos, device=x.device)
-        for i, p in enumerate(params.layers):
-            blk = {"k": cache["k"][i], "v": cache["v"][i], "len": pos}
+        leaves = ("ckv",) if cfg.attn_type == "mla" else ("k", "v")
+        for i, p in enumerate((*params.dense_layers, *params.layers)):
+            blk = {name: cache[name][i] for name in leaves}
+            blk["len"] = pos
             x, _ = _attn_block_apply(p, x, cfg, positions=positions,
                                      cache=blk)
-        new_cache = {"k": cache["k"], "v": cache["v"], "len": pos + 1}
+        new_cache = {name: cache[name] for name in leaves}
+        new_cache["len"] = pos + 1
     else:                                               # ssm, hybrid
         hybrid = cfg.family == "hybrid"
         if hybrid:

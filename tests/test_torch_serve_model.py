@@ -3,8 +3,14 @@ the CPU against the JAX package: its prompts equal the ones the reference
 driver builds (the same ``generate``, LyreSplit and fused checkout wave),
 and its greedy tokens equal the reference's ``greedy_decode`` from the same
 carried weights, in float32 compute (both packages' ``COMPUTE_DTYPE``
-patched inside the test), for the dense, ssm and hybrid families.  The
-driver's prefill check passes and reports no kernel launch on the CPU."""
+patched inside the test), for the dense, ssm, hybrid and moe families
+(OLMoE-1B-7B and DeepSeek-V2-Lite reduced).  Serve's prefill check
+passes and reports no kernel launch on the CPU.  An MoE prefill at
+capacity factor 1.25 drops routed slots that the token path (B tokens a
+step) never drops, so for those configs serve's prefill logits are
+held to the reference's own serving prefill (``make_prefill_step``,
+which drops the same slots), and its drop counts to the ones the
+reference's routing implies."""
 import dataclasses
 import json
 
@@ -20,9 +26,11 @@ from repro.data import VersionedDataset
 from repro.launch.mesh import make_host_mesh
 from repro.launch.train import reduced_config as ref_reduced_config
 from repro.models import layers as RL
+from repro.models import moe as RM
 from repro.models import transformer as RT
 from repro.serve.checkout import BatchedCheckoutServer
-from repro.serve.serve_step import greedy_decode, make_serve_step
+from repro.serve.serve_step import (greedy_decode, make_prefill_step,
+                                    make_serve_step)
 from repro.sharding import make_ctx
 from repro_torch import configs as TC
 from repro_torch.launch import serve as tserve
@@ -60,8 +68,34 @@ def _reference_prompts(vocab, prompt_len, requests, versions, seed=0):
     return (rows[:, :prompt_len] % vocab).astype(np.int32)
 
 
+def _reference_drops(tree, cfg, ctx, prompts) -> list:
+    """The routed slots the reference's serving prefill drops, layer by
+    layer: its routing at each MoE layer (``_dispatch_combine`` wrapped to
+    report the chosen experts), counted against ``_capacity``."""
+    experts = []
+    real = RM._dispatch_combine
+
+    def dispatch_combine(x, router_w, *args, cfg, model_axis):
+        logits = x.astype(jnp.float32) @ router_w.astype(jnp.float32)
+        top_e = jax.lax.top_k(jax.nn.softmax(logits, -1), cfg.top_k)[1]
+        jax.debug.callback(lambda e: experts.append(np.asarray(e)), top_e)
+        return real(x, router_w, *args, cfg=cfg, model_axis=model_axis)
+
+    RM._dispatch_combine = dispatch_combine
+    try:
+        make_prefill_step(cfg, ctx)(tree, {"tokens": prompts})
+        jax.effects_barrier()
+    finally:
+        RM._dispatch_combine = real
+    cap = RM._capacity(prompts.size, cfg.moe)
+    return [int(np.maximum(np.bincount(e.reshape(-1),
+                                       minlength=cfg.moe.n_experts) - cap,
+                           0).sum()) for e in experts]
+
+
 @pytest.mark.parametrize("arch", ["internlm2_1_8b", "mamba2_780m",
-                                  "zamba2_2_7b"])
+                                  "zamba2_2_7b", "olmoe_1b_7b",
+                                  "deepseek_v2_lite_16b"])
 def test_serve_driver_matches_the_reference(arch, monkeypatch):
     monkeypatch.setattr(RL, "COMPUTE_DTYPE", jnp.float32)
     monkeypatch.setattr(TL, "COMPUTE_DTYPE", torch.float32)
@@ -88,14 +122,27 @@ def test_serve_driver_matches_the_reference(arch, monkeypatch):
     np.testing.assert_array_equal(run["tokens"], np.asarray(want))
 
     check = run["check"]
-    assert check["ok"] and max(check["rel_l2"]) < 1e-4
+    dropped = run["dropped"]
+    assert dropped["fill_decode"] == 0
+    if rcfg.moe is None:
+        assert dropped["prefill"] == []
+        assert check["ok"] and max(check["rel_l2"]) < 1e-4
+    else:
+        n_moe = rcfg.n_layers - rcfg.first_dense
+        assert len(dropped["prefill"]) == n_moe and sum(dropped["prefill"])
+        logits = jax.jit(make_prefill_step(rcfg, ctx))(tree, {"tokens": p})
+        np.testing.assert_allclose(
+            run["prefill_logits"].numpy(),
+            np.asarray(logits[:, -1, :rcfg.vocab], np.float32),
+            rtol=1e-4, atol=1e-4)
+        assert dropped["prefill"] == _reference_drops(tree, rcfg, ctx, p)
     assert run["launches"] == {
         "fill_decode": {"flash_attention": 0, "ssd_scan": 0},
         "prefill": {"flash_attention": 0, "ssd_scan": 0}}
     cache = run["cache"]
     if "len" in cache:                  # the ssm cache has no length
         assert cache["len"] == PROMPT_LEN + DECODE - 1
-        kv = cache["k" if "k" in cache else "shared_k"]
+        kv = next(cache[k] for k in ("k", "shared_k", "ckv") if k in cache)
         assert kv.shape[2] == PROMPT_LEN + DECODE
 
 
