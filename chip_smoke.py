@@ -129,14 +129,42 @@ Phases, each of which raises on failure:
     traffic and checks: 4 flash launches at Dh 192 (mma_sync);
 17. the dense configs — Qwen1.5-4B, Mistral-NeMo-12B and Phi3-medium-14B
     at full width and vocab, 2 of 40 layers: 4 prompts of 128, 8 greedy
-    tokens, the prefill check, 2 flash launches each.
+    tokens, the prefill check, 2 flash launches each;
+18. dense training (after phase 17, the serve models freed) —
+    InternLM2-1.8B as its config gives it (24 layers, d_model 2048, 16 / 8
+    heads of 128, d_ff 8192, vocab 92,544, remat on; 1.70 B seeded
+    parameters) through ``repro_torch.launch.train``: its corpus (SCI,
+    12 versions of 257-token records, LyreSplit, a ``VersionedDataset``
+    checked out by ``gather_row_tiles``), batches of 8 × 256, AdamW (lr
+    3e-4, cosine, warmup 10).  Step 0's loss and every gradient through
+    the kernels against the same step with the plain flash version on
+    the card (``step0_check``: the loss within ``prefill_bound``, each
+    leaf within sqrt(2) times it); 6 uninterrupted steps; an interrupted
+    run: 3 steps, a full-size ``CheckpointStore.save``, the trainer and
+    the store dropped, the store reopened, ``restore_or_init`` (through
+    ``resume_latest(device="cuda")``) bit-exact against the saved
+    parameters at cursor 3, 3 more steps on a fresh AdamW: the resumed
+    batches equal the uninterrupted run's steps 3-5, its first losses
+    equal within ``RERUN_LOSS_RTOL``, every loss and grad norm finite;
+    48 flash launches a step (the forward and remat's recompute); then a
+    torch.profiler step (forward, backward, optimizer ranges; the flash
+    kernel's share) and the flash Function's halves at the training
+    shape (the forward kernel, the plain-torch backward, SDPA's forward
+    and backward);
+19. SSM training — Mamba2-780M as its config gives it (48 layers,
+    d_model 1536, N 128, P 64, chunk 256, 2 microbatches; 0.78 B
+    parameters), the same traffic, step 0 against the plain ``ssd_scan``
+    on the card, 2 steps (96 ``ssd_scan`` launches a microbatch), a
+    profiled step.
 
 Phases 3, 5, 6, 8, 11, 12, 14 (twice: from the tenants to the kill, and
-from the restore to the end) and 15-17 (once a config) each set every
-kernel's launch count to 0 just before they drive their path and read the
-counts just after; launches made to compare or time a kernel fall outside
-those windows.  The kernels line's ``flash_attention`` launches are the
-sum over the model paths (phases 11 and 15-17).
+from the restore to the end), 15-17 (once a config), 18 (the uninterrupted
+and the interrupted run) and 19 (its two steps) each set every kernel's
+launch count to 0 just before they drive their path and read the counts
+just after; launches made to compare or time a kernel fall outside those
+windows.  The kernels line's ``flash_attention`` launches are the sum
+over the model paths (phases 11 and 15-18), ``ssd_scan``'s over phases 11
+and 19, and ``gather_row_tiles``'s over phases 5, 18 and 19.
 TF32 is off (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` False): the float32 plain versions
 compare in full float32.
@@ -149,6 +177,7 @@ there is no CUDA device or the port's sources are missing.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -212,6 +241,17 @@ DENSE_ARCHS = ("qwen15_4b", "mistral_nemo_12b", "phi3_medium_14b")
 DENSE_DEPTH = 2      # phase 17: full width and vocab, 2 of 40 layers,
 DENSE_PROMPT = 128   # 4 prompts of 128 tokens, 8 greedy tokens
 DENSE_DECODE = 8
+TRAIN_ARCH = "internlm2_1_8b"    # phase 18: dense training at full size
+TRAIN_SSM_ARCH = "mamba2_780m"   # phase 19: SSM training at full size
+TRAIN_BATCH = 8                  # the train launcher's traffic: batches of
+TRAIN_SEQ = 256                  # 8 sequences of 256 tokens
+TRAIN_STEPS = 6                  # phase 18's uninterrupted run; its
+TRAIN_PREEMPT = 3                # interrupted run stops after 3, resumes
+TRAIN_SSM_STEPS = 2
+# the interrupted run's first losses against the uninterrupted run's: the
+# same code on the same inputs, but the embedding's gradient is a
+# scatter-add whose float32 sums land in another order each run
+RERUN_LOSS_RTOL = 1e-4
 LONG_BATCH = 4                   # the long prefill: prefill_32k (B 32,
 LONG_SEQ = 4096                  # S 32768) cut to one card and the time
 # the device kernels the long prefill runs through the two model kernels'
@@ -2979,6 +3019,360 @@ def phase_family_flash_timing(torch, captured: dict, report: dict) -> None:
     report["family_flash_timing"] = out
 
 
+TRAIN_RANGES = ("train.forward", "train.backward", "train.optimizer")
+
+
+def swap_plain(module, name: str, plain):
+    """A context in which ``module.<name>`` (a kernel wrapper) is ``plain``:
+    the step-0 comparison's plain path through the same entry points."""
+    @contextlib.contextmanager
+    def swapped():
+        kept = getattr(module, name)
+        setattr(module, name, plain)
+        try:
+            yield
+        finally:
+            setattr(module, name, kept)
+    return swapped()
+
+
+def step0_check(torch, cfg, model, batch, plain_ctx) -> dict:
+    """One step's loss and gradients (``accumulate_grads``) through the
+    kernels, against the same step with a kernel's plain version on the
+    card (``plain_ctx``).  bf16 rounds at different places in the two (the
+    kernel keeps its products and probabilities in float32 and sums in its
+    own order), so they are held to the CPU tests' bounds: the loss within
+    ``launch.serve.prefill_bound`` relative, every gradient leaf within
+    sqrt(2) times it relative L2 (the backward rounds at as many places
+    again)."""
+    import math
+    from repro_torch.launch.serve import prefill_bound
+    from repro_torch.train import accumulate_grads
+    loss_k, g_k = accumulate_grads(model, batch, cfg)
+    with plain_ctx:
+        loss_p, g_p = accumulate_grads(model, batch, cfg)
+    bound = prefill_bound(cfg)
+    loss_k, loss_p = float(loss_k), float(loss_p)
+    rel = {n: float((g_k[n] - g_p[n]).norm() / g_p[n].norm().clamp_min(1e-30))
+           for n in g_p}
+    finite = math.isfinite(loss_k) and all(
+        bool(torch.isfinite(g).all()) for g in g_k.values())
+    worst = max(rel, key=rel.get)
+    out = {"loss_kernel": loss_k, "loss_plain": loss_p,
+           "loss_rel": abs(loss_k - loss_p) / abs(loss_p),
+           "loss_bound": bound, "grad_rel_l2_max": rel[worst],
+           "grad_rel_l2_worst_leaf": worst,
+           "grad_rel_l2_median": sorted(rel.values())[len(rel) // 2],
+           "grad_bound": math.sqrt(2) * bound}
+    del g_k, g_p
+    if not (finite and out["loss_rel"] <= bound
+            and out["grad_rel_l2_max"] <= out["grad_bound"]):
+        raise AssertionError(f"step 0 through the kernels vs plain: {out}")
+    print(f"step 0 ({cfg.name}): loss {loss_k:.6f} through the kernels, "
+          f"{loss_p:.6f} plain (rel {out['loss_rel']:.2e}, bound "
+          f"{bound:.4f}); gradients rel L2 max {rel[worst]:.3e} ({worst}), "
+          f"median {out['grad_rel_l2_median']:.3e} (bound "
+          f"{out['grad_bound']:.4f})")
+    return out
+
+
+def train_profile(torch, cfg, model, ds, vid, seed: int, label: str) -> dict:
+    """Where a training step's time goes: a fresh AdamW, one warm-up step
+    and one step under torch.profiler (the corpus's next two batches):
+    wall ms, device busy ms and share, the device ms inside the step's
+    forward, backward (remat's recompute included) and optimizer ranges,
+    and the model kernels' device ms by name.  The trace is read and
+    deleted."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train import AdamW, cosine_schedule, make_train_step
+    opt = AdamW(lr=cosine_schedule(3e-4, warmup=10, total=TRAIN_STEPS))
+    state = opt.init(model)
+    step = make_train_step(cfg, opt)
+    batches = list(ds.batches(vid=vid, global_batch=TRAIN_BATCH,
+                              seed=seed + 1, start_step=TRAIN_STEPS,
+                              n_steps=2))
+    model, state, m = step(model, state, batches[0])
+    float(m["loss"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model, state, m = step(model, state, batches[1])
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    busy_ms, rows = trace_device_time(prof, label)
+    ranges = trace_ranges(label, TRAIN_RANGES)
+    (ROOT / "chiprun_out" / f"chip_smoke_trace_{label}.json").unlink()
+    own = {key: [(ms, k) for name, ms, k in rows if key in name]
+           for key in MODEL_KERNEL_NAMES}
+    own = {key: (sum(ms for ms, _ in hits), sum(k for _, k in hits))
+           for key, hits in own.items() if hits}
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_busy_share": busy_ms / wall_ms,
+           "ranges": {k: {"ms": r["ms"], "launches": r["launches"],
+                          "by_kernel": r["by_kernel"]}
+                      for k, r in ranges.items()},
+           "model_kernels": own, "device_ms_by_op": rows[:12]}
+    print(f"profile ({label}, one step): wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%); "
+          + ", ".join(f"{k.split('.')[1]} {r['ms']:.1f} ms device in "
+                      f"{r['launches']} launches" for k, r in ranges.items()))
+    for key, (ms, k) in own.items():
+        print(f"  model kernel {key}: {ms:.3f} ms in {k} launches "
+              f"({100 * ms / busy_ms:.1f}% of the device time)")
+    for name, ms, _ in rows[:8]:
+        print(f"  {ms:9.3f} ms  {name[:90]}")
+    return out
+
+
+def flash_backward_timing(torch, seed: int) -> dict:
+    """The flash Function's two halves at the training shape (InternLM2's
+    attention: B 8, S 256, 16 / 8 heads of 128, bf16, causal): the forward
+    kernel's launch, the plain-torch backward (``ops._flash_bwd``, its lse
+    stream included) and the plain forward, beside
+    ``scaled_dot_product_attention``'s forward + backward through
+    autograd (CUDA events)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    cfg_shape = (TRAIN_BATCH, TRAIN_SEQ, 16, 8, 128)
+    b, s, h, hkv, dh = cfg_shape
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 5)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=DEVICE,
+                               dtype=torch.bfloat16)
+                   for shape in ((b, s, h, dh), (b, s, hkv, dh),
+                                 (b, s, hkv, dh), (b, s, h, dh)))
+    o = fa._launch(q, k, v, True)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        torch.autograd.grad(out, (qt, kt, vt), do.transpose(1, 2))
+
+    pairs = s * (s + 1) // 2
+    out = {"shape": list(cfg_shape), "dtype": "torch.bfloat16",
+           "forward_kernel_ms": cuda_ms(torch, lambda: fa._launch(
+               q, k, v, True), 10),
+           "backward_plain_ms": cuda_ms(torch, lambda: ops._flash_bwd(
+               q, k, v, o, do, True), 5),
+           "forward_plain_ms": cuda_ms(torch, lambda: fa.flash_attention_plain(
+               q, k, v, True), 5),
+           "library_fwd_bwd_ms": cuda_ms(torch, sdpa_fwd_bwd, 10),
+           # the backward's products: lse's q·kᵀ, then q·kᵀ, do·vᵀ, dq,
+           # dk and dv (the (query, key) pairs the mask keeps)
+           "backward_operations": 12 * b * h * dh * pairs}
+    out["backward_over_forward"] = (out["backward_plain_ms"]
+                                    / out["forward_kernel_ms"])
+    print(f"flash at the training shape {list(cfg_shape)} bf16: forward "
+          f"kernel {out['forward_kernel_ms']:.4f} ms, plain-torch backward "
+          f"{out['backward_plain_ms']:.4f} ms "
+          f"({out['backward_over_forward']:.1f}x the forward), plain forward "
+          f"{out['forward_plain_ms']:.4f} ms, scaled_dot_product_attention "
+          f"forward + backward {out['library_fwd_bwd_ms']:.4f} ms")
+    return out
+
+
+def train_checks(cfg, runs: list, n_steps: int) -> None:
+    """Every loss and grad norm of ``runs`` finite, and the right number of
+    them."""
+    import math
+    got = sum(len(r["losses"]) for r in runs)
+    values = [x for r in runs for x in r["losses"] + r["grad_norms"]]
+    if got != n_steps or not all(math.isfinite(x) for x in values):
+        raise AssertionError(f"{cfg.name}: {got} of {n_steps} steps, or a "
+                             f"non-finite loss or grad norm: {values}")
+
+
+def phase_train_dense(torch, np, seed: int, report: dict) -> None:
+    """Phase 18: InternLM2-1.8B training at full size through the port's
+    train launcher (``repro_torch.launch.train``)."""
+    import shutil
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as T
+    from repro_torch.models import init_params
+    from repro_torch.train import CheckpointStore
+    cfg = configs.get(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    ds, vid = T.corpus(cfg, seq=TRAIN_SEQ, seed=seed, device=DEVICE)
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed),
+                        DEVICE, trainable=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    batch0 = next(ds.batches(vid=vid, global_batch=TRAIN_BATCH,
+                             seed=seed + 1, n_steps=1))
+    check = step0_check(torch, cfg, model, batch0, swap_plain(
+        fa, "flash_attention",
+        lambda q, k, v, causal=True: fa.flash_attention_plain(q, k, v,
+                                                              causal)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    common = dict(batch=TRAIN_BATCH, seed=seed, steps=TRAIN_STEPS)
+    zero_launch_counts()                      # the training path's window
+    whole = T.train(cfg, model, ds, vid, store=None, start=0,
+                    parent_vid=None, **common)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt_dir = ROOT / "build" / "train_ckpt_phase18"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        store = CheckpointStore(str(ckpt_dir), shard_rows=1 << 12)
+        model, start, parent = T.restore_or_init(cfg, store, seed=seed,
+                                                 device=DEVICE)
+        first = T.train(cfg, model, ds, vid, store=store, start=start,
+                        parent_vid=parent, ckpt_every=TRAIN_PREEMPT,
+                        preempt_after=TRAIN_PREEMPT, **common)
+        saved = {n: p.detach().clone() for n, p in model.named_parameters()}
+        del model, store                      # the trainer is gone
+        gc.collect()
+        torch.cuda.empty_cache()
+        disk_bytes = sum(f.stat().st_size for f in ckpt_dir.iterdir())
+        t0 = time.perf_counter()
+        store = CheckpointStore(str(ckpt_dir), shard_rows=1 << 12)
+        open_s = time.perf_counter() - t0
+        model, start, parent = T.restore_or_init(cfg, store, seed=seed,
+                                                 device=DEVICE)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        bitexact = all(torch.equal(p, saved[n])
+                       for n, p in model.named_parameters())
+        del saved, store
+        second = T.train(cfg, model, ds, vid, store=None, start=start,
+                         parent_vid=parent, **common)
+        launches = launch_counts()            # the window closes
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    train_checks(cfg, [whole], TRAIN_STEPS)
+    train_checks(cfg, [first, second], TRAIN_STEPS)
+    if (start, parent) != (TRAIN_PREEMPT, first["checkpoints"][0]["vid"]):
+        raise AssertionError(f"resumed at step {start} from v{parent}")
+    if not bitexact:
+        raise AssertionError("the restored parameters differ from the saved")
+    replay = [bool(np.array_equal(a, b)) for a, b in
+              zip(first["tokens"] + second["tokens"], whole["tokens"])]
+    if not all(replay):
+        raise AssertionError(f"the interrupted run's batches differ: {replay}")
+    rerun = [abs(a - b) / abs(b) for a, b in zip(first["losses"],
+                                                 whole["losses"])]
+    if max(rerun) > RERUN_LOSS_RTOL:
+        raise AssertionError(f"the interrupted run's first losses differ "
+                             f"from the uninterrupted run's: {rerun}")
+    n_steps = TRAIN_STEPS + TRAIN_PREEMPT + len(second["losses"])
+    want = n_steps * cfg.n_layers * (2 if cfg.remat else 1)
+    if (launches["flash_attention"] != want or launches["ssd_scan"]
+            or launches["gather_row_tiles"] < 3):
+        raise AssertionError(f"training launches {launches}, expected "
+                             f"{want} flash_attention (the forward and "
+                             f"remat's recompute of {n_steps} steps)")
+    profile = train_profile(torch, cfg, model, ds, vid, seed,
+                            "train_internlm2")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    bwd = flash_backward_timing(torch, seed)
+    ckpt = first["checkpoints"][0]
+    ms_step = 1e3 * float(np.mean(whole["step_s"][1:]))
+    report["train_dense"] = {
+        "arch": cfg.name, "params": n_params, "init_s": init_s,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat": cfg.remat,
+        "step0": check, "whole": {k: whole[k] for k in ("losses",
+                                                        "grad_norms",
+                                                        "step_s")},
+        "first": {k: first[k] for k in ("losses", "grad_norms", "step_s")},
+        "second": {k: second[k] for k in ("losses", "grad_norms", "step_s")},
+        "ms_per_step": ms_step, "rerun_loss_rel": rerun,
+        "save_s": ckpt["save_s"], "checkpoint_bytes": ckpt["bytes"],
+        "disk_bytes": disk_bytes, "open_s": open_s, "restore_s": restore_s,
+        "launches": launches, "profile": profile,
+        "peak_memory_bytes": peak, "flash_backward": bwd}
+    print(f"train (dense): {cfg.name} ({n_params:,} params, remat "
+          f"{cfg.remat}) made in {init_s:.1f} s; batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}; {TRAIN_STEPS} steps, losses "
+          f"{[round(x, 4) for x in whole['losses']]}, grad norms "
+          f"{[round(x, 3) for x in whole['grad_norms']]}; "
+          f"{ms_step:.1f} ms a step after the first "
+          f"({1e3 * whole['step_s'][0]:.1f} ms)")
+    print(f"interrupted run: {TRAIN_PREEMPT} steps, checkpoint "
+          f"v{ckpt['vid']} saved in {ckpt['save_s']:.1f} s "
+          f"({ckpt['bytes'] / 1e9:.2f} GB of float32, {disk_bytes / 1e9:.2f} "
+          f"GB on disk), trainer dropped, store reopened in {open_s:.1f} s, "
+          f"restored at step {start} in {restore_s:.1f} s (bit-exact "
+          f"{bitexact}), {len(second['losses'])} more steps: losses "
+          f"{[round(x, 4) for x in first['losses'] + second['losses']]}; "
+          f"batches replayed {replay}; first losses vs the uninterrupted "
+          f"run's rel {[f'{r:.1e}' for r in rerun]}")
+    print(f"training launches {launches}; peak device memory "
+          f"{peak / 1e9:.2f} GB")
+
+
+def phase_train_ssm(torch, np, seed: int, report: dict) -> None:
+    """Phase 19: Mamba2-780M training at full size, two microbatches a
+    step, through the same launcher."""
+    from repro_torch import configs
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch import train as T
+    from repro_torch.models import init_params
+    cfg = configs.get(TRAIN_SSM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    ds, vid = T.corpus(cfg, seq=TRAIN_SEQ, seed=seed, device=DEVICE)
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed),
+                        DEVICE, trainable=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    batch0 = next(ds.batches(vid=vid, global_batch=TRAIN_BATCH,
+                             seed=seed + 1, n_steps=1))
+
+    def plain_scan(xs, bmat, cmat, dt, a, chunk=256):
+        ss.check_operands(xs, bmat, cmat, dt, a, chunk)
+        return ss.ssd_scan_plain(xs, bmat, cmat, dt, a, chunk)
+
+    check = step0_check(torch, cfg, model, batch0,
+                        swap_plain(ss, "ssd_scan", plain_scan))
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_launch_counts()                      # the training path's window
+    run = T.train(cfg, model, ds, vid, store=None, start=0, parent_vid=None,
+                  batch=TRAIN_BATCH, seed=seed, steps=TRAIN_SSM_STEPS)
+    launches = launch_counts()                # the window closes
+    train_checks(cfg, [run], TRAIN_SSM_STEPS)
+    want = (TRAIN_SSM_STEPS * cfg.microbatches * cfg.n_layers
+            * (2 if cfg.remat else 1))
+    if launches["ssd_scan"] != want or launches["gather_row_tiles"] < 1 \
+            or launches["flash_attention"]:
+        raise AssertionError(f"training launches {launches}, expected "
+                             f"{want} ssd_scan")
+    profile = train_profile(torch, cfg, model, ds, vid, seed, "train_mamba2")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    report["train_ssm"] = {
+        "arch": cfg.name, "params": n_params, "init_s": init_s,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "microbatches": cfg.microbatches, "remat": cfg.remat,
+        "step0": check, "losses": run["losses"],
+        "grad_norms": run["grad_norms"], "step_s": run["step_s"],
+        "launches": launches, "profile": profile, "peak_memory_bytes": peak}
+    print(f"train (ssm): {cfg.name} ({n_params:,} params, "
+          f"{cfg.microbatches} microbatches of "
+          f"{TRAIN_BATCH // cfg.microbatches}, remat {cfg.remat}) made in "
+          f"{init_s:.1f} s; "
+          f"{TRAIN_SSM_STEPS} steps, losses "
+          f"{[round(x, 4) for x in run['losses']]}, grad norms "
+          f"{[round(x, 3) for x in run['grad_norms']]}, "
+          f"{[round(1e3 * x, 1) for x in run['step_s']]} ms; launches "
+          f"{launches}; peak device memory {peak / 1e9:.2f} GB")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3049,6 +3443,12 @@ def main(argv=None) -> int:
     model_t = phase_model_timing(torch, model_inputs, report)
     family_inputs = phase_families(torch, args.seed, report)
     phase_family_flash_timing(torch, family_inputs, report)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_dense(torch, np, args.seed, report)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_ssm(torch, np, args.seed, report)
     report["total_s"] = time.perf_counter() - t_all
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -3064,12 +3464,14 @@ def main(argv=None) -> int:
             **{k: seg[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "library_ms")},
             bound_by="bytes")
+    train = [report[k]["launches"] for k in ("train_dense", "train_ssm")]
     for name, path in (("gather_row_tiles", "dataset"),
                        ("gather_rows", "dataset"),
                        ("membership_scan", "analytics"),
                        ("version_aggregate", "analytics")):
         rows[name] = dict(
-            launches=report[path]["launches"][name],
+            launches=report[path]["launches"][name]
+            + sum(t.get(name, 0) for t in train),
             **{k: timed[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                            "bound_ms", "library_ms")},
             bound_by=timed[name].get("bound_by", "bytes"))
@@ -3077,7 +3479,8 @@ def main(argv=None) -> int:
     model_paths += list(report["dense_serve"].values())
     for name in ("flash_attention", "ssd_scan"):
         rows[name] = dict(
-            launches=sum(r["launches"]["prefill"][name] for r in model_paths),
+            launches=sum(r["launches"]["prefill"][name] for r in model_paths)
+            + sum(t[name] for t in train),
             **{k: model_t[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                              "bound_ms", "bound_by",
                                              "library_ms")})

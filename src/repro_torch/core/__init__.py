@@ -1,4 +1,5 @@
-"""OrpheusDB core on PyTorch: the CVD graph, LYRESPLIT partitioning, the
+"""OrpheusDB core on PyTorch: the five CVD storage models, the AGGLO/KMEANS
+baselines (``core.baselines``), the CVD graph, LYRESPLIT partitioning, the
 partitioned store and its batched checkout engine, the write-ahead journal
 and durable snapshots, and the versioned query layer."""
 from .bench_gen import Workload, generate
@@ -9,7 +10,8 @@ from .checkout import (DensityStats, Superblock, WaveResult,
                        checkout_wave, estimate_superblock_bytes,
                        evict_superblocks, get_density_stats, get_superblock,
                        plan_wave, take_superblock)
-from .datamodels import SplitByRlist
+from .datamodels import (ALL_MODELS, CombinedTable, DeltaBased, SplitByRlist,
+                         SplitByVlist, TablePerVersion)
 from .durability import (RestoredStore, StoreDurability, StoreSnapshot,
                          snapshot_roundtrip_equal)
 from .faults import (SITES as FAULT_SITES, FaultPlan, GuardedCounter,
@@ -31,7 +33,8 @@ __all__ = [
     "lyresplit", "lyresplit_for_budget", "SplitResult",
     "PartitionedCVD", "single_partition", "per_version_partitions",
     "store_from_arrays",
-    "SplitByRlist",
+    "ALL_MODELS", "CombinedTable", "DeltaBased", "SplitByRlist",
+    "SplitByVlist", "TablePerVersion",
     "FAULT_SITES", "FaultPlan", "GuardedCounter", "InjectedFault",
     "fault_point", "inflight_counter",
     "RestoredStore", "StoreDurability", "StoreSnapshot",

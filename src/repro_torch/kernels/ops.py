@@ -62,6 +62,16 @@ def _pad_axis(x: torch.Tensor, mult: int, axis: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros(shape)], dim=axis)
 
 
+def _lane_pad(data: torch.Tensor, block_d: int) -> torch.Tensor:
+    """``data`` with D padded to the lane tile ``min(block_d, max(128,
+    D))``, as the JAX package pads, and then to a whole number of 16-byte
+    words a row, which the CUDA gathers copy in (a D of 257 int32 becomes
+    260; the callers cut the output back to D)."""
+    d = data.shape[1]
+    padded = _pad_axis(data, min(block_d, max(128, d)), axis=1)
+    return _pad_axis(padded, max(1, 16 // data.element_size()), axis=1)
+
+
 def _validate_rlist(rids, *, sort: bool = True
                     ) -> tuple[np.ndarray, np.ndarray | None]:
     """Entry-point rlist validation for the tiled/batched checkout paths.
@@ -98,13 +108,12 @@ def checkout_gather(data, rids, *, block_d: int = _cg.DEFAULT_BD,
     """Materialize a version: the rows of ``data`` named by ``rids`` (any
     order), in ONE ``gather_rows`` launch on ``data``'s device (a numpy
     ``data`` is uploaded to ``device`` first).  D is padded to the lane
-    tile ``min(block_d, max(128, D))`` and cut back after the gather.
-    PlanError for a rid outside ``[0, R)``."""
+    tile ``min(block_d, max(128, D))`` and to 16-byte rows (``_lane_pad``)
+    and cut back after the gather.  PlanError for a rid outside
+    ``[0, R)``."""
     data = as_tensor(data, device)
     d = data.shape[1]
-    bd = min(block_d, max(128, d))
-    padded = _pad_axis(data, bd, axis=1).contiguous()
-    return _cg.gather_rows(padded, rids)[:, :d]
+    return _cg.gather_rows(_lane_pad(data, block_d).contiguous(), rids)[:, :d]
 
 
 def checkout_gather_tiled(data, rids, *, block_n: int = _cg.DEFAULT_BN,
@@ -128,8 +137,7 @@ def checkout_gather_tiled(data, rids, *, block_n: int = _cg.DEFAULT_BN,
         perm = unsorted_perm
     data = as_tensor(data, device)
     d = data.shape[1]
-    bd = min(block_d, max(128, d))
-    padded = _pad_axis(_pad_axis(data, bd, axis=1), block_n, axis=0)
+    padded = _pad_axis(_lane_pad(data, block_d), block_n, axis=0)
     out = _cg.gather_row_tiles(padded.contiguous(), tiles, block_n=block_n)
     return out[:, :d], perm, waste
 
@@ -281,9 +289,152 @@ def version_aggregate(bitmap, values, *, block_r: int = _va.DEFAULT_BR,
     return _va.version_aggregate(words, values, block_r=br)
 
 
-# forward only: the reference's blockwise flash backward is training
-flash_attention = _fa.flash_attention
-ssd_scan = _ss.ssd_scan
+# ------------------------------------------------------------------------
+# the differentiable model kernels: the hand-written kernel is the forward
+# on the card (the plain version on the CPU), as in the reference, whose
+# Pallas kernels are forward-only and whose backward passes are jnp
+# ------------------------------------------------------------------------
+LSE_BLOCK_K = 512       # key block of the streamed lse and the backward
+
+
+def _key_blocks(sk: int, block_k: int = LSE_BLOCK_K):
+    """(start, stop) of each key block: ``block_k`` keys a block, the last
+    one ragged (the reference halves the block until it divides Sk; the
+    two agree wherever Sk is at most 512 or a multiple of it)."""
+    return [(j, min(j + block_k, sk)) for j in range(0, sk, block_k)]
+
+
+def _block_logits(qg, k_c, kpos, qpos, causal: bool) -> torch.Tensor:
+    """Scaled logits of one key block in float32, (B, Sq, Hkv, G, BK),
+    masked to -1e30 above the diagonal when causal."""
+    dh = qg.shape[-1]
+    s_c = torch.einsum("bqhgd,bkhd->bqhgk", qg, k_c.float()) * dh ** -0.5
+    if causal:
+        mask = kpos[None, :] <= qpos[:, None]                    # (Sq, BK)
+        s_c = s_c.masked_fill(~mask[None, :, None, None, :], _fa.NEG_INF)
+    return s_c
+
+
+def _row_lse(q, k, causal: bool, block_k: int = LSE_BLOCK_K) -> torch.Tensor:
+    """logsumexp of the scaled (causal) logits rows, streamed over key
+    blocks with a running max: (B, Sq, H) float32.  The port of the
+    reference's ``_row_lse``; the logits are float32 products of the
+    float32 operands, as the kernel forms them (the reference rounds a
+    bf16 product to bf16 first)."""
+    b, sq, h, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, sq, hkv, h // hkv, dh)
+    qpos = torch.arange(sq, device=q.device)
+    m = torch.full((b, sq, hkv, h // hkv), _fa.NEG_INF, device=q.device)
+    l_run = torch.zeros_like(m)
+    for j0, j1 in _key_blocks(sk, block_k):
+        s_c = _block_logits(qg, k[:, j0:j1],
+                            torch.arange(j0, j1, device=q.device), qpos,
+                            causal)
+        m_new = torch.maximum(m, s_c.amax(dim=-1))
+        l_run = l_run * torch.exp(m - m_new) + \
+            torch.exp(s_c - m_new[..., None]).sum(dim=-1)
+        m = m_new
+    return (m + torch.log(l_run.clamp_min(1e-30))).reshape(b, sq, h)
+
+
+def _flash_bwd(q, k, v, o, do, causal: bool, block_k: int = LSE_BLOCK_K):
+    """The reference's ``_flash_bwd_rule``: for each key block, rebuild P
+    from (q, k, lse) and accumulate dq; dk and dv are that block's own.
+    float32 throughout; dq, dk, dv in the inputs' dtypes.  Live memory
+    O(Sq · BK)."""
+    b, sq, h, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = dh ** -0.5
+    qg = q.float().reshape(b, sq, hkv, g, dh)
+    dog = do.float().reshape(b, sq, hkv, g, dh)
+    lseg = _row_lse(q, k, causal, block_k).reshape(b, sq, hkv, g)
+    delta = (do.float() * o.float()).sum(dim=-1).reshape(b, sq, hkv, g)
+    qpos = torch.arange(sq, device=q.device)
+    dq = torch.zeros((b, sq, hkv, g, dh), device=q.device)
+    dk = torch.empty((b, sk, hkv, dh), device=q.device)
+    dv = torch.empty_like(dk)
+    for j0, j1 in _key_blocks(sk, block_k):
+        k_c, v_c = k[:, j0:j1].float(), v[:, j0:j1].float()
+        s_c = _block_logits(qg, k_c, torch.arange(j0, j1, device=q.device),
+                            qpos, causal)
+        p = torch.exp(s_c - lseg[..., None])             # (B,Sq,Hkv,G,BK)
+        dov = torch.einsum("bqhgd,bkhd->bqhgk", dog, v_c)
+        ds = p * (dov - delta[..., None]) * scale
+        dq += torch.einsum("bqhgk,bkhd->bqhgd", ds, k_c)
+        dk[:, j0:j1] = torch.einsum("bqhgk,bqhgd->bkhd", ds, qg)
+        dv[:, j0:j1] = torch.einsum("bqhgk,bqhgd->bkhd", p, dog)
+    return (dq.reshape(b, sq, h, dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: ``flash_attention``'s one launch (the CUDA kernel for a CUDA
+    tensor, the plain version for a CPU tensor), saving (q, k, v, o).
+    Backward: ``_flash_bwd`` in plain torch, with the row lse streamed from
+    (q, k) there (the reference's forward rule computes it; under remat the
+    forward runs twice a step and the lse is needed once)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o = _fa.flash_attention(q, k, v, causal)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, o)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        return (*_flash_bwd(q, k, v, o, do, ctx.causal), None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Differentiable flash attention, (B, Sq, H, Dh) on q's device: the
+    kernel's forward (``kernels.flash_attention``) and the reference's
+    blockwise backward.  The kernel stays the only forward on the card,
+    with gradients on or off."""
+    return _FlashAttention.apply(q, k, v, causal)
+
+
+class _SSDScan(torch.autograd.Function):
+    """Forward: ``ssd_scan``'s one launch, saving its inputs.  Backward:
+    the chunk recurrence recomputed through ``models.ssd.chunk_scan`` (the
+    reference's ``chunk_step``, the training math it runs under
+    ``jax.checkpoint``) and differentiated by ``torch.autograd.grad``."""
+
+    @staticmethod
+    def forward(ctx, xs, bmat, cmat, dt, a, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.chunk = chunk
+        ctx.save_for_backward(xs, bmat, cmat, dt, a)
+        return _ss.ssd_scan(xs, bmat, cmat, dt, a, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        from ..models.ssd import chunk_scan
+        need = ctx.needs_input_grad[:5]
+        inputs = [t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            y, state = chunk_scan(*inputs, ctx.chunk)
+        outs = [(t, g) for t, g in ((y, dy), (state, dstate))
+                if g is not None]
+        wrt = [t for t, n in zip(inputs, need) if n]
+        grads = iter(torch.autograd.grad([t for t, _ in outs],
+                                         wrt, [g for _, g in outs],
+                                         allow_unused=True))
+        return (*(next(grads) if n else None for n in need), None)
+
+
+def ssd_scan(xs, bmat, cmat, dt, a, chunk: int = 256):
+    """Differentiable SSD scan: (y (B, L, H, P) in xs's dtype, final state
+    (B, H, P, N) float32) on xs's device from ``kernels.ssd_scan``'s one
+    launch, and the chunk recurrence's backward."""
+    return _SSDScan.apply(xs, bmat, cmat, dt, a, chunk)
+
+
 build_bitmap = _vm.build_bitmap
 word_major = _vm.word_major
 plan_tiles = _cg.plan_tiles

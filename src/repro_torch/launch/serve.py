@@ -26,7 +26,6 @@ versions (the CPU tests).
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import math
 import sys
@@ -49,6 +48,7 @@ from ..serve.checkout import BatchedCheckoutServer
 from ..serve.serve_step import make_prefill_step, make_serve_step
 from ..sharding import make_ctx
 from .mesh import make_host_mesh
+from .train import reduced_config
 
 ROUNDINGS_PER_BLOCK = 6   # norm, projections, conv or probabilities, gate, out
 # an MoE block rounds where a dense one does outside its MLP (the dense
@@ -60,38 +60,6 @@ ROUNDINGS_SHARED_EXPERT = 1
 # a sub-layer multiplies two linear maps of its input (q·kᵀ, gate × in,
 # C·B), and d(ab)/ab = da/a + db/b: it passes a relative error on doubled
 SUBLAYER_GAIN = 2
-
-
-def reduced_config(cfg: ArchConfig) -> ArchConfig:
-    """Shrink an assigned arch to host scale, same family/topology (the
-    reference's ``launch.train.reduced_config``, its moe and mla branches
-    included)."""
-    kw = dict(n_layers=min(cfg.n_layers, 2), d_model=256, vocab=1024,
-              remat=False)
-    if cfg.n_heads:
-        kw.update(n_heads=4, n_kv=max(1, min(cfg.n_kv, 2)), head_dim=64)
-    if cfg.d_ff:
-        kw["d_ff"] = 512
-    if cfg.moe is not None:
-        kw["moe"] = dataclasses.replace(
-            cfg.moe, d_model=256, n_experts=8, top_k=2, d_ff_expert=128,
-            d_ff_shared=128 if cfg.moe.n_shared else 0)
-        kw["first_dense"] = min(cfg.first_dense, 1)
-    if cfg.mla is not None:
-        kw["mla"] = dataclasses.replace(cfg.mla, d_model=256, n_heads=4,
-                                        kv_lora=64, qk_nope=32, qk_rope=16,
-                                        v_head=32)
-    if cfg.ssd is not None:
-        kw["ssd"] = dataclasses.replace(cfg.ssd, d_model=256, d_state=16,
-                                        headdim=64, chunk=64)
-    if cfg.shared_every:
-        kw["n_layers"] = 4
-        kw["shared_every"] = 2
-    if cfg.n_enc_layers:
-        kw["n_enc_layers"] = 2
-    if cfg.n_patches:
-        kw["n_patches"] = 16
-    return dataclasses.replace(cfg, **kw)
 
 
 def depth(cfg: ArchConfig) -> int:

@@ -1,14 +1,16 @@
-"""Shared layers, forward only: dense, RMS norm, RoPE, GQA attention with a
-dense KV cache, SwiGLU.  The port of ``repro.models.layers``.
+"""Shared layers: dense, RMS norm, RoPE, GQA attention with a dense KV
+cache, SwiGLU.  The port of ``repro.models.layers``.
 
 Each layer is an ``nn.Module`` that holds its parameters under the
 reference's names and in its layout (``x @ w`` with ``w`` of shape
 ``(d_in, d_out)``), so a reference parameter tree loads without transposes
 (``models.convert``); the apply functions keep the reference's names and
 take the module where the reference takes its parameter dict.  Parameters
-are float32 and cast to ``COMPUTE_DTYPE`` at use, as in the reference, and
-hold no gradient: this slice serves (the training slice adds backward
-passes).
+are float32 and cast to ``COMPUTE_DTYPE`` at use, as in the reference.
+They are made without gradients (serving); ``model.requires_grad_(True)``
+or ``init_params(..., trainable=True)`` makes them trainable.  The RMS norm
+carries the reference's hand-written backward (``_RMSNorm``); everything
+else is differentiated by autograd.
 
 Self-attention with ``q_offset == 0`` and ``Sq == Sk`` (every prefill and
 full-sequence forward) runs the flash kernel (``kernels.ops
@@ -68,12 +70,36 @@ def dense(p: Dense, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+class _RMSNorm(torch.autograd.Function):
+    """The reference's custom VJP of ``rms_norm``: the forward saves
+    (scale, x, inv) with ``inv`` the float32 row statistic, and the
+    backward keeps every full-size tensor in the cotangent's dtype, the
+    row statistic ``mean(sdy · x)`` in float32, rounding where
+    ``_rms_norm_bwd`` rounds."""
+
+    @staticmethod
+    def forward(ctx, scale, x, eps):
+        var = x.float().square().mean(dim=-1, keepdim=True)
+        inv = torch.rsqrt(var + eps)                     # (..., 1) float32
+        ctx.save_for_backward(scale, x, inv)
+        return x * inv.to(x.dtype) * scale.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        scale, x, inv = ctx.saved_tensors
+        sdy = dy * scale.to(dy.dtype)
+        m = (sdy.float() * x.float()).sum(dim=-1, keepdim=True) / x.shape[-1]
+        dx = sdy * inv.to(dy.dtype) - x * (m * inv ** 3).to(dy.dtype)
+        dscale = (dy * x * inv.to(dy.dtype)).float().sum(
+            dim=tuple(range(dy.ndim - 1))).to(scale.dtype)
+        return dscale, dx, None
+
+
 def rms_norm(scale: torch.Tensor, x: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
-    """The variance in float32; the full-size tensors in x's dtype."""
-    var = x.float().square().mean(dim=-1, keepdim=True)
-    inv = torch.rsqrt(var + eps).to(x.dtype)
-    return x * inv * scale.to(x.dtype)
+    """The variance in float32; the full-size tensors in x's dtype, in the
+    forward and in the hand-written backward."""
+    return _RMSNorm.apply(scale, x, eps)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,

@@ -1,11 +1,14 @@
-"""Mamba2 SSD block (state-space duality), forward only: the port of
+"""Mamba2 SSD block (state-space duality): the port of
 ``repro.models.ssd``.
 
-Prefill path: the chunked SSD scan — intra-chunk quadratic term plus the
-inter-chunk state recurrence — is ONE ``kernels.ops.ssd_scan`` call (the
-reference runs it as a ``lax.scan`` over chunks; its TPU target runs it in
-the Pallas SSD kernel).  The D skip term, the ``silu(z)`` gate, the RMS
-norm and ``out_proj`` stay outside the kernel, as in the reference.
+Train and prefill path: the chunked SSD scan — intra-chunk quadratic term
+plus the inter-chunk state recurrence — is ONE ``kernels.ops.ssd_scan``
+call (the reference runs it as a ``lax.scan`` over chunks; its TPU target
+runs it in the Pallas SSD kernel).  Its backward recomputes the chunks
+through ``chunk_step``, the reference's training math, and differentiates
+that (the reference runs ``chunk_step`` under ``jax.checkpoint``).  The
+D skip term, the ``silu(z)`` gate, the RMS norm and ``out_proj`` stay
+outside the kernel, as in the reference.
 Decode path: the O(1) single-step state update in plain tensor code.
 
 Geometry: d_inner = 2*d_model, headdim P, nheads H = d_inner/P, state N,
@@ -95,8 +98,53 @@ def _causal_conv(p: SSD, xbc: torch.Tensor, cfg: SSDConfig,
     return F.silu(out), new_state
 
 
+def chunk_step(h_prev, xs_c, b_c, c_c, dt_c, a, out_dtype):
+    """One chunk of the reference's ``chunk_step``: the state entering the
+    chunk ``h_prev`` (B, H, P, N) float32 and the chunk's xs (B, Q, H, P),
+    B and C (B, Q, N), dt (B, Q, H) -> (the state it hands on, y (B, Q,
+    H, P) in ``out_dtype``), float32 inside.  The decay matrix's upper
+    triangle is masked in the exponent (``exp(-inf) = 0``), not after it,
+    so that its overflow cannot reach the gradient as 0 · inf."""
+    xs_c, b_c, c_c, dt_c = (t.float() for t in (xs_c, b_c, c_c, dt_c))
+    q = xs_c.shape[1]
+    mask = torch.ones((q, q), dtype=torch.bool, device=xs_c.device).tril()
+    cum = torch.cumsum(dt_c * a, dim=1)                          # (B,Q,H)
+    # intra-chunk (attention dual): L[i,j] = exp(cum_i - cum_j), i>=j
+    seg = (cum[:, :, None, :] - cum[:, None, :, :]).masked_fill(
+        ~mask[None, :, :, None], float("-inf"))
+    lmat = torch.exp(seg)
+    cb = torch.einsum("bin,bjn->bij", c_c, b_c)                  # (B,Q,Q)
+    att = cb[..., None] * lmat * dt_c[:, None, :, :]             # (B,Q,Q,H)
+    y_c = torch.einsum("bijh,bjhp->bihp", att, xs_c)
+    # inter-chunk: contribution of the state entering this chunk
+    y_c = y_c + torch.einsum("bin,bih,bhpn->bihp", c_c, torch.exp(cum),
+                             h_prev)
+    # state update: S_c = sum_j exp(cum_last - cum_j) dt_j B_j (x) x_j
+    decay_to_end = torch.exp(cum[:, -1:, :] - cum)               # (B,Q,H)
+    s_c = torch.einsum("bjh,bjn,bjhp->bhpn", decay_to_end * dt_c, b_c, xs_c)
+    h_new = h_prev * torch.exp(cum[:, -1])[..., None, None] + s_c
+    return h_new, y_c.to(out_dtype)
+
+
+def chunk_scan(xs, bmat, cmat, dt, a, chunk: int):
+    """``chunk_step`` over the chunks of ``min(chunk, L)`` from a zero
+    state: (y (B, L, H, P) in xs's dtype, the final state (B, H, P, N)
+    float32), differentiable by autograd.  ``kernels.ops.ssd_scan``'s
+    backward runs it; the forward is the kernel."""
+    b, l, h, pdim = xs.shape
+    q = min(chunk, l)
+    state = torch.zeros((b, h, pdim, bmat.shape[-1]), device=xs.device)
+    ys = []
+    for c0 in range(0, l, q):
+        sl = slice(c0, c0 + q)
+        state, y_c = chunk_step(state, xs[:, sl], bmat[:, sl], cmat[:, sl],
+                                dt[:, sl], a, xs.dtype)
+        ys.append(y_c)
+    return torch.cat(ys, dim=1), state
+
+
 def ssd_forward(p: SSD, x: torch.Tensor, cfg: SSDConfig):
-    """Prefill path.  x: (B, L, d_model), L a multiple of
+    """Train and prefill path.  x: (B, L, d_model), L a multiple of
     ``min(chunk, L)`` (pad upstream; PlanError otherwise).  Returns
     (y, final_state) — final_state (B, H, P, N) float32."""
     b, l, _ = x.shape

@@ -1,5 +1,5 @@
-"""Architecture assembly, forward only: the port of
-``repro.models.transformer`` for the families the port serves.
+"""Architecture assembly: the port of ``repro.models.transformer`` for the
+families the port serves and trains.
 
 Families:
   dense   — uniform [norm→attn→res, norm→swiglu→res] decoder stack
@@ -24,6 +24,13 @@ Python loops.  The decode cache is a dict of tensors in the reference's
 layout (leading layer axis); ``decode_step`` updates its tensors IN PLACE
 and returns the same tensors with the new length (the reference returns
 new arrays).  ``len`` is a Python int.
+
+Training: ``loss_fn`` is the reference's mean cross-entropy in float32 over
+the padded vocab; with ``cfg.remat`` each block of a differentiated forward
+runs under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``),
+so its activations are recomputed in the backward.  ``init_params(...,
+trainable=True)`` (or ``model.requires_grad_(True)``) makes the parameters
+trainable; serving keeps them frozen.
 """
 from __future__ import annotations
 
@@ -31,7 +38,9 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.ops import resolve_device
 from . import layers as L
@@ -189,14 +198,16 @@ class Model(nn.Module):
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                device=None) -> Model:
+                device=None, *, trainable: bool = False) -> Model:
     """Fresh weights from the reference's distributions (dense weights
     normal · d_in^-0.5, the embedding normal · d_model^-0.5, conv weights
     normal · 0.1, the experts' normal · d_in^-0.5, norms and D ones,
     biases, A_log and dt_bias zeros), drawn
     from ``generator`` on its own device and placed on ``device`` (the card
-    unless the caller names the CPU)."""
-    return Model(cfg, generator, resolve_device(device))
+    unless the caller names the CPU); with ``trainable`` the parameters
+    require gradients."""
+    return Model(cfg, generator, resolve_device(device)).requires_grad_(
+        trainable)
 
 
 def _embed(params: Model, tokens: torch.Tensor) -> torch.Tensor:
@@ -209,28 +220,53 @@ def _logits(params: Model, x: torch.Tensor) -> torch.Tensor:
     return x @ head.to(x.dtype)
 
 
+def _maybe_remat(apply, cfg: ArchConfig):
+    """``apply(p, x, cfg)``'s residual out, under ``torch.utils.checkpoint``
+    when ``cfg.remat`` and autograd is recording (the reference's
+    ``jax.checkpoint`` around each block); a plain call otherwise."""
+    def block(p, x):
+        if cfg.remat and torch.is_grad_enabled():
+            return checkpoint(lambda h: apply(p, h, cfg)[0], x,
+                              use_reentrant=False)
+        return apply(p, x, cfg)[0]
+    return block
+
+
 def forward(params: Model, batch: dict, cfg: ArchConfig,
             last_only: bool = False) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S, vocab_padded); with
     ``last_only`` the lm head runs on the final position only (serving
     prefill returns just the next-token distribution)."""
     check_supported(cfg)
+    attn = _maybe_remat(_attn_block_apply, cfg)
+    ssd = _maybe_remat(_ssd_block_apply, cfg)
     x = _embed(params, batch["tokens"])
     if cfg.family in ("dense", "moe"):
         for p in (*params.dense_layers, *params.layers):
-            x, _ = _attn_block_apply(p, x, cfg)
+            x = attn(p, x)
     elif cfg.family == "ssm":
         for p in params.layers:
-            x, _ = _ssd_block_apply(p, x, cfg)
+            x = ssd(p, x)
     else:                                               # hybrid
         g = cfg.shared_every
         for i, p in enumerate(params.layers):
-            x, _ = _ssd_block_apply(p, x, cfg)
+            x = ssd(p, x)
             if (i + 1) % g == 0:
-                x, _ = _attn_block_apply(params.shared_block, x, cfg)
+                x = attn(params.shared_block, x)
     if last_only:
         x = x[:, -1:, :]
     return _logits(params, x)
+
+
+def loss_fn(params: Model, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy over every position, in float32 over
+    the padded vocab: the reference's ``loss_fn`` (its ``vlm`` mask over
+    the patch positions waits for that family, ROADMAP A.11e)."""
+    logits = forward(params, batch, cfg)
+    labels = batch["labels"].to(logits.device).long()
+    lp = F.log_softmax(logits.float(), dim=-1)
+    ll = lp.gather(-1, labels[..., None])[..., 0]
+    return -ll.sum() / max(ll.numel(), 1)
 
 
 # ---------------------------------------------------------------- decode --

@@ -5,8 +5,11 @@ plain torch versions, and the wave engine, the server, the online write
 path (commit waves, a migration), the durable path (a journaled commit
 wave, a kill and ``restore(device="cuda")``), four threaded tenants, a
 ``VersionedDataset``, the bitmap analytics on a CUDA store against numpy,
-and a ``SMOKE``-size model forward through both model kernels.  This file imports neither jax nor the JAX package, so it runs on
-a machine with a GPU and no jax:
+a ``SMOKE``-size model forward through both model kernels, the
+differentiable flash and SSD Functions' gradients against autograd through
+their plain versions, and a ``SMOKE``-size train step on the card against
+the CPU's.  This file imports neither jax nor the JAX package, so it runs
+on a machine with a GPU and no jax:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -42,6 +45,8 @@ from repro_torch.core.version_graph import to_tree
 from repro_torch.data import VersionedDataset
 from repro_torch.launch.serve import prefill_bound
 from repro_torch.models import forward, init_params
+from repro_torch.models.ssd import chunk_scan
+from repro_torch.train import AdamW, make_train_step
 from repro_torch.serve import (BatchedCheckoutServer, MultiTenantServer,
                                RetryPolicy, TenantQuota)
 
@@ -653,6 +658,127 @@ def test_cuda_smoke_forward_runs_both_kernels(cuda_device, arch):
     assert torch.isfinite(got).all()
     rel = (got.float().cpu() - want.float()).norm() / want.float().norm()
     assert rel <= prefill_bound(cfg), rel
+
+
+def test_cuda_dataset_checks_out_rows_off_16_bytes(cuda_device):
+    """The train launcher's corpus: records of 257 int32 tokens (1,028
+    bytes, no whole number of 16-byte words), checked out tiled and
+    untiled on the card."""
+    w = generate("SCI", n_versions=6, inserts=40, n_branches=2, n_attrs=257,
+                 seed=1)
+    tree, _ = to_tree(w.graph, w.vgraph)
+    sr = lyresplit_for_budget(tree, gamma=2.0 * w.n_records)
+    ds = VersionedDataset.from_graph(w.graph, w.data, sr.best.assignment,
+                                     seq_len=256, device=cuda_device)
+    before = dict(cg.LAUNCHES)
+    for v in range(w.n_versions):
+        p = ds.store.partitions[ds.store.vid_to_pid[v]]
+        want = p.block[np.sort(p.local_rlist(v))]
+        for tiled in (True, False):
+            np.testing.assert_array_equal(ds.checkout(v, use_tiled=tiled),
+                                          want)
+    nonempty = sum(len(w.graph.rlist(v)) > 0 for v in range(w.n_versions))
+    assert cg.LAUNCHES["gather_row_tiles"] == \
+        before["gather_row_tiles"] + nonempty
+    assert cg.LAUNCHES["gather_rows"] == before["gather_rows"] + nonempty
+
+
+# gradient cases: InternLM2-1.8B's training shape (B 8, S 256, 16 / 8
+# heads of 128: the wgmma instance in bf16) and a ragged one (S 700, off
+# the kernel's tiles and the backward's 512-key blocks)
+GRAD_FLASH_CASES = [(8, 256, 16, 8, 128, True), (1, 700, 6, 2, 64, True),
+                    (2, 300, 4, 4, 64, False)]
+# the Function's forward is the kernel's, its backward plain float32; the
+# bf16 gradients differ from autograd through the plain version by the
+# kernel output's rounding (delta = do · o) and their own, 2^-9 each
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 * 2.0 ** -8}
+
+
+def _rel(a, b):
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).norm() / b.norm())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", GRAD_FLASH_CASES, ids=str)
+def test_cuda_flash_gradients_match_autograd_through_plain(cuda_device, case,
+                                                           dtype):
+    b, s, h, hkv, dh, causal = case
+    q, k, v = (_randn(shape, seed, dtype, cuda_device).requires_grad_(True)
+               for seed, shape in ((1, (b, s, h, dh)), (2, (b, s, hkv, dh)),
+                                   (3, (b, s, hkv, dh))))
+    do = _randn((b, s, h, dh), 4, dtype, cuda_device)
+    before = fa.LAUNCHES
+    got = torch.autograd.grad(ops.flash_attention(q, k, v, causal),
+                              (q, k, v), do)
+    assert fa.LAUNCHES == before + 1
+    want = torch.autograd.grad(fa.flash_attention_plain(q, k, v, causal),
+                               (q, k, v), do)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and torch.isfinite(g).all()
+        assert _rel(g, w) <= GRAD_TOL[dtype], (_rel(g, w), GRAD_TOL[dtype])
+
+
+# Mamba2-780M's training shape per microbatch (B 4, L 256, 48 heads of 64,
+# N 128, one chunk of 256) and a four-chunk case
+GRAD_SSD_CASES = [(4, 256, 48, 64, 128, 256), (2, 512, 4, 64, 64, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", GRAD_SSD_CASES, ids=str)
+def test_cuda_ssd_gradients_match_autograd_through_chunk_step(cuda_device,
+                                                              case, dtype):
+    b, l, h, p, n, chunk = case
+    args = [t.requires_grad_(True)
+            for t in _ssd_inputs(b, l, h, p, n, dtype, cuda_device)]
+    dy = _randn((b, l, h, p), 9, dtype, cuda_device)
+    before = ss.LAUNCHES
+    y, _ = ops.ssd_scan(*args, chunk=chunk)
+    got = torch.autograd.grad(y, args, dy)
+    assert ss.LAUNCHES == before + 1
+    y_want, _ = chunk_scan(*args, chunk)
+    want = torch.autograd.grad(y_want, args, dy)
+    torch.cuda.synchronize()
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(y.float(), y_want.float(), atol=tol, rtol=tol)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ["internlm2_1_8b", "mamba2_780m",
+                                  "zamba2_2_7b", "deepseek_v2_lite_16b"])
+def test_cuda_smoke_train_step_matches_cpu(cuda_device, arch):
+    """One ``make_train_step`` step of a SMOKE config with remat on, on the
+    card and on the CPU from the same weights and batch: the kernels launch
+    (twice a layer: the forward and remat's recompute), and the loss and
+    every updated parameter agree within the bf16 bounds the CPU tests
+    hold the reference to (``prefill_bound``, sqrt(2) times it per leaf)."""
+    import dataclasses
+    cfg = dataclasses.replace(configs.smoke(arch), remat=True)
+    gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (2, 65), generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        model = init_params(cfg, torch.Generator().manual_seed(0), dev,
+                            trainable=True)
+        opt = AdamW(lr=1e-3)
+        before = (fa.LAUNCHES, ss.LAUNCHES)
+        model, _, m = make_train_step(cfg, opt)(model, opt.init(model), batch)
+        out.append((float(m["loss"]), dict(model.named_parameters()),
+                    (fa.LAUNCHES - before[0], ss.LAUNCHES - before[1])))
+    n_attn = {"dense": cfg.n_layers, "ssm": 0, "moe": cfg.n_layers,
+              "hybrid": cfg.n_layers // max(cfg.shared_every, 1)}[cfg.family]
+    n_ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    assert out[0][2] == (2 * n_attn, 2 * n_ssd) and out[1][2] == (0, 0)
+    bound = prefill_bound(cfg)
+    assert abs(out[0][0] - out[1][0]) <= bound * abs(out[1][0])
+    for name, p in out[1][1].items():
+        assert _rel(out[0][1][name].cpu(), p) <= 2 ** 0.5 * bound, name
 
 
 def _durable_workload(seed):

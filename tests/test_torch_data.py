@@ -197,6 +197,28 @@ def test_checkout_gather_tiled_matches_reference_ops(r, d, n, block_n,
     np.testing.assert_array_equal(packed.numpy()[perm], data[rids])
 
 
+@pytest.mark.parametrize("d,dtype", [(3, torch.int32), (100, torch.int32),
+                                     (257, torch.int32), (513, torch.int32),
+                                     (257, torch.float16)])
+def test_lane_pad_gives_the_gathers_16_byte_rows(d, dtype):
+    """The CUDA gathers copy 16-byte words: the wrappers pad D to the lane
+    tile and then to whole words (the training corpus's 257-token rows
+    become 260), and cut the output back."""
+    data = torch.zeros((4, d), dtype=dtype)
+    padded = ops._lane_pad(data, 512)
+    bd = min(512, max(128, d))
+    lane = -(-d // bd) * bd                  # the JAX package's lane pad
+    words = 16 // data.element_size()
+    assert padded.shape[1] == -(-lane // words) * words
+    rng = np.random.default_rng(d)
+    rows = rng.integers(0, 1000, size=(40, d)).astype(np.int32)
+    rids = np.sort(rng.choice(40, size=17, replace=False))
+    packed, perm, _ = ops.checkout_gather_tiled(rows, rids, device="cpu")
+    np.testing.assert_array_equal(packed.numpy()[perm], rows[rids])
+    np.testing.assert_array_equal(
+        ops.checkout_gather(rows, rids, device="cpu").numpy(), rows[rids])
+
+
 def test_empty_rlist_gathers_nothing_where_the_reference_raises():
     """A version with no records: the reference's gathers raise (a Pallas
     grid of 0 steps, TypeError), the port's return an empty block and
