@@ -155,15 +155,51 @@ Phases, each of which raises on failure:
     d_model 1536, N 128, P 64, chunk 256, 2 microbatches; 0.78 B
     parameters), the same traffic, step 0 against the plain ``ssd_scan``
     on the card, 2 steps (96 ``ssd_scan`` launches a microbatch), a
-    profiled step.
+    profiled step;
+20. encoder-decoder serve (after phase 17's timings, the serve models
+    freed; before phase 18) — Seamless-M4T-medium as its config gives it
+    (12 + 12 layers, d_model 1024, 16 heads of 64, d_ff 4096, vocab
+    256,206 tied; 0.72 B seeded parameters), driven through the serving
+    steps (the serve driver refuses an encoder-decoder, as the
+    reference's does): 4 prompts of 512 tokens from the CUR prompt store
+    (``checkout_wave``), 544 seeded bf16 frame embeddings a request (the
+    stub frontend), the decode cache's encoder K/V filled from the
+    prefill's own encoder code (``fill_cross_cache``), the prompts fed
+    token by token, 32 greedy tokens, one ``make_prefill_step``: 48
+    ``flash_attention`` launches (12 in the cache's encoder pass, 36 in
+    the prefill: the encoder's non-causal self-attention, the decoder's
+    causal self-attention and its cross-attention, 512 queries against
+    544 frames); the prefill within ``prefill_bound`` of the token path's
+    and of the same prefill through flash's plain version; cache 543 of
+    544;
+21. vision-language serve — LLaVA-NeXT-34B at full width (d_model 7168,
+    56 / 8 heads of 128, d_ff 20,480, vocab 64,000 untied) cut to
+    ``LLAVA_DEPTH`` = 4 of 60 layers (60 are 138 GB of float32), through
+    ``phase_family_serve``: 4 prompts of 1,024 tokens (the first 576 the
+    anyres base tile's patch slots; serve's prefill passes the prompts'
+    own token embeddings there), 8 greedy tokens, 4 flash launches (GQA,
+    7 query heads a kv head: wgmma); then a prefill with seeded random
+    patch embeddings and ``loss_fn`` (its patch mask) on it, each through
+    the kernel against flash's plain version, within ``prefill_bound``;
+22. the paged KV cache — the reference's default ``PagedConfig`` at
+    phase 21's geometry (4 layers, 8 kv heads of 128, bf16: a 268 MB pool
+    on the card), batch 8: the 4 served requests' K/V appended token by
+    token from phase 21's dense cache, every gather bit-identical to the
+    dense rows; request 0 forked into slots 4-7 and 8 seeded tokens
+    appended to each (one copied tail page a fork); three requests
+    released and their pages reused; every state leaf equal to a CPU run
+    of the same operations; appends and gathers timed on the host clock.
+    Then ``flash_attention`` timed at the first inputs of each kind of
+    phases 20-21.
 
 Phases 3, 5, 6, 8, 11, 12, 14 (twice: from the tenants to the kill, and
-from the restore to the end), 15-17 (once a config), 18 (the uninterrupted
-and the interrupted run) and 19 (its two steps) each set every kernel's
-launch count to 0 just before they drive their path and read the counts
-just after; launches made to compare or time a kernel fall outside those
-windows.  The kernels line's ``flash_attention`` launches are the sum
-over the model paths (phases 11 and 15-18), ``ssd_scan``'s over phases 11
+from the restore to the end), 15-17 and 21 (once a config), 18 (the
+uninterrupted and the interrupted run), 19 (its two steps) and 20 (from
+the prompt store to the prefill) each set every kernel's launch count to
+0 just before they drive their path and read the counts just after;
+launches made to compare or time a kernel fall outside those windows.
+The kernels line's ``flash_attention`` launches are the sum over the
+model paths (phases 11, 15-18, 20 and 21), ``ssd_scan``'s over phases 11
 and 19, and ``gather_row_tiles``'s over phases 5, 18 and 19.
 TF32 is off (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` False): the float32 plain versions
@@ -182,6 +218,7 @@ import dataclasses
 import functools
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -241,6 +278,14 @@ DENSE_ARCHS = ("qwen15_4b", "mistral_nemo_12b", "phi3_medium_14b")
 DENSE_DEPTH = 2      # phase 17: full width and vocab, 2 of 40 layers,
 DENSE_PROMPT = 128   # 4 prompts of 128 tokens, 8 greedy tokens
 DENSE_DECODE = 8
+ENCDEC_ARCH = "seamless_m4t_medium"   # phase 20: the encoder-decoder whole
+# its stub frontend's frames: as many as the decode cache has slots (the
+# decode attends to every slot of enc_k/enc_v)
+ENCDEC_FRAMES = SERVE_PROMPT + SERVE_DECODE
+VLM_ARCH = "llava_next_34b"      # phase 21: full width, LLAVA_DEPTH of 60
+LLAVA_DEPTH = 4                  # layers (60 whole: 138 GB of float32)
+VLM_PROMPT = 1024                # 4 prompts of 1,024 tokens, the first 576
+VLM_DECODE = 8                   # the anyres base tile's patch slots
 TRAIN_ARCH = "internlm2_1_8b"    # phase 18: dense training at full size
 TRAIN_SSM_ARCH = "mamba2_780m"   # phase 19: SSM training at full size
 TRAIN_BATCH = 8                  # the train launcher's traffic: batches of
@@ -2352,7 +2397,7 @@ def flash_timing(torch, q, k, v, causal: bool) -> dict:
     rel_l2 = float((got.float() - exact).norm() / exact.norm())
     del got, exact
     b, s, h, dh = q.shape
-    hkv = k.shape[2]
+    sk, hkv = k.shape[1], k.shape[2]
     esz = q.element_size()
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
@@ -2363,11 +2408,14 @@ def flash_timing(torch, q, k, v, causal: bool) -> dict:
     lib_err = float((sdpa().transpose(1, 2).float()
                      - fa.flash_attention_plain(q, k, v, causal).float()
                      ).abs().max())
-    pairs = s * (s + 1) // 2 if causal else s * s
+    # a causal mask aligns the first query with the first key: query i
+    # keeps min(i + 1, Sk) keys
+    pairs = (sum(min(i + 1, sk) for i in range(s)) if causal else s * sk)
     return {
-        "shape": [b, s, h, hkv, dh], "causal": causal, "dtype": str(q.dtype),
+        "shape": [b, s, h, hkv, dh] if s == sk else [b, s, sk, h, hkv, dh],
+        "causal": causal, "dtype": str(q.dtype),
         "instance": fa.instance(q, k, v),
-        "bytes_min": (2 * b * s * h * dh + 2 * b * s * hkv * dh) * esz,
+        "bytes_min": (2 * b * s * h * dh + 2 * b * sk * hkv * dh) * esz,
         "operations": 4 * b * h * dh * pairs,
         "design_operations": 6 * b * h * dh * pairs,
         "max_abs_err": err, "library_max_abs_err": lib_err,
@@ -2530,20 +2578,19 @@ def phase_model_profile(torch, model, seed: int, report: dict) -> None:
     report["model_profile"] = out
 
 
-def capture_first_flash(torch, captured: dict, key: str):
-    """A stand-in for ``flash_attention``'s counted launch that keeps a copy
-    of its first call's inputs under ``captured[key]`` and launches (and
-    counts) as the real one does; returns the real one, to put back."""
-    from repro_torch.kernels import flash_attention as fa
-    real = fa._launch
-
-    def launch(*args):
-        if key not in captured:
-            captured[key] = [x.clone() if isinstance(x, torch.Tensor) else x
-                             for x in args]
-        return real(*args)
-    fa._launch = launch
-    return real
+def fill_cross_cache(model, cfg, cache: dict, enc_embeds) -> None:
+    """An encoder-decoder's decode cache filled for the token path from the
+    prefill's own encoder code: ``transformer._encode`` over the frames,
+    then each decoder block's ``cross_kv_init`` of its output written into
+    ``enc_k``/``enc_v`` (the first S_enc slots)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    enc = T._encode(model, enc_embeds, cfg)
+    n = enc.shape[1]
+    for i, p in enumerate(model.layers):
+        k, v = L.cross_kv_init(p.xattn, enc, cfg.attn_cfg(causal=False))
+        cache["enc_k"][i, :, :n] = k
+        cache["enc_v"][i, :, :n] = v
 
 
 def recording_route(real_route, log: list):
@@ -2636,7 +2683,8 @@ def capacity_oracle_ffn(p, x, cfg):
 
 def phase_family_serve(torch, cfg, *, prompt_len: int, decode: int,
                        seed: int, instance: str, report: dict, key: str,
-                       captured: dict, profile: bool = False) -> None:
+                       captured: dict, profile: bool = False,
+                       extra=None) -> None:
     """One config through ``repro_torch.launch.serve`` on the card, as
     phase 11 drives Zamba2: seeded weights from ``init_params``, 4 prompts
     of ``prompt_len`` tokens from the CUR prompt store (``checkout_wave``),
@@ -2652,7 +2700,8 @@ def phase_family_serve(torch, cfg, *, prompt_len: int, decode: int,
     ``full_capacity_check`` must pass.  Prints the routed slots the MoE
     dispatch dropped, per prefill layer.  The first prefill attention's
     inputs go to ``captured[key]``; with ``profile``, ``phase_moe_profile``
-    runs on the model before it is freed."""
+    runs on the model before it is freed, and so does ``extra(model, cfg,
+    run)`` where one is given."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import serve as driver
     from repro_torch.models import init_params
@@ -2663,7 +2712,8 @@ def phase_family_serve(torch, cfg, *, prompt_len: int, decode: int,
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    real = capture_first_flash(torch, captured, key)
+    kinds: dict = {}
+    real = capture_flash_kinds(torch, kinds)
     real_route, routes = MOE._route, []
     MOE._route = recording_route(real_route, routes)   # every path's choices
     try:
@@ -2677,6 +2727,8 @@ def phase_family_serve(torch, cfg, *, prompt_len: int, decode: int,
         launches = launch_counts()            # the window closes
     finally:
         fa._launch, MOE._route = real, real_route
+    captured[key] = next(iter(kinds.values()))      # the first call's
+    del kinds
     res, check, cache = run["result"], run["check"], run["cache"]
     want = {"flash_attention": cfg.n_layers, "ssd_scan": 0}
     if (run["launches"]["prefill"] != want
@@ -2754,6 +2806,8 @@ def phase_family_serve(torch, cfg, *, prompt_len: int, decode: int,
                  if "oracle_drops" in c else ""))
     if profile:
         phase_moe_profile(torch, model, cfg, prompt_len, seed, report)
+    if extra is not None:
+        extra(model, cfg, run)
     del model, run, cache
     gc.collect()
     torch.cuda.empty_cache()
@@ -3019,6 +3073,403 @@ def phase_family_flash_timing(torch, captured: dict, report: dict) -> None:
     report["family_flash_timing"] = out
 
 
+def capture_flash_kinds(torch, captured: dict):
+    """A stand-in for ``flash_attention``'s counted launch that keeps a copy
+    of the first call's inputs of each kind, ``captured[(Sq, Sk,
+    causal)]``, and launches (and counts) as the real one does; returns the
+    real one, to put back."""
+    from repro_torch.kernels import flash_attention as fa
+    real = fa._launch
+
+    def launch(q, k, v, causal):
+        kind = (q.shape[1], k.shape[1], bool(causal))
+        if kind not in captured:
+            captured[kind] = [q.clone(), k.clone(), v.clone(), causal]
+        return real(q, k, v, causal)
+    fa._launch = launch
+    return real
+
+
+def plain_flash(torch):
+    """A context in which ``ops.flash_attention`` runs flash's plain
+    version on the card (the comparison's plain path)."""
+    from repro_torch.kernels import flash_attention as fa
+    return swap_plain(fa, "flash_attention",
+                      lambda q, k, v, causal=True: fa.flash_attention_plain(
+                          q, k, v, causal))
+
+
+def phase_encdec_serve(torch, seed: int, report: dict) -> dict:
+    """Phase 20: Seamless-M4T-medium as its config gives it (12 encoder and
+    12 decoder layers, d_model 1024, 16 heads of 64, d_ff 4096, vocab
+    256,206 tied; weights from a seeded generator).  The serve driver
+    refuses an encoder-decoder (as the reference's does), so the phase
+    drives the serving steps itself with the serve driver's traffic: 4
+    prompts of 512 tokens from the CUR prompt store (``checkout_wave``),
+    544 seeded bf16 frame embeddings a request as the encoder memory (the
+    stub frontend), the decode cache's ``enc_k``/``enc_v`` filled from the
+    prefill's own encoder code (``fill_cross_cache``), the prompts fed token
+    by token through ``make_serve_step``, 32 greedy tokens, then one
+    ``make_prefill_step`` on the prompts and frames.  Checks, in one launch
+    window: 48 ``flash_attention`` launches (12 in the cache's encoder
+    pass; 36 in the prefill: 12 non-causal encoder self-attentions, 12
+    causal decoder self-attentions, 12 cross-attentions of 512 queries
+    against 544 frames), ``checkout_wave`` and no other kernel; the
+    prefill's next-token logits within ``prefill_bound`` of the token
+    path's (serve's check), and within it of the same prefill through
+    flash's plain version on the card; finite logits, tokens in range, the
+    cache 543 of 544.  Returns the first inputs of each flash kind."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve as driver
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.serve.serve_step import (make_prefill_step,
+                                              make_serve_step)
+    cfg = configs.get(ENCDEC_ARCH)
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed),
+                        DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    frames = torch.randn((SERVE_REQUESTS, ENCDEC_FRAMES, cfg.d_model),
+                         generator=torch.Generator(device=DEVICE).manual_seed(
+                             seed + 5), device=DEVICE).to(torch.bfloat16)
+    max_len = SERVE_PROMPT + SERVE_DECODE
+    step = make_serve_step(cfg, device=DEVICE)
+    prefill = make_prefill_step(cfg, device=DEVICE)
+    captured: dict = {}
+    real = capture_flash_kinds(torch, captured)
+    try:
+        zero_launch_counts()                  # the encoder-decoder's window
+        rows = driver.prompt_store(cfg.vocab, requests=SERVE_REQUESTS,
+                                   prompt_len=SERVE_PROMPT, seed=seed,
+                                   device=DEVICE, log=lambda *_: None)
+        prompts = torch.from_numpy(rows).to(DEVICE)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            cache = init_cache(cfg, SERVE_REQUESTS, max_len, device=DEVICE)
+            fill_cross_cache(model, cfg, cache, frames)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for i in range(SERVE_PROMPT):
+            logits, cache = step(model, {"tokens": prompts[:, i:i + 1],
+                                         "cache": cache})
+        torch.cuda.synchronize()
+        fill_s = time.perf_counter() - t0
+        fill_logits = logits[:, -1].float()
+        tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        out = [tok]
+        t0 = time.perf_counter()
+        for _ in range(SERVE_DECODE - 1):
+            logits, cache = step(model, {"tokens": tok, "cache": cache})
+            tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+            out.append(tok)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        after_fill = launch_counts()
+        batch = {"tokens": prompts, "enc_embeds": frames}
+        t0 = time.perf_counter()
+        pre = prefill(model, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        launches = launch_counts()            # the window closes
+    finally:
+        fa._launch = real
+    pre = pre[:, -1, :cfg.vocab].float()
+    bound = driver.prefill_bound(cfg)
+    check = driver.prefill_check(pre, fill_logits, bound)
+    with plain_flash(torch):
+        plain = prefill(model, batch)[:, -1, :cfg.vocab].float()
+    plain_check = driver.prefill_check(pre, plain, bound)
+    want = cfg.n_enc_layers + (cfg.n_enc_layers + 2 * cfg.n_layers)
+    if (launches["flash_attention"] != want
+            or after_fill["flash_attention"] != cfg.n_enc_layers
+            or launches["checkout_wave"] <= 0
+            or any(n for k, n in launches.items()
+                   if k not in ("flash_attention", "checkout_wave"))):
+        raise AssertionError(f"{cfg.name}: launches {launches} (after the "
+                             f"cache's encoder pass and the fill "
+                             f"{after_fill}), expected {want} flash, "
+                             f"{cfg.n_enc_layers} before the prefill")
+    kinds = {(ENCDEC_FRAMES, ENCDEC_FRAMES, False),
+             (SERVE_PROMPT, SERVE_PROMPT, True),
+             (SERVE_PROMPT, ENCDEC_FRAMES, False)}
+    if set(captured) != kinds:
+        raise AssertionError(f"{cfg.name}: flash ran {sorted(captured)}, "
+                             f"expected {sorted(kinds)}")
+    tokens = torch.cat(out, dim=1).cpu().numpy()
+    if not (torch.isfinite(fill_logits).all() and torch.isfinite(pre).all()
+            and tokens.shape == (SERVE_REQUESTS, SERVE_DECODE)
+            and 0 <= tokens.min() and tokens.max() < cfg.vocab
+            and cache["len"] == max_len - 1
+            and cache["enc_k"].shape[2] == max_len):
+        raise AssertionError(f"{cfg.name}: non-finite logits, tokens out of "
+                             f"range or cache {cache['len']} of "
+                             f"{cache['enc_k'].shape[2]}")
+    instances = {str(kind): fa.instance(*args[:3])
+                 for kind, args in captured.items()}
+    report["encdec_serve"] = {
+        "arch": cfg.name, "params": n_params, "init_s": init_s,
+        "frames": ENCDEC_FRAMES, "encoder_cache_s": enc_s, "fill_s": fill_s,
+        "decode_s": decode_s,
+        "ms_per_decode_step": 1e3 * decode_s / max(SERVE_DECODE - 1, 1),
+        "prefill_s": prefill_s, "launches": {"window": launches,
+                                             "encoder_and_fill": after_fill},
+        "flash_instances": instances, "check": check,
+        "plain_check": plain_check, "cache_len": cache["len"],
+        "sample": tokens[0, :8].tolist()}
+    print(f"encdec_serve: {cfg.name} ({n_params:,} params, "
+          f"{cfg.n_enc_layers} + {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}) made in {init_s:.1f} s; {SERVE_REQUESTS} x "
+          f"{ENCDEC_FRAMES} frames, the cache's encoder K/V in {enc_s:.3f} s; "
+          f"{SERVE_REQUESTS} x {SERVE_PROMPT} prompt tokens filled token by "
+          f"token in {fill_s:.2f} s, {SERVE_DECODE} greedy tokens in "
+          f"{decode_s:.2f} s ({report['encdec_serve']['ms_per_decode_step']:.2f}"
+          f" ms a step); make_prefill_step {prefill_s:.3f} s; launches "
+          f"{launches} ({after_fill['flash_attention']} before the prefill);"
+          f" flash instances {instances}; cache {cache['len']} of {max_len}")
+    print(f"encdec_serve prefill vs token-by-token at position "
+          f"{SERVE_PROMPT - 1}: rel L2 {[round(r, 5) for r in check['rel_l2']]}"
+          f" (bound {bound:.4f}), argmax agree {check['argmax_agree']}; vs "
+          f"the plain flash prefill: rel L2 "
+          f"{[round(r, 5) for r in plain_check['rel_l2']]}")
+    del model, cache, frames, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not check["ok"]:
+        raise AssertionError(f"{cfg.name}: prefill vs token-by-token: {check}")
+    if not plain_check["ok"]:
+        raise AssertionError(f"{cfg.name}: prefill through the kernel vs "
+                             f"plain: {plain_check}")
+    return captured
+
+
+def vlm_checks(torch, seed: int, report: dict, kept: dict):
+    """Phase 21's checks beyond serve's, on the served model before it is
+    freed (``phase_family_serve``'s ``extra``): a prefill of the served
+    prompts with seeded random bf16 ``patch_embeds`` through the kernel
+    against the same prefill through flash's plain version, and
+    ``loss_fn`` (its patch mask) on that batch, kernel against plain, both
+    within ``prefill_bound``; keeps the dense cache's K/V in ``kept`` for
+    phase 22."""
+    from repro_torch.launch import serve as driver
+    from repro_torch.models import loss_fn
+    from repro_torch.serve.serve_step import make_prefill_step
+
+    def extra(model, cfg, run):
+        prompts = torch.from_numpy(run["prompts"]).to(DEVICE)
+        patches = torch.randn(
+            (SERVE_REQUESTS, cfg.n_patches, cfg.d_model),
+            generator=torch.Generator(device=DEVICE).manual_seed(seed + 6),
+            device=DEVICE).to(torch.bfloat16)
+        batch = {"tokens": prompts, "patch_embeds": patches,
+                 "labels": torch.roll(prompts, -1, dims=1)}
+        prefill = make_prefill_step(cfg, device=DEVICE)
+        bound = driver.prefill_bound(cfg)
+        got = prefill(model, batch)[:, -1, :cfg.vocab].float()
+        with torch.inference_mode():
+            loss = float(loss_fn(model, batch, cfg))
+        with plain_flash(torch):
+            want = prefill(model, batch)[:, -1, :cfg.vocab].float()
+            with torch.inference_mode():
+                loss_plain = float(loss_fn(model, batch, cfg))
+        check = driver.prefill_check(got, want, bound)
+        loss_rel = abs(loss - loss_plain) / abs(loss_plain)
+        cache = run["cache"]
+        kept.update(k=cache["k"], v=cache["v"], len=cache["len"])
+        report["vlm_checks"] = {"patch_prefill": check, "loss": loss,
+                                "loss_plain": loss_plain,
+                                "loss_rel": loss_rel, "bound": bound}
+        print(f"vlm_serve with random patch embeddings: prefill through the "
+              f"kernel vs plain rel L2 {[round(r, 5) for r in check['rel_l2']]}"
+              f" (bound {bound:.4f}); loss_fn (patch positions masked) "
+              f"{loss:.6f} vs {loss_plain:.6f} plain (rel {loss_rel:.2e})")
+        if not (check["ok"] and loss_rel <= bound
+                and math.isfinite(loss)):
+            raise AssertionError(f"{cfg.name}: random patches, kernel vs "
+                                 f"plain: {report['vlm_checks']}")
+    return extra
+
+
+def phase_paged_cache(torch, kept: dict, report: dict) -> None:
+    """Phase 22: the paged KV cache (``repro_torch.serve.kvcache``) at the
+    reference's default ``PagedConfig`` (pages of 64 tokens, 256 pages,
+    64 a request) and phase 21's geometry (4 layers, 8 kv heads of 128,
+    bf16: a 268 MB pool), batch 8, on the card.  The 4 served requests'
+    K/V are appended token by token from phase 21's dense cache; each
+    request's gathered history at every layer must equal the dense rows
+    bit for bit under its mask.  Request 0 is forked into slots 4-7, and
+    8 seeded tokens appended to each: copy-on-write must copy exactly the
+    shared tail page (one fresh page a fork, the rest of each table still
+    request 0's), the forks' prefix must equal request 0's and their tails
+    the appended tokens.  Requests 1-3 are released and request 1 takes
+    new tokens: its pages must be freed ones, the watermark unchanged.
+    Every state leaf and ``pool_stats`` must equal a CPU run of the same
+    operations.  Appends and gathers are timed on the host clock."""
+    from repro_torch.serve import kvcache as kv
+    cfg = kv.PagedConfig(n_layers=LLAVA_DEPTH, n_kv=kept["k"].shape[3],
+                         head_dim=kept["k"].shape[4])
+    n_req, n_tok = kept["k"].shape[1], int(kept["len"])
+    if n_tok % cfg.page == 0:
+        raise AssertionError(f"paged cache: {n_tok} tokens fill their last "
+                             f"page; the forks would share no tail page")
+    ops: list = []                    # (name, args) for the CPU replay
+
+    def run(state, name, *args):
+        getattr(kv, name)(cfg, state, *args)
+        ops.append((name, args))
+
+    state = kv.init_pool(cfg, 2 * n_req, device=DEVICE)
+    pool_bytes = 2 * state["k"].numel() * state["k"].element_size()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in range(n_req):
+        for t in range(n_tok):
+            run(state, "append", (kept["k"][:, r, t], kept["v"][:, r, t]), r)
+    torch.cuda.synchronize()
+    append_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for r in range(n_req):
+        for layer in range(cfg.n_layers):
+            k, v, mask = kv.gather_kv(cfg, state, r, layer)
+            if not (int(mask.sum()) == n_tok
+                    and torch.equal(k[:n_tok], kept["k"][layer, r, :n_tok])
+                    and torch.equal(v[:n_tok], kept["v"][layer, r, :n_tok])):
+                raise AssertionError(f"paged cache: request {r} layer "
+                                     f"{layer} != the dense cache")
+    torch.cuda.synchronize()
+    gather_s = time.perf_counter() - t0
+    served = kv.pool_stats(state)
+    for dst in range(n_req, 2 * n_req):
+        run(state, "fork", 0, dst)
+    forked = kv.pool_stats(state)
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    tails = torch.randn((n_req, VLM_DECODE, 2, cfg.n_layers, cfg.n_kv,
+                         cfg.head_dim), generator=gen,
+                        device=DEVICE).to(torch.bfloat16)
+    for i, dst in enumerate(range(n_req, 2 * n_req)):
+        for t in range(VLM_DECODE):
+            run(state, "append", (tails[i, t, 0], tails[i, t, 1]), dst)
+    diverged = kv.pool_stats(state)
+    last = (n_tok - 1) // cfg.page
+    table = state["table"].to("cpu", copy=True)
+    for i, dst in enumerate(range(n_req, 2 * n_req)):
+        same = torch.equal(table[dst, :last], table[0, :last])
+        if not same or table[dst, last] == table[0, last]:
+            raise AssertionError(f"paged cache: fork {dst}'s table "
+                                 f"{table[dst, :last + 1].tolist()} vs "
+                                 f"{table[0, :last + 1].tolist()}")
+        for layer in range(cfg.n_layers):
+            k0 = kv.gather_kv(cfg, state, 0, layer)[0]
+            k, v, mask = kv.gather_kv(cfg, state, dst, layer)
+            if not (int(mask.sum()) == n_tok + VLM_DECODE
+                    and torch.equal(k[:n_tok], k0[:n_tok])
+                    and torch.equal(k[n_tok:n_tok + VLM_DECODE],
+                                    tails[i, :, 0, layer])
+                    and torch.equal(v[n_tok:n_tok + VLM_DECODE],
+                                    tails[i, :, 1, layer])):
+                raise AssertionError(f"paged cache: fork {dst} layer {layer}")
+    pages = last + 1
+    grown = n_req * pages + n_req         # one copied tail page a fork
+    if not (served == {"pages_in_use": n_req * pages,
+                       "watermark": n_req * pages, "shared_pages": 0}
+            and forked == dict(served, shared_pages=pages)
+            and diverged == {"pages_in_use": grown, "watermark": grown,
+                             "shared_pages": pages - 1}):
+        raise AssertionError(f"paged cache: pool {served} -> fork {forked} "
+                             f"-> copy-on-write {diverged}")
+    for r in range(1, n_req):
+        run(state, "release", r)
+    freed = set(table[1:n_req, :pages].flatten().tolist())
+    for t in range(2 * cfg.page + 5):
+        run(state, "append", (kept["k"][:, 0, t], kept["v"][:, 0, t]), 1)
+    reused = state["table"][1, :3].tolist()
+    final = kv.pool_stats(state)
+    if not (set(reused) <= freed
+            and final["watermark"] == diverged["watermark"]):
+        raise AssertionError(f"paged cache: after release, request 1 took "
+                             f"pages {reused}, watermark "
+                             f"{diverged['watermark']} -> "
+                             f"{final['watermark']}")
+    cpu = kv.init_pool(cfg, 2 * n_req, device="cpu")
+    t0 = time.perf_counter()
+    for name, args in ops:
+        if name == "append":
+            args = (tuple(x.cpu() for x in args[0]), args[1])
+        getattr(kv, name)(cfg, cpu, *args)
+    replay_s = time.perf_counter() - t0
+    differ = [n for n in state if not torch.equal(state[n].cpu(), cpu[n])]
+    if differ or kv.pool_stats(cpu) != final:
+        raise AssertionError(f"paged cache: the card's state differs from "
+                             f"the CPU run's in {differ}")
+    n_appends = sum(name == "append" for name, _ in ops)
+    report["paged_cache"] = {
+        "config": dataclasses.asdict(cfg), "batch": 2 * n_req,
+        "pool_bytes": pool_bytes, "tokens_per_request": n_tok,
+        "appends": n_appends, "append_s": append_s,
+        "append_ms_per_token": 1e3 * append_s / (n_req * n_tok),
+        "gathers": n_req * cfg.n_layers, "gather_s": gather_s,
+        "gather_ms": 1e3 * gather_s / (n_req * cfg.n_layers),
+        "served": served, "forked": forked, "diverged": diverged,
+        "final": final, "reused_pages": reused, "cpu_replay_s": replay_s}
+    print(f"paged cache: {cfg.n_layers} layers x {cfg.n_pages} pages of "
+          f"{cfg.page} tokens x {cfg.n_kv} x {cfg.head_dim} bf16 "
+          f"({pool_bytes / 1e6:.1f} MB), batch {2 * n_req}; {n_req} x "
+          f"{n_tok} tokens appended from the dense cache in {append_s:.3f} s "
+          f"({report['paged_cache']['append_ms_per_token']:.4f} ms a token, "
+          f"host clock), {n_req * cfg.n_layers} gathers bit-identical in "
+          f"{gather_s:.4f} s ({report['paged_cache']['gather_ms']:.4f} ms "
+          f"each); pool {served} -> forks {forked} -> {VLM_DECODE} tokens "
+          f"a fork {diverged} (one copied tail page a fork); released 3, "
+          f"request 1 reused pages {reused}, {final}; the CPU replay of "
+          f"{len(ops)} operations equal leaf for leaf ({replay_s:.2f} s)")
+
+
+def phase_vlm_serve(torch, seed: int, report: dict) -> dict:
+    """Phases 21-22: LLaVA-NeXT-34B at full width and ``LLAVA_DEPTH``
+    layers through ``phase_family_serve`` (4 prompts of 1,024 tokens, 8
+    greedy tokens; serve's prefill passes the prompts' own first 576 token
+    embeddings as the patch embeddings), ``vlm_checks`` on the model before
+    it is freed, then the paged cache on its dense cache.  Returns the
+    first prefill attention's inputs."""
+    from repro_torch import configs
+    captured: dict = {}
+    kept: dict = {}
+    cfg = dataclasses.replace(configs.get(VLM_ARCH), n_layers=LLAVA_DEPTH)
+    phase_family_serve(torch, cfg, prompt_len=VLM_PROMPT, decode=VLM_DECODE,
+                       seed=seed, instance="wgmma", report=report,
+                       key="vlm_serve", captured=captured,
+                       extra=vlm_checks(torch, seed, report, kept))
+    phase_paged_cache(torch, kept, report)
+    del kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    return captured["vlm_serve"]
+
+
+def phase_new_family_flash_timing(torch, encdec: dict, vlm: list,
+                                  report: dict) -> None:
+    """``flash_timing`` at the first inputs of each flash kind of phases
+    20-21: Seamless's non-causal encoder self-attention (4, 544, 16, 16,
+    64), causal decoder self-attention (4, 512, 16, 16, 64) and
+    cross-attention (Sq 512 against Sk 544, non-causal), and LLaVA's
+    causal GQA with 7 query heads a kv head (4, 1024, 56, 8, 128)."""
+    out = {}
+    names = {(ENCDEC_FRAMES, ENCDEC_FRAMES, False): "seamless encoder",
+             (SERVE_PROMPT, SERVE_PROMPT, True): "seamless decoder",
+             (SERVE_PROMPT, ENCDEC_FRAMES, False): "seamless cross"}
+    for kind, name in names.items():
+        out[name] = flash_timing(torch, *encdec.pop(kind))
+    out["llava"] = flash_timing(torch, *vlm)
+    vlm.clear()
+    for name, o in out.items():
+        bound_and_print(torch, f"flash_attention at {name}", o)
+    torch.cuda.synchronize()
+    report["new_family_flash_timing"] = out
+
+
 TRAIN_RANGES = ("train.forward", "train.backward", "train.optimizer")
 
 
@@ -3191,7 +3642,6 @@ def phase_train_dense(torch, np, seed: int, report: dict) -> None:
     train launcher (``repro_torch.launch.train``)."""
     import shutil
     from repro_torch import configs
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import train as T
     from repro_torch.models import init_params
     from repro_torch.train import CheckpointStore
@@ -3206,10 +3656,7 @@ def phase_train_dense(torch, np, seed: int, report: dict) -> None:
     n_params = sum(p.numel() for p in model.parameters())
     batch0 = next(ds.batches(vid=vid, global_batch=TRAIN_BATCH,
                              seed=seed + 1, n_steps=1))
-    check = step0_check(torch, cfg, model, batch0, swap_plain(
-        fa, "flash_attention",
-        lambda q, k, v, causal=True: fa.flash_attention_plain(q, k, v,
-                                                              causal)))
+    check = step0_check(torch, cfg, model, batch0, plain_flash(torch))
     gc.collect()
     torch.cuda.empty_cache()
     common = dict(batch=TRAIN_BATCH, seed=seed, steps=TRAIN_STEPS)
@@ -3445,6 +3892,12 @@ def main(argv=None) -> int:
     phase_family_flash_timing(torch, family_inputs, report)
     gc.collect()
     torch.cuda.empty_cache()
+    encdec_inputs = phase_encdec_serve(torch, args.seed, report)
+    vlm_inputs = phase_vlm_serve(torch, args.seed, report)
+    phase_new_family_flash_timing(torch, encdec_inputs, vlm_inputs, report)
+    del encdec_inputs, vlm_inputs
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_train_dense(torch, np, args.seed, report)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3475,11 +3928,14 @@ def main(argv=None) -> int:
             **{k: timed[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                            "bound_ms", "library_ms")},
             bound_by=timed[name].get("bound_by", "bytes"))
-    model_paths = [report[k] for k in ("serve", "moe_serve", "mla_serve")]
-    model_paths += list(report["dense_serve"].values())
+    model_paths = [report[k]["launches"]["prefill"]
+                   for k in ("serve", "moe_serve", "mla_serve", "vlm_serve")]
+    model_paths += [r["launches"]["prefill"]
+                    for r in report["dense_serve"].values()]
+    model_paths.append(report["encdec_serve"]["launches"]["window"])
     for name in ("flash_attention", "ssd_scan"):
         rows[name] = dict(
-            launches=sum(r["launches"]["prefill"][name] for r in model_paths)
+            launches=sum(r[name] for r in model_paths)
             + sum(t[name] for t in train),
             **{k: model_t[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                              "bound_ms", "bound_by",

@@ -389,18 +389,26 @@ class Superblock:
 def _superblock_layout(parts, block_n: Optional[int], block_d: Optional[int]):
     """The (row_offsets, bounds, d, bd, d_pad, total_rows, dtype) layout a
     superblock over ``parts`` would have — shared by ``build_superblock``
-    and ``estimate_superblock_bytes`` so both agree byte-for-byte."""
+    and ``estimate_superblock_bytes`` so both agree byte-for-byte.
+
+    The lane tile ``min(block_d, max(128, D))`` is the JAX package's,
+    rounded up to whole 16-byte words a row: the CUDA kernels copy rows in
+    16-byte words (a D of 257 int32 gets a tile and a row of 260, where the
+    reference's are 257; ``kernels.ops._lane_pad`` pads the gathers the
+    same way).  Every output is cut back to D."""
     bn = DEFAULT_BN if block_n is None else block_n
     blk_d = DEFAULT_BD if block_d is None else block_d
     d = max((p.block.shape[1] for p in parts), default=0)
+    dtype = parts[0].block.dtype if parts else np.dtype(np.int32)
+    words = max(1, 16 // np.dtype(dtype).itemsize)
     bd = min(blk_d, max(128, d)) if d else blk_d
+    bd = -(-bd // words) * words
     d_pad = -(-max(d, 1) // bd) * bd
     seg = np.array([-(-p.block.shape[0] // bn) * bn for p in parts], np.int64)
     row_offsets = np.concatenate([[0], np.cumsum(seg)[:-1]]).astype(np.int64) \
         if len(parts) else np.zeros(0, np.int64)
     bounds = row_offsets + seg
     total = max(int(seg.sum()), bn)
-    dtype = parts[0].block.dtype if parts else np.dtype(np.int32)
     return bn, row_offsets, bounds, d, bd, d_pad, total, dtype
 
 

@@ -22,6 +22,16 @@ gap is clear of that bound.
 
 ``--device`` defaults to the card; ``--device cpu`` runs the kernels' plain
 versions (the CPU tests).
+
+An encoder-decoder is refused, as the reference's driver refuses it (its
+serving needs frame embeddings no prompt store holds).  A vision-language
+model is filled and decoded from its tokens alone, as the reference's
+driver does (its ``decode_step`` takes no patch embeddings); its prefill
+passes as ``patch_embeds`` the prompts' own first ``n_patches`` token
+embeddings, so the stub frontend gives the token path's function and the
+prefill check keeps its meaning.  A prompt shorter than ``n_patches`` is
+refused with ``PlanError`` (the reference's concatenation would lengthen
+the sequence).
 """
 from __future__ import annotations
 
@@ -39,11 +49,12 @@ from ..core import generate, lyresplit_for_budget, to_tree
 from ..data import VersionedDataset
 from ..kernels import flash_attention as _fa
 from ..kernels import ssd_scan as _ss
+from ..kernels.build import PlanError
 from ..kernels.ops import resolve_device
 from ..models import layers as L
 from ..models import moe as MOE
-from ..models.transformer import (ArchConfig, check_supported, init_cache,
-                                  init_params)
+from ..models.transformer import (ArchConfig, _embed, check_supported,
+                                  init_cache, init_params)
 from ..serve.checkout import BatchedCheckoutServer
 from ..serve.serve_step import make_prefill_step, make_serve_step
 from ..sharding import make_ctx
@@ -57,6 +68,10 @@ ROUNDINGS_PER_BLOCK = 6   # norm, projections, conv or probabilities, gate, out
 # a copy of bf16 rows, exact), and the shared expert where there is one
 ROUNDINGS_PER_MOE_BLOCK = ROUNDINGS_PER_BLOCK - 2 + 4
 ROUNDINGS_SHARED_EXPERT = 1
+# an encoder-decoder's decoder block adds a cross-attention sub-layer that
+# rounds where a self-attention does: its norm, its query projection, the
+# probabilities and its output (its keys and values are the encoder's)
+ROUNDINGS_CROSS_ATTENTION = 4
 # a sub-layer multiplies two linear maps of its input (q·kᵀ, gate × in,
 # C·B), and d(ab)/ab = da/a + db/b: it passes a relative error on doubled
 SUBLAYER_GAIN = 2
@@ -74,7 +89,13 @@ def roundings(cfg: ArchConfig) -> int:
     ``ROUNDINGS_PER_BLOCK`` a dense, SSD or shared block,
     ``ROUNDINGS_PER_MOE_BLOCK`` (+ ``ROUNDINGS_SHARED_EXPERT`` with shared
     experts) an MoE block: 6 a block but 8 an OLMoE block and 9 a
-    DeepSeek-V2 MoE block."""
+    DeepSeek-V2 MoE block; an encoder-decoder's decoder block 6 +
+    ``ROUNDINGS_CROSS_ATTENTION``, 10.  Its encoder blocks count nothing:
+    the token path's encoder K/V come from the prefill's own encoder code
+    (``models.transformer._encode`` and ``cross_kv_init``) on the same
+    frames, so both paths start from the same encoder output."""
+    if cfg.family == "encdec":
+        return (ROUNDINGS_PER_BLOCK + ROUNDINGS_CROSS_ATTENTION) * cfg.n_layers
     if cfg.moe is None:
         return ROUNDINGS_PER_BLOCK * depth(cfg)
     per_moe = ROUNDINGS_PER_MOE_BLOCK + (ROUNDINGS_SHARED_EXPERT
@@ -92,7 +113,8 @@ def prefill_bound(cfg: ArchConfig) -> float:
     ``SUBLAYER_GAIN`` times larger.  So 2 · sqrt(2 · roundings) · 2^-8,
     2 · sqrt(2 · 6 · depth) · 2^-8 without MoE blocks (0.038 for a 2-layer
     dense model, 0.215 for Zamba2-2.7B's 54 + 9 blocks; 0.125 for
-    OLMoE-1B-7B's 16 MoE blocks)."""
+    OLMoE-1B-7B's 16 MoE blocks, 0.121 for Seamless-M4T-medium's 12
+    decoder blocks)."""
     return SUBLAYER_GAIN * math.sqrt(2 * roundings(cfg)) * 2.0 ** -8
 
 
@@ -161,6 +183,20 @@ def prefill_check(prefill_logits: torch.Tensor, fill_logits: torch.Tensor,
             "gap_clear": clear, "argmax_agree": agree, "ok": ok}
 
 
+ENCDEC_REFUSED = "encdec serving needs enc_embeds"
+
+
+def refuse(cfg: ArchConfig, prompt_len: int) -> None:
+    """What the serve driver cannot serve: an encoder-decoder (the
+    reference's refusal), and a vision-language prompt shorter than its
+    patches."""
+    if cfg.family == "encdec":
+        raise ValueError(ENCDEC_REFUSED)
+    if cfg.family == "vlm" and prompt_len < cfg.n_patches:
+        raise PlanError(f"{cfg.name}: a prompt of {prompt_len} tokens is "
+                        f"shorter than its {cfg.n_patches} patch positions")
+
+
 def serve(cfg: ArchConfig, *, requests: int = 16, prompt_len: int = 64,
           decode_steps: int = 32, prompt_version: str = "-1",
           wave_size=None, seed: int = 0, device=None, params=None,
@@ -179,6 +215,7 @@ def serve(cfg: ArchConfig, *, requests: int = 16, prompt_len: int = 64,
     least 8) and, for the prefill, a list with one count per MoE layer
     (empty without MoE layers)."""
     check_supported(cfg)
+    refuse(cfg, prompt_len)
     dev = resolve_device(device)
     rows = prompt_store(cfg.vocab, requests=requests, prompt_len=prompt_len,
                         prompt_version=prompt_version, wave_size=wave_size,
@@ -215,10 +252,13 @@ def serve(cfg: ArchConfig, *, requests: int = 16, prompt_len: int = 64,
     dropped = {"fill_decode": sum(MOE.drop_counts(fill_drops))}
 
     prefill = make_prefill_step(cfg, make_ctx(), device=dev)
+    batch = {"tokens": prompts}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = _embed(params, prompts[:, :cfg.n_patches])
     before = _launches()
     t2 = time.perf_counter()
     with MOE.counting_drops() as prefill_drops:
-        pre_logits = prefill(params, {"tokens": prompts})
+        pre_logits = prefill(params, batch)
         _sync(dev)
     t_prefill = time.perf_counter() - t2
     launches["prefill"] = _since(before)
@@ -268,6 +308,8 @@ def main(argv=None) -> int:
     cfg = configs.get(configs.canonical(args.arch))
     if args.reduced:
         cfg = reduced_config(cfg)
+    if cfg.family == "encdec":
+        raise SystemExit(ENCDEC_REFUSED)
     run = serve(cfg, requests=args.requests, prompt_len=args.prompt_len,
                 decode_steps=args.decode_steps,
                 prompt_version=args.prompt_version,

@@ -8,8 +8,10 @@ with the same weights.  The reference stacks every layer's parameters on a
 leading axis (its ``vmap``/``scan``); the port's modules are one per layer,
 so ``layers/ssd/in_proj/w`` of shape (L, d_in, d_out) becomes
 ``layers.<i>.ssd.in_proj.w`` for i < L, and an MoE stack's
-``dense_layers`` split the same way (an expert leaf ``layers/moe/wi`` of
-shape (L, E, d, f) becomes ``layers.<i>.moe.wi`` of shape (E, d, f)).
+``dense_layers`` and an encoder-decoder's ``enc_layers`` split the same way
+(an expert leaf ``layers/moe/wi`` of shape (L, E, d, f) becomes
+``layers.<i>.moe.wi`` of shape (E, d, f); a decoder block's cross-attention
+``layers/xattn/wq/w`` becomes ``layers.<i>.xattn.wq.w``).
 Every leaf must land on a parameter and every parameter must be filled,
 or it raises.  ``to_reference`` stacks the layers back: the JAX package's
 nested dict of the model's parameters (or of any tensors under the same
@@ -26,7 +28,7 @@ from ..kernels.ops import resolve_device
 from .transformer import ArchConfig, Model
 
 # the reference's stacked trees: a leading layer axis on every leaf
-STACKED = ("layers", "dense_layers")
+STACKED = ("layers", "dense_layers", "enc_layers")
 
 
 def _leaves(tree, prefix=()):

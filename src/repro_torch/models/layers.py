@@ -12,11 +12,14 @@ or ``init_params(..., trainable=True)`` makes them trainable.  The RMS norm
 carries the reference's hand-written backward (``_RMSNorm``); everything
 else is differentiated by autograd.
 
-Self-attention with ``q_offset == 0`` and ``Sq == Sk`` (every prefill and
-full-sequence forward) runs the flash kernel (``kernels.ops
-.flash_attention``); the decode step (one query against the cache, offset
-by the cache length) runs the reference's materialised softmax, as the
-reference does: the flash kernel has no query offset.
+Attention with ``q_offset == 0`` runs the flash kernel (``kernels.ops
+.flash_attention``) when ``Sq == Sk`` (every self-attention prefill and
+full-sequence forward) or when it is non-causal with ``Sq > 1`` (an
+encoder's and a prefill's cross-attention, any Sk: the kernel masks its
+ragged tiles); the decode step (one query against the cache, offset by the
+cache length, or against the encoder's K/V) runs the reference's
+materialised softmax, as the reference does: the flash kernel has no query
+offset.
 """
 from __future__ import annotations
 
@@ -148,10 +151,13 @@ def _sdpa(q, k, v, causal: bool, q_offset: int = 0) -> torch.Tensor:
 
 
 def _sdpa_core(q, k, v, causal: bool, q_offset: int) -> torch.Tensor:
-    """The flash kernel where its contract holds (no query offset, as many
-    queries as keys); else the reference's materialised softmax, its
-    probabilities rounded to q's dtype before ``p·v``."""
-    if q_offset == 0 and q.shape[1] == k.shape[1]:
+    """The flash kernel where its contract holds (no query offset, and as
+    many queries as keys, or non-causal with more than one query: the
+    kernel's causal mask aligns the first query with the first key); else
+    the reference's materialised softmax, its probabilities rounded to q's
+    dtype before ``p·v``."""
+    sq, sk = q.shape[1], k.shape[1]
+    if q_offset == 0 and (sq == sk or (not causal and sq > 1)):
         return ops.flash_attention(q, k, v, causal=causal)
     return ref.mha_ref(q, k, v, causal, q_offset)
 

@@ -1,5 +1,5 @@
-"""Architecture assembly: the port of ``repro.models.transformer`` for the
-families the port serves and trains.
+"""Architecture assembly: the port of ``repro.models.transformer``, every
+family the reference assembles.
 
 Families:
   dense   — uniform [norm→attn→res, norm→swiglu→res] decoder stack
@@ -9,10 +9,18 @@ Families:
   hybrid  — Zamba2: groups of SSD layers + one SHARED attention+MLP block
             applied between groups (same parameters every application,
             its own KV slot each time)
+  encdec  — Seamless backbone: a bidirectional encoder (``enc_layers``)
+            and a causal decoder whose blocks add cross-attention to the
+            encoder's output (no final norm on it); the audio frontend is a
+            stub (precomputed frame embeddings enter through
+            batch["enc_embeds"]), and the decode cache carries each
+            decoder block's encoder K/V (``enc_k``/``enc_v``)
+  vlm     — LLaVA-NeXT backbone: the dense stack; the anyres vision
+            frontend is a stub (precomputed patch embeddings enter through
+            batch["patch_embeds"] and replace the first positions), and
+            the loss skips the patch positions
 Attention is GQA (``models.layers``) or, with ``attn_type="mla"``, latent
-attention (``models.mla``) with its compressed latent cache.  ``encdec``
-and ``vlm`` raise ``NotImplementedError``: they wait for their slice
-(ROADMAP A.11e).
+attention (``models.mla``) with its compressed latent cache.
 
 The model is an ``nn.Module`` whose parameter names follow the reference's
 tree with the stacked layer axis unrolled (``layers.3.ssd.in_proj.w`` is
@@ -35,6 +43,7 @@ trainable; serving keeps them frozen.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -48,7 +57,9 @@ from . import mla as MLA
 from . import moe as MOE
 from . import ssd as SSD
 
-SUPPORTED = ("dense", "moe", "ssm", "hybrid")
+SUPPORTED = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+# the stub frontends' inputs a batch may carry besides its tokens
+FRONTEND_INPUTS = ("enc_embeds", "patch_embeds")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,9 +107,8 @@ class ArchConfig:
 
 def check_supported(cfg: ArchConfig) -> None:
     if cfg.family not in SUPPORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
-            f"serves {', '.join(SUPPORTED)} (ROADMAP A.11e)")
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; the "
+                         f"families are {', '.join(SUPPORTED)}")
     if cfg.family == "moe" and not isinstance(cfg.moe, MOE.MoEConfig):
         raise ValueError(f"{cfg.name}: the moe family needs a MoEConfig")
     if cfg.attn_type == "mla" and not isinstance(cfg.mla, MLA.MLAConfig):
@@ -112,16 +122,20 @@ def check_supported(cfg: ArchConfig) -> None:
 # =============================================================== blocks ====
 class AttnBlock(nn.Module):
     """Attention (GQA, or latent with ``attn_type="mla"``) and a SwiGLU
-    MLP."""
+    MLP; with ``cross`` (an encoder-decoder's decoder block) also a norm
+    ``lnx`` and a cross-attention ``xattn`` between them."""
 
     def __init__(self, cfg: ArchConfig, generator=None, device=None,
-                 mlp: bool = True):
+                 mlp: bool = True, cross: bool = False):
         super().__init__()
         g, dev = generator, device
         self.ln1 = L.param((cfg.d_model,), g, dev, fill=1.0)
         self.ln2 = L.param((cfg.d_model,), g, dev, fill=1.0)
         self.attn = (MLA.MLA(cfg.mla, g, dev) if cfg.attn_type == "mla"
                      else L.Attention(cfg.attn_cfg(), g, dev))
+        if cross:
+            self.lnx = L.param((cfg.d_model,), g, dev, fill=1.0)
+            self.xattn = L.Attention(cfg.attn_cfg(causal=False), g, dev)
         if mlp:
             self.mlp = L.SwiGLU(cfg.d_model, cfg.d_ff, g, dev)
 
@@ -142,7 +156,7 @@ class SSDBlock(nn.Module):
 
 
 def _attn_block_apply(p: AttnBlock, x, cfg: ArchConfig, positions=None,
-                      cache=None, causal=True):
+                      cache=None, cross_kv=None, causal=True):
     h = L.rms_norm(p.ln1, x)
     if cfg.attn_type == "mla":
         a, cache = MLA.mla_attention(p.attn, h, cfg.mla, positions=positions,
@@ -151,6 +165,11 @@ def _attn_block_apply(p: AttnBlock, x, cfg: ArchConfig, positions=None,
         a, cache = L.attention(p.attn, h, cfg.attn_cfg(causal=causal),
                                positions=positions, kv_cache=cache)
     x = x + a
+    if hasattr(p, "xattn") and cross_kv is not None:
+        h = L.rms_norm(p.lnx, x)
+        a, _ = L.attention(p.xattn, h, cfg.attn_cfg(causal=False),
+                           cross_kv=cross_kv)
+        x = x + a
     h = L.rms_norm(p.ln2, x)
     if isinstance(p, MoEBlock):
         x = x + MOE.moe_ffn(p.moe, h, cfg.moe)
@@ -175,7 +194,10 @@ class Model(nn.Module):
     the lm head (tied to the embedding unless ``tie_embeddings`` is off)
     and, for the hybrid, the shared attention block.  An MoE stack is
     ``dense_layers`` (its first ``first_dense`` layers, dense) and then
-    ``layers`` (MoE blocks); every other family has no dense layers."""
+    ``layers`` (MoE blocks); every other family has no dense layers.  An
+    encoder-decoder has ``enc_layers`` (``n_enc_layers`` attention
+    blocks) and decoder ``layers`` with cross-attention; every other
+    family has no encoder layers."""
 
     def __init__(self, cfg: ArchConfig, generator=None, device=None):
         super().__init__()
@@ -186,9 +208,13 @@ class Model(nn.Module):
         self.final_norm = L.param((d,), g, dev, fill=1.0)
         self.lm_head = (None if cfg.tie_embeddings
                         else L.param((d, v), g, dev, scale=d ** -0.5))
-        block = {"dense": AttnBlock, "moe": MoEBlock}.get(cfg.family,
-                                                          SSDBlock)
+        block = {"dense": AttnBlock, "vlm": AttnBlock, "moe": MoEBlock,
+                 "encdec": functools.partial(AttnBlock, cross=True)
+                 }.get(cfg.family, SSDBlock)
         n_dense = cfg.first_dense if cfg.family == "moe" else 0
+        n_enc = cfg.n_enc_layers if cfg.family == "encdec" else 0
+        self.enc_layers = nn.ModuleList(AttnBlock(cfg, g, dev)
+                                        for _ in range(n_enc))
         self.dense_layers = nn.ModuleList(AttnBlock(cfg, g, dev)
                                           for _ in range(n_dense))
         self.layers = nn.ModuleList(block(cfg, g, dev)
@@ -232,16 +258,52 @@ def _maybe_remat(apply, cfg: ArchConfig):
     return block
 
 
+def _encode(params: Model, enc_embeds: torch.Tensor,
+            cfg: ArchConfig) -> torch.Tensor:
+    """The encoder stack over the stub frontend's frame embeddings (cast to
+    the compute dtype, on the model's device): non-causal blocks and no
+    final norm, as the reference's ``forward`` runs them.  (B, S_enc,
+    d_model)."""
+    enc = _maybe_remat(functools.partial(_attn_block_apply, causal=False),
+                       cfg)
+    h = enc_embeds.to(params.embed.device, L.COMPUTE_DTYPE)
+    for p in params.enc_layers:
+        h = enc(p, h)
+    return h
+
+
+def _decoder_block(enc: torch.Tensor):
+    """A decoder block's apply with the encoder output ``enc`` captured, as
+    the reference's closure captures it: the block's cross K/V are
+    ``cross_kv_init`` of ``enc`` inside the block (recomputed with it under
+    remat)."""
+    def apply(p: AttnBlock, x, cfg: ArchConfig):
+        ckv = L.cross_kv_init(p.xattn, enc, cfg.attn_cfg(causal=False))
+        return _attn_block_apply(p, x, cfg, cross_kv=ckv)
+    return apply
+
+
 def forward(params: Model, batch: dict, cfg: ArchConfig,
             last_only: bool = False) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S, vocab_padded); with
     ``last_only`` the lm head runs on the final position only (serving
-    prefill returns just the next-token distribution)."""
+    prefill returns just the next-token distribution).  ``vlm`` takes
+    batch["patch_embeds"] (B, P, d_model) in place of the first P
+    positions' embeddings, ``encdec`` batch["enc_embeds"] (B, S_enc,
+    d_model) as the encoder's input."""
     check_supported(cfg)
     attn = _maybe_remat(_attn_block_apply, cfg)
     ssd = _maybe_remat(_ssd_block_apply, cfg)
     x = _embed(params, batch["tokens"])
-    if cfg.family in ("dense", "moe"):
+    if cfg.family == "vlm":
+        pe = batch["patch_embeds"].to(x.device, x.dtype)
+        x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+    if cfg.family == "encdec":
+        dec = _maybe_remat(
+            _decoder_block(_encode(params, batch["enc_embeds"], cfg)), cfg)
+        for p in params.layers:
+            x = dec(p, x)
+    elif cfg.family in ("dense", "vlm", "moe"):
         for p in (*params.dense_layers, *params.layers):
             x = attn(p, x)
     elif cfg.family == "ssm":
@@ -259,14 +321,21 @@ def forward(params: Model, batch: dict, cfg: ArchConfig,
 
 
 def loss_fn(params: Model, batch: dict, cfg: ArchConfig) -> torch.Tensor:
-    """Mean next-token cross-entropy over every position, in float32 over
-    the padded vocab: the reference's ``loss_fn`` (its ``vlm`` mask over
-    the patch positions waits for that family, ROADMAP A.11e)."""
+    """Next-token cross-entropy in float32 over the padded vocab, the
+    reference's ``loss_fn``: the mean over every position, or for ``vlm``
+    the sum over the positions from ``n_patches`` on (the patch positions
+    carry no label) divided by the mask's count, which is one row's (the
+    reference's mask is (1, S)), so a vlm batch of B rows gives B times
+    the per-token mean, as the reference's does."""
     logits = forward(params, batch, cfg)
     labels = batch["labels"].to(logits.device).long()
     lp = F.log_softmax(logits.float(), dim=-1)
     ll = lp.gather(-1, labels[..., None])[..., 0]
-    return -ll.sum() / max(ll.numel(), 1)
+    mask = torch.ones_like(ll)
+    if cfg.family == "vlm":
+        pos = torch.arange(labels.shape[1], device=ll.device)[None, :]
+        mask = (pos >= cfg.n_patches).float()
+    return -(ll * mask).sum() / mask.sum().clamp_min(1.0)
 
 
 # ---------------------------------------------------------------- decode --
@@ -281,14 +350,18 @@ def init_cache_abstract(cfg: ArchConfig, batch: int, max_len: int) -> dict:
         return torch.empty(shape, dtype=dtype, device="meta")
 
     length = leaf((), torch.int32)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "vlm", "moe", "encdec"):
         if cfg.attn_type == "mla":
             m = cfg.mla
             return {"ckv": leaf((cfg.n_layers, batch, max_len,
                                  m.kv_lora + m.qk_rope), bf16),
                     "len": length}
         shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.hd)
-        return {"k": leaf(shape, bf16), "v": leaf(shape, bf16), "len": length}
+        out = {"k": leaf(shape, bf16), "v": leaf(shape, bf16),
+               "len": length}
+        if cfg.family == "encdec":
+            out.update(enc_k=leaf(shape, bf16), enc_v=leaf(shape, bf16))
+        return out
     s = cfg.ssd
     out = {"h": leaf((cfg.n_layers, batch, s.n_heads, s.headdim, s.d_state),
                      f32),
@@ -315,13 +388,16 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, fill_len: int = 0,
 def decode_step(params: Model, batch: dict, cache: dict, cfg: ArchConfig):
     """One-token decode.  batch["tokens"]: (B, 1).  Returns (logits
     (B, 1, vocab), cache): the cache's tensors are updated in place, the
-    returned dict holds them and the new length."""
+    returned dict holds them and the new length.  An ``encdec`` decoder
+    block attends (non-causally) to its ``enc_k``/``enc_v`` row, which the
+    caller fills (``cross_kv_init`` of the encoder's output) before the
+    first step."""
     check_supported(cfg)
     tokens = batch["tokens"]
     b = tokens.shape[0]
     x = _embed(params, tokens)
 
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "vlm", "moe", "encdec"):
         # an MoE stack's dense layers come first, and so do their slots
         pos = int(cache["len"])
         positions = torch.full((b, 1), pos, device=x.device)
@@ -329,9 +405,11 @@ def decode_step(params: Model, batch: dict, cache: dict, cfg: ArchConfig):
         for i, p in enumerate((*params.dense_layers, *params.layers)):
             blk = {name: cache[name][i] for name in leaves}
             blk["len"] = pos
+            ckv = ((cache["enc_k"][i].to(x.dtype), cache["enc_v"][i].to(
+                x.dtype)) if cfg.family == "encdec" else None)
             x, _ = _attn_block_apply(p, x, cfg, positions=positions,
-                                     cache=blk)
-        new_cache = {name: cache[name] for name in leaves}
+                                     cache=blk, cross_kv=ckv)
+        new_cache = dict(cache)
         new_cache["len"] = pos + 1
     else:                                               # ssm, hybrid
         hybrid = cfg.family == "hybrid"

@@ -12,16 +12,17 @@ from __future__ import annotations
 import torch
 
 from ..kernels.ops import resolve_device
-from ..models.transformer import ArchConfig, decode_step, forward
+from ..models.transformer import (FRONTEND_INPUTS, ArchConfig, decode_step,
+                                  forward)
 from ..sharding import MeshContext
 
 
-def _on(device, params, tokens: torch.Tensor) -> torch.Tensor:
+def _on(device, params, t: torch.Tensor) -> torch.Tensor:
     dev = resolve_device(device)
     if params.embed.device.type != dev.type:
         raise ValueError(f"parameters on {params.embed.device}, step on "
                          f"{dev}")
-    return tokens.to(params.embed.device)
+    return t.to(params.embed.device)
 
 
 def make_serve_step(cfg: ArchConfig, ctx: MeshContext | None = None, *,
@@ -39,10 +40,12 @@ def make_prefill_step(cfg: ArchConfig, ctx: MeshContext | None = None, *,
                       device=None):
     @torch.inference_mode()
     def prefill_step(params, batch: dict):
-        """batch = {"tokens": (B, S)} -> logits (B, 1, vocab_padded): the lm
+        """batch = {"tokens": (B, S)} (with "enc_embeds" for ``encdec``,
+        "patch_embeds" for ``vlm``) -> logits (B, 1, vocab_padded): the lm
         head runs on the last position only."""
-        tokens = _on(device, params, batch["tokens"])
-        return forward(params, {"tokens": tokens}, cfg, last_only=True)
+        inputs = {k: _on(device, params, batch[k])
+                  for k in ("tokens", *FRONTEND_INPUTS) if k in batch}
+        return forward(params, inputs, cfg, last_only=True)
     return prefill_step
 
 

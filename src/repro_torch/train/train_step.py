@@ -21,13 +21,16 @@ from typing import Optional
 import torch
 from torch.profiler import record_function
 
-from ..models.transformer import ArchConfig, Model, loss_fn
+from ..models.transformer import FRONTEND_INPUTS, ArchConfig, Model, loss_fn
 from .optimizer import AdamW, AdamWState
 
 
 def _to_device(batch: dict, device: torch.device) -> dict:
+    """The model's inputs on ``device``: tokens, labels and a stub
+    frontend's embeddings where the batch has them (a data pipeline's
+    batch also carries its step and version, which stay behind)."""
     return {k: torch.as_tensor(batch[k]).to(device)
-            for k in ("tokens", "labels")}
+            for k in ("tokens", "labels", *FRONTEND_INPUTS) if k in batch}
 
 
 def _trainable(params: Model) -> dict:

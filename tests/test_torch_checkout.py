@@ -14,9 +14,11 @@ import torch
 
 import repro.core.checkout as rck
 import repro.core.journal as rjournal
+import repro.core.partition as rpart
 import repro.core.query as rq
 import repro_torch.core.checkout as ck
 import repro_torch.core.journal as pjournal
+import repro_torch.core.partition as tpart
 import repro_torch.core.query as q
 from repro.core import generate
 from repro.core.graph import BipartiteGraph as RefGraph
@@ -122,28 +124,84 @@ def test_checkout_versions_off_a_graph_matches_reference():
 
 
 # ------------------------------------------------------------ superblock --
+def _words(n: int) -> int:
+    """``n`` int32 columns rounded up to whole 16-byte words."""
+    return -(-n // 4) * 4
+
+
+def _same_layout(got, want):
+    """The port's superblock is the reference's with each row padded on to
+    whole 16-byte words (zeros), its lane tile rounded the same way."""
+    wd = want.host.shape[1]
+    assert got.host.shape == (want.host.shape[0], _words(wd))
+    np.testing.assert_array_equal(got.host[:, :wd], want.host)
+    assert not got.host[:, wd:].any()
+    np.testing.assert_array_equal(got.row_offsets, want.row_offsets)
+    np.testing.assert_array_equal(got.bounds, want.bounds)
+    assert (got.d, got.bd, got.block_n, got.epoch) == \
+        (want.d, _words(want.bd), want.block_n, want.epoch)
+
+
 @pytest.mark.parametrize("seed,n_attrs", [(0, 20), (1, 130), (2, 7)])
 def test_superblock_layout_matches_reference(seed, n_attrs):
+    """The reference's layout, rows padded on to 16-byte words: D = 130
+    int32 (520 bytes) gets 132 columns, the others are unchanged."""
     port, ref, w = _sci_pair(seed, n_attrs=n_attrs, n_partitions=5)
     sb, hit = ck.get_superblock(port)
     rsb, rhit = rck.get_superblock(ref)
     assert (hit, rhit) == (False, False)
-    for f in ("row_offsets", "bounds", "host"):
-        np.testing.assert_array_equal(getattr(sb, f), getattr(rsb, f))
-    assert (sb.d, sb.bd, sb.block_n, sb.epoch) == \
-        (rsb.d, rsb.bd, rsb.block_n, rsb.epoch)
-    assert ck.estimate_superblock_bytes(port) == \
-        rck.estimate_superblock_bytes(ref) == sb.host.nbytes
+    _same_layout(sb, rsb)
+    widen = _words(rsb.host.shape[1]) / rsb.host.shape[1]
+    assert ck.estimate_superblock_bytes(port) == sb.host.nbytes == \
+        rck.estimate_superblock_bytes(ref) * widen
     for pids in ([0], [1, 3], [4, 2, 0]):
         assert ck.estimate_superblock_bytes(port, pids=pids) == \
-            rck.estimate_superblock_bytes(ref, pids=pids)
-        g, rg = (ck.build_superblock(port, pids=pids),
-                 rck.build_superblock(ref, pids=pids))
-        np.testing.assert_array_equal(g.host, rg.host)
-        np.testing.assert_array_equal(g.row_offsets, rg.row_offsets)
+            rck.estimate_superblock_bytes(ref, pids=pids) * widen
+        _same_layout(ck.build_superblock(port, pids=pids),
+                     rck.build_superblock(ref, pids=pids))
     np.testing.assert_array_equal(ck.partition_segment_bytes(port),
-                                  rck.partition_segment_bytes(ref))
+                                  rck.partition_segment_bytes(ref) * widen)
     assert ck.get_superblock(port)[1] is True
+
+
+@pytest.mark.parametrize("n_attrs", [100, 257, 300])
+def test_superblock_rows_are_whole_16_byte_words(n_attrs):
+    """The CUDA kernels copy 16-byte words: every superblock row is a
+    whole number of them (D 100 -> 128, 257 -> 260, 300 -> 300), and the
+    wave tier's tickets, a commit wave's extension and a migration's
+    reassembly still equal the reference's host tier."""
+    port, ref, w = _sci_pair(3, n_attrs=n_attrs, n_partitions=4)
+    sb, _ = ck.get_superblock(port)
+    assert sb.host.shape[1] * sb.host.itemsize % 16 == 0
+    assert sb.host.shape[1] == {100: 128, 257: 260, 300: 300}[n_attrs]
+    vids = [0, 7, 7, 21, 39, 12]
+    want = rck.checkout_partitioned(ref, vids, use_kernel=False)
+    _same_blocks(ck.checkout_partitioned(port, vids, engine="wave",
+                                         use_kernel=True), want)
+    # a commit wave extends the pinned superblock (segment_append's
+    # plain version here), then a migration moves its rows
+    sb.device()
+    commits = [{"parent": 39, "rlist": w.graph.rlist(39)[:-2]},
+               {"parent": 3, "rlist": w.graph.rlist(3)}]
+    assert port.commit_many(commits) == ref.commit_many(commits) == [40, 41]
+    vids += [40, 41]
+    _same_blocks(ck.checkout_partitioned(port, vids, engine="wave",
+                                         use_kernel=True),
+                 rck.checkout_partitioned(ref, vids, use_kernel=False))
+    _same_layout(ck.get_superblock(port)[0], rck.get_superblock(ref)[0])
+    old, rold = ck.take_superblock(port), rck.take_superblock(ref)
+    assignment = np.arange(42) % 3
+    plan = tpart.plan_migration(port, assignment)
+    rplan = rpart.plan_migration(ref, assignment)
+    port.apply_migration(plan)
+    ref.apply_migration(rplan)
+    new, st = ck.migrate_superblock(port, old, plan)
+    rnew, _ = rck.migrate_superblock(ref, rold, rplan)
+    assert st.used_device and st.reused_tiles > 0
+    _same_layout(new, rnew)
+    _same_blocks(ck.checkout_partitioned(port, vids, engine="wave",
+                                         use_kernel=True),
+                 rck.checkout_partitioned(ref, vids, use_kernel=False))
 
 
 def test_superblock_device_uploads_once_and_survives_upload_fault():

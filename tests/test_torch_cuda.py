@@ -276,6 +276,67 @@ def test_cuda_budget_store_commits_and_migrates(cuda_device, monkeypatch):
     assert int(store._inflight_waves) == 0
 
 
+def test_cuda_superblock_of_257_token_rows_commits_and_migrates(
+        cuda_device):
+    """Rows of 257 int32 (1,028 bytes, no whole number of 16-byte words):
+    the superblock pads them to 260 (1,040 bytes), and the read waves
+    (checkout_wave), a commit wave (segment_append) and a migration
+    (segment_move) run on the card, every version equal to numpy."""
+    w = generate("SCI", n_versions=40, inserts=60, n_branches=4,
+                 n_attrs=257, seed=5)
+    tree, _ = to_tree(w.graph, w.vgraph)
+    n0 = 32
+    ip = w.graph.indptr[:n0 + 1]
+    pool = int(w.graph.indices[:ip[-1]].max()) + 1
+    store = store_from_arrays(ip, w.graph.indices[:ip[-1]], pool,
+                              w.data[:pool], np.arange(n0) % 4,
+                              device=cuda_device)
+    srv = BatchedCheckoutServer(store)
+    srv.warmup()
+    sb = peek_superblock(store)
+    assert sb.d == 257 and sb._device.shape[1] == 260
+    launches = (cb.LAUNCHES, sa.LAUNCHES, sm.LAUNCHES)
+    vids = list(range(n0))
+    for m, v in zip(srv.serve(vids), vids):
+        np.testing.assert_array_equal(m, w.data[w.graph.rlist(v)])
+    commits, cur = [], pool
+    for v in range(n0, w.n_versions):
+        rl = w.graph.rlist(v)
+        commits.append({"parent": int(tree.parent[v]), "rlist": rl,
+                        "new_rows": w.data[rl[rl >= cur]]})
+        cur += int((rl >= cur).sum())
+    tickets = srv.submit_commit(commits)
+    srv.flush()
+    assert [srv.result(t) for t in tickets] == list(range(n0, w.n_versions))
+    assignment = lyresplit_for_budget(tree, 2 * w.n_records).best.assignment
+    plan = plan_migration(store, assignment)
+    old = ck.take_superblock(store)      # migrated on the card, not rebuilt
+    store.apply_migration(plan)
+    new, stats = ck.migrate_superblock(store, old, plan)
+    assert stats.used_device and new._device.shape[1] == 260
+    vids = list(range(w.n_versions))
+    for m, v in zip(srv.serve(vids), vids):
+        np.testing.assert_array_equal(m, w.data[w.graph.rlist(v)])
+    srv.close()
+    assert cb.LAUNCHES > launches[0] and sa.LAUNCHES > launches[1] \
+        and sm.LAUNCHES == launches[2] + 1
+    assert peek_superblock(store) is new
+
+
+def test_cuda_prompt_store_of_257_token_rows(cuda_device):
+    """The serve driver's prompt store at a prompt length of 257: one
+    checkout_wave on the card, the same prompts as on the CPU."""
+    from repro_torch.launch.serve import prompt_store
+    before = cb.LAUNCHES
+    got = prompt_store(1000, requests=4, prompt_len=257, device=cuda_device,
+                       log=lambda *_: None)
+    assert cb.LAUNCHES == before + 1
+    want = prompt_store(1000, requests=4, prompt_len=257, device="cpu",
+                        log=lambda *_: None)
+    np.testing.assert_array_equal(got, want)
+    assert got.shape == (4, 257)
+
+
 def test_cuda_kernel_fault_in_a_commit_wave_propagates(cuda_device,
                                                        monkeypatch):
     """A segment_append launch that fails on the card is not absorbed into
@@ -493,6 +554,15 @@ FLASH_CASES = [(2, 256, 256, 4, 4, 64, True), (1, 512, 512, 4, 2, 128, True),
                (1, 4173, 4173, 2, 1, 80, True), (1, 200, 200, 8, 2, 80, True),
                (2, 300, 136, 4, 2, 64, False), (1, 333, 333, 4, 4, 48, True),
                (1, 256, 256, 2, 2, 112, True), (1, 130, 130, 4, 4, 72, True)]
+# the shapes of the serve phases of the encoder-decoder and the vlm:
+# Seamless-M4T-medium's encoder self-attention (non-causal, 544 frames),
+# its decoder's causal self-attention and its cross-attention (512 queries
+# against 544 frames), and LLaVA-NeXT-34B's causal GQA, 7 query heads a kv
+# head, at Dh 128
+FAMILY_FLASH_CASES = [(4, 544, 544, 16, 16, 64, False),
+                      (4, 512, 512, 16, 16, 64, True),
+                      (4, 512, 544, 16, 16, 64, False),
+                      (4, 1024, 1024, 56, 8, 128, True)]
 # the reference's tolerances (tests/test_flash_attention.py,
 # tests/test_ssd_kernel.py): the kernel and the plain version sum in
 # different orders; bf16 outputs are one rounding apart at most
@@ -507,7 +577,7 @@ def _randn(shape, seed, dtype, device, scale=1.0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+@pytest.mark.parametrize("case", FLASH_CASES + FAMILY_FLASH_CASES, ids=str)
 def test_cuda_flash_attention_matches_plain(cuda_device, case, dtype):
     b, sq, sk, h, hkv, dh, causal = case
     q = _randn((b, sq, h, dh), 1, dtype, cuda_device)
@@ -750,7 +820,8 @@ def test_cuda_ssd_gradients_match_autograd_through_chunk_step(cuda_device,
 
 
 @pytest.mark.parametrize("arch", ["internlm2_1_8b", "mamba2_780m",
-                                  "zamba2_2_7b", "deepseek_v2_lite_16b"])
+                                  "zamba2_2_7b", "deepseek_v2_lite_16b",
+                                  "seamless_m4t_medium", "llava_next_34b"])
 def test_cuda_smoke_train_step_matches_cpu(cuda_device, arch):
     """One ``make_train_step`` step of a SMOKE config with remat on, on the
     card and on the CPU from the same weights and batch: the kernels launch
@@ -762,6 +833,12 @@ def test_cuda_smoke_train_step_matches_cpu(cuda_device, arch):
     gen = torch.Generator().manual_seed(2)
     toks = torch.randint(0, cfg.vocab, (2, 65), generator=gen)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    frames = {"encdec": ("enc_embeds", 80), "vlm": ("patch_embeds",
+                                                   cfg.n_patches)}
+    if cfg.family in frames:             # the stub frontend's input
+        name, n = frames[cfg.family]
+        batch[name] = torch.randn((2, n, cfg.d_model), generator=gen
+                                  ).to(torch.bfloat16)
     out = []
     for dev in (cuda_device, torch.device("cpu")):
         model = init_params(cfg, torch.Generator().manual_seed(0), dev,
@@ -772,6 +849,8 @@ def test_cuda_smoke_train_step_matches_cpu(cuda_device, arch):
         out.append((float(m["loss"]), dict(model.named_parameters()),
                     (fa.LAUNCHES - before[0], ss.LAUNCHES - before[1])))
     n_attn = {"dense": cfg.n_layers, "ssm": 0, "moe": cfg.n_layers,
+              "vlm": cfg.n_layers,
+              "encdec": cfg.n_enc_layers + 2 * cfg.n_layers,
               "hybrid": cfg.n_layers // max(cfg.shared_every, 1)}[cfg.family]
     n_ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
     assert out[0][2] == (2 * n_attn, 2 * n_ssd) and out[1][2] == (0, 0)
@@ -907,3 +986,44 @@ def test_cuda_kernel_error_after_restore_reaches_caller(cuda_device,
     srv.close(deliver=False)
     mts.close()
     assert int(rs.store._inflight_waves) == 0
+
+
+def test_cuda_paged_kv_cache_equals_the_cpu_run(cuda_device):
+    """The paged cache on the card: appends (copy-on-write of forked tails
+    included), forks, releases and page reuse give the CPU run's state
+    leaf for leaf, and every gather the CPU's."""
+    from repro_torch.serve import kvcache as kv
+    cfg = kv.PagedConfig(n_layers=2, n_kv=2, head_dim=64, page=16,
+                         n_pages=24, max_pages_per_seq=8)
+    gen = torch.Generator().manual_seed(8)
+    toks = torch.randn((200, 2, 2, 2, 64), generator=gen)
+    states = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        st = kv.init_pool(cfg, 6, device=dev)
+        n = 0
+
+        def put(req):
+            nonlocal n
+            kv.append(cfg, st, (toks[n, 0].to(dev), toks[n, 1].to(dev)), req)
+            n += 1
+        for req, count in ((0, 37), (1, 16), (2, 5)):
+            for _ in range(count):
+                put(req)
+        for dst in (3, 4):
+            kv.fork(cfg, st, 0, dst)
+        for req in (3, 4, 0, 3):
+            put(req)
+        kv.release(cfg, st, 1)
+        kv.release(cfg, st, 2)
+        for _ in range(20):
+            put(5)
+        states[dev.type] = st
+    card, cpu = states["cuda"], states["cpu"]
+    for name in card:
+        assert torch.equal(card[name].cpu(), cpu[name]), name
+    assert kv.pool_stats(card) == kv.pool_stats(cpu)
+    for req in range(6):
+        for layer in range(cfg.n_layers):
+            for a, b in zip(kv.gather_kv(cfg, card, req, layer),
+                            kv.gather_kv(cfg, cpu, req, layer)):
+                assert torch.equal(a.cpu(), b)

@@ -20,8 +20,9 @@ six places a block (eight or nine an MoE block), added in quadrature over
 the blocks, each passed on doubled by a sub-layer downstream.  The prefill's last-position logits equal the token-by-token
 decode's within the same bounds (the MoE configs at capacity factor 8, as
 the reference's own ``tests/test_moe.py`` runs its no-drop case: the
-token path never drops, a prefill may), and the families not ported yet
-raise ``NotImplementedError`` naming ROADMAP A.11e.
+token path never drops, a prefill may), and the registry holds every
+assigned config (the encdec and vlm families have their own file,
+``tests/test_torch_families.py``).
 
 The MoE routing is compared exactly first (``Routing``): in float32 both
 sides choose the same experts for every token of every call.  In bf16 a
@@ -313,24 +314,15 @@ def test_expert_leaves_split_on_the_layer_axis():
         tree["dense_layers"]["mlp"]["wo"]["w"][0]))
 
 
-@pytest.mark.parametrize("change", [
-    dict(family="encdec", n_enc_layers=2), dict(family="vlm", n_patches=4)])
-def test_families_of_later_slices_raise(change):
-    cfg = dataclasses.replace(TC.smoke("internlm2_1_8b"), **change)
-    with pytest.raises(NotImplementedError, match="A.11e"):
-        init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="A.11e"):
-        init_cache(cfg, 1, 8, device="cpu")
-
-
 def test_registry_serves_the_ported_configs_only():
+    """The port's registry holds all ten architectures
+    (``tests/test_torch_families.py`` runs the encdec and vlm ones)."""
     assert TC.ARCH_IDS == RC.ARCH_IDS and TC.SHAPES == RC.SHAPES
-    assert sorted(TC.PORTED) == sorted(ARCHS)
-    for arch in ARCHS:
+    assert list(TC.PORTED) == TC.ARCH_IDS
+    for arch in TC.ARCH_IDS:
         for name in ("get", "smoke"):
             got, want = getattr(TC, name)(arch), getattr(RC, name)(arch)
             assert isinstance(got, ArchConfig)
             assert dataclasses.asdict(got) == dataclasses.asdict(want)
-    for arch in set(TC.ARCH_IDS) - set(TC.PORTED):
-        with pytest.raises(NotImplementedError, match="A.11e"):
-            TC.get(arch)
+    with pytest.raises(ValueError, match="unknown arch"):
+        TC.get("gpt_2")

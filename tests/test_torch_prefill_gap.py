@@ -1,5 +1,5 @@
 """Where the serving prefill and the token-by-token decode part in bf16, on
-the CPU, for the dense SMOKE configs.
+the CPU, for the dense SMOKE configs and the encoder-decoder's.
 
 The prefill's attention core is the flash kernel (its plain version here:
 q·kᵀ and the probabilities kept in float32, as the reference's TPU kernel
@@ -7,7 +7,10 @@ keeps them); the decode's is the materialised softmax, which rounds q·kᵀ
 and the probabilities to bf16 as the reference's model code does.  With
 the flash kernel's rounding on both paths the two agree exactly, so the
 whole distance between them is the core's rounding; it stays within
-``launch.serve.prefill_bound``.
+``launch.serve.prefill_bound``.  The encoder-decoder's token path takes its
+encoder K/V from the prefill's own encoder code (``chip_smoke
+.fill_cross_cache``), so the encoder adds nothing to the distance, and its
+decoder blocks part at their self- and cross-attention cores alone.
 
 Run as a script, it prints the measurements ``launch.serve.prefill_bound``
 rests on (PERF.md, its Findings):
@@ -16,7 +19,8 @@ rests on (PERF.md, its Findings):
     XLA_FLAGS=--xla_allow_excess_precision=false \\
         PYTHONPATH=src python tests/test_torch_prefill_gap.py
 
-the port's distance over 40 seeds and at depths 1-8; the relative error
+the port's distance over 40 seeds and at depths 1-8 (the encoder-decoder
+at decoder depths 1-8 too); the relative error
 block by block on one seed; and the JAX package's own two paths on the
 same weights (its Pallas flash kernel, in interpret mode, as the
 prefill's core, as on its TPU target, against its decode), whose rounding
@@ -24,6 +28,7 @@ XLA's excess precision changes."""
 import dataclasses
 import functools
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -36,16 +41,22 @@ from repro_torch.launch.serve import prefill_bound
 from repro_torch.models import decode_step, forward, init_cache, init_params
 from repro_torch.models import layers as TL
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import fill_cross_cache  # noqa: E402
+
 DENSE = ["internlm2_1_8b", "qwen15_4b", "mistral_nemo_12b",
          "phi3_medium_14b"]
+ENCDEC = "seamless_m4t_medium"
 SEQ = 32
 U = 2.0 ** -8
 
 
 def _float32(q, k, v, causal, q_offset):
     """The flash kernel's rounding on both paths: q·kᵀ and the
-    probabilities in float32, the output rounded once."""
-    if q_offset == 0 and q.shape[1] == k.shape[1]:
+    probabilities in float32, the output rounded once (routed as
+    ``models.layers._sdpa_core`` routes)."""
+    sq, sk = q.shape[1], k.shape[1]
+    if q_offset == 0 and (sq == sk or (not causal and sq > 1)):
         return fa.flash_attention_plain(q, k, v, causal)
     out = ref.mha_ref(q.float(), k.float(), v.float(), causal, q_offset)
     return out.to(q.dtype)
@@ -60,13 +71,25 @@ def _tokens(cfg):
         0, cfg.vocab, (2, SEQ)).astype(np.int32))
 
 
+def _frames(cfg):
+    """Seeded frame embeddings for an encoder-decoder, as many as the
+    decode cache has slots (the decode attends to every slot)."""
+    return torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, SEQ, cfg.d_model)).astype(np.float32))
+
+
 def gap(cfg, model) -> float:
     """Relative L2 distance of the prefill's last-position logits from the
     token-by-token decode's, over both rows."""
     toks = _tokens(cfg)
+    batch = {"tokens": toks}
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = _frames(cfg)
     with torch.inference_mode():
-        pre = forward(model, {"tokens": toks}, cfg, last_only=True)
+        pre = forward(model, batch, cfg, last_only=True)
         cache = init_cache(cfg, 2, SEQ, device="cpu")
+        if cfg.family == "encdec":
+            fill_cross_cache(model, cfg, cache, batch["enc_embeds"])
         for t in range(SEQ):
             logits, cache = decode_step(model, {"tokens": toks[:, t:t + 1]},
                                         cache, cfg)
@@ -74,7 +97,7 @@ def gap(cfg, model) -> float:
     return float((a - b).norm() / b.norm())
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + [ENCDEC])
 def test_the_prefill_gap_is_the_attention_core(arch, monkeypatch):
     cfg = TC.smoke(arch)
     model = _model(cfg, 3)
@@ -166,7 +189,7 @@ def _reference_paths(arch: str, model) -> tuple:
 
 
 def main() -> int:
-    for arch in DENSE:
+    for arch in DENSE + [ENCDEC]:
         cfg = TC.smoke(arch)
         g = np.array([gap(cfg, _model(cfg, s)) for s in range(3, 43)]) / U
         print(f"{arch}: 40 seeds, gap in u: min {g.min():.2f} median "
@@ -180,6 +203,13 @@ def main() -> int:
         print(f"phi3 SMOKE at depth {depth}: 20 seeds, largest gap "
               f"{g.max() / U:.2f} u, {g.max() / prefill_bound(cfg):.2f} of "
               f"the bound")
+    cfg1 = TC.smoke(ENCDEC)
+    for depth in (1, 2, 4, 8):
+        cfg = dataclasses.replace(cfg1, n_layers=depth, n_enc_layers=depth)
+        g = np.array([gap(cfg, _model(cfg, s)) for s in range(3, 23)])
+        print(f"seamless SMOKE at depth {depth} + {depth}: 20 seeds, largest "
+              f"gap {g.max() / U:.2f} u, {g.max() / prefill_bound(cfg):.2f} "
+              f"of the bound")
     for seed in (3, 4):
         stages = _trace(cfg0, _model(cfg0, seed))
         print(f"phi3 SMOKE seed {seed}, block by block (u): " + ", ".join(

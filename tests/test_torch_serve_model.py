@@ -3,8 +3,10 @@ the CPU against the JAX package: its prompts equal the ones the reference
 driver builds (the same ``generate``, LyreSplit and fused checkout wave),
 and its greedy tokens equal the reference's ``greedy_decode`` from the same
 carried weights, in float32 compute (both packages' ``COMPUTE_DTYPE``
-patched inside the test), for the dense, ssm, hybrid and moe families
-(OLMoE-1B-7B and DeepSeek-V2-Lite reduced).  Serve's prefill check
+patched inside the test), for the dense, ssm, hybrid, moe (OLMoE-1B-7B
+and DeepSeek-V2-Lite reduced) and vlm (LLaVA-NeXT-34B reduced: the
+reference's driver serves it from tokens alone, and so does the port's
+token path) families.  Serve's prefill check
 passes and reports no kernel launch on the CPU.  An MoE prefill at
 capacity factor 1.25 drops routed slots that the token path (B tokens a
 step) never drops, so for those configs serve's prefill logits are
@@ -95,7 +97,7 @@ def _reference_drops(tree, cfg, ctx, prompts) -> list:
 
 @pytest.mark.parametrize("arch", ["internlm2_1_8b", "mamba2_780m",
                                   "zamba2_2_7b", "olmoe_1b_7b",
-                                  "deepseek_v2_lite_16b"])
+                                  "deepseek_v2_lite_16b", "llava_next_34b"])
 def test_serve_driver_matches_the_reference(arch, monkeypatch):
     monkeypatch.setattr(RL, "COMPUTE_DTYPE", jnp.float32)
     monkeypatch.setattr(TL, "COMPUTE_DTYPE", torch.float32)
