@@ -190,14 +190,31 @@ Phases, each of which raises on failure:
     released and their pages reused; every state leaf equal to a CPU run
     of the same operations; appends and gathers timed on the host clock.
     Then ``flash_attention`` timed at the first inputs of each kind of
-    phases 20-21.
+    phases 20-21;
+23. the compile analysis (after phase 19, the training models freed) —
+    (b) three cells at the one-card sizes phases 12, 15 and 18 run
+    (Zamba2-2.7B's prefill at 4 × 4096, OLMoE-1B-7B's at 4 × 512,
+    InternLM2-1.8B's train step at 8 × 256): each step counted by
+    ``launch.op_count.analyze`` on ``meta`` tensors, then run on the card
+    with the model kernels and with their plain versions; the kernel
+    run's ms beside the roofline bound on the kernel path, and both runs'
+    peak device memory beside the count's estimate, which the plain run
+    (the same program, freed at the same points) must meet within
+    ``PEAK_RTOL``; flash timed at InternLM2's training shape; then (a)
+    ``launch.dryrun.main`` over all 10 configs × 4 shapes on ``meta``, run
+    since the build in ``DRYRUN_WORKERS`` background processes at the
+    lowest priority and collected here: 32 ``ok`` and 8 ``skipped``
+    (``long_500k`` on the full-attention configs) or the phase fails; the
+    records in ``chiprun_out/dryrun/``, ``launch.report``'s tables in
+    ``chiprun_out/dryrun_report.md``.
 
 Phases 3, 5, 6, 8, 11, 12, 14 (twice: from the tenants to the kill, and
 from the restore to the end), 15-17 and 21 (once a config), 18 (the
 uninterrupted and the interrupted run), 19 (its two steps) and 20 (from
 the prompt store to the prefill) each set every kernel's launch count to
 0 just before they drive their path and read the counts just after;
-launches made to compare or time a kernel fall outside those windows.
+launches made to compare or time a kernel fall outside those windows,
+and so do phase 23's.
 The kernels line's ``flash_attention`` launches are the sum over the
 model paths (phases 11, 15-18, 20 and 21), ``ssd_scan``'s over phases 11
 and 19, and ``gather_row_tiles``'s over phases 5, 18 and 19.
@@ -3820,6 +3837,245 @@ def phase_train_ssm(torch, np, seed: int, report: dict) -> None:
           f"{launches}; peak device memory {peak / 1e9:.2f} GB")
 
 
+# phase 23: the compile analysis.  The grid's meta traces are host work:
+# they run in DRYRUN_WORKERS background processes started after the build,
+# at the lowest priority, and phase 23 collects them; the three measured
+# cells are the one-card sizes phases 12, 15 and 18 run
+DRYRUN_WORKERS = 2
+ROOFLINE_CELLS = (("zamba2_2_7b", "prefill", LONG_BATCH, LONG_SEQ),
+                  ("olmoe_1b_7b", "prefill", SERVE_REQUESTS, SERVE_PROMPT),
+                  ("internlm2_1_8b", "train", TRAIN_BATCH, TRAIN_SEQ))
+PEAK_RTOL = 0.10        # the plain run's peak against the count's estimate
+
+
+def dryrun_cell(argv: list) -> tuple:
+    """One ``launch.dryrun.main`` call in a worker process, its own status
+    line kept out of the script's output: (its records, the wall clock
+    when it ended)."""
+    import io
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import dryrun
+    with contextlib.redirect_stdout(io.StringIO()):
+        return dryrun.main(argv), time.time()
+
+
+def dryrun_worker_init() -> None:
+    """A grid worker runs at the lowest priority on one torch thread, so
+    the phases that run meanwhile keep the host."""
+    import os
+    import torch
+    os.nice(19)
+    torch.set_num_threads(1)
+
+
+def start_dryrun_grid() -> tuple:
+    """Phase 23 (a) started: ``launch.dryrun.main`` over every
+    (architecture, shape) cell on ``meta`` (the train cells first), one
+    call a cell in a pool of ``DRYRUN_WORKERS`` spawned processes; returns
+    (the pool, the pending results, the wall clock at the start)."""
+    import multiprocessing
+    import shutil
+    from repro_torch import configs
+    out = ROOT / "chiprun_out" / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    order = {"train": 0, "prefill": 1, "decode": 2}
+    cells = sorted(((a, s) for a in configs.ARCH_IDS for s in configs.SHAPES),
+                   key=lambda c: (order[configs.SHAPES[c[1]]["kind"]]
+                                  + (c[1] == "long_500k")))
+    argvs = [["--arch", a, "--shape", s, "--out", str(out)] for a, s in cells]
+    pool = multiprocessing.get_context("spawn").Pool(
+        DRYRUN_WORKERS, initializer=dryrun_worker_init)
+    return pool, pool.map_async(dryrun_cell, argvs, chunksize=1), time.time()
+
+
+def phase_dryrun_grid(grid: tuple, report: dict) -> None:
+    """Phase 23 (a): the grid's records (under ``chiprun_out/dryrun/``)
+    collected from ``start_dryrun_grid``'s pool, which is then closed, and
+    ``launch.report.main``'s tables in ``chiprun_out/dryrun_report.md``.
+    Fails unless 32 cells are ok, 8 skipped (``long_500k`` on the eight
+    full-attention configs) and none is an error."""
+    import io
+    from repro_torch.launch import report as R
+    pool, pending, t0 = grid
+    t_wait = time.perf_counter()
+    done = pending.get(timeout=600)
+    waited = time.perf_counter() - t_wait
+    pool.close()
+    pool.join()
+    records = [r for recs, _ in done for r in recs]
+    seconds = max(end for _, end in done) - t0
+    out = ROOT / "chiprun_out" / "dryrun"
+    with contextlib.redirect_stdout(io.StringIO()):
+        text = R.main([str(out)])
+    (ROOT / "chiprun_out" / "dryrun_report.md").write_text(text + "\n")
+    records.sort(key=lambda r: (r["arch"], r["shape"]))
+    status = {k: sum(r["status"] == k for r in records)
+              for k in ("ok", "skipped", "error")}
+    for r in records:
+        if r["status"] != "ok":
+            print(f"dryrun {r['arch']:22s} {r['shape']:12s} {r['status']}"
+                  f" {r.get('error', r.get('reason', ''))[:100]}")
+            continue
+        rf, m = r["roofline"], r["memory"]
+        print(f"dryrun {r['arch']:22s} {r['shape']:12s} {rf['dominant']:7s} "
+              f"compute {rf['compute_s']:.3e} s, memory (kernels) "
+              f"{rf['memory_s_flash']:.3e} s, peak "
+              f"{m['peak_estimate_bytes'] / 1e9:.1f} GB, fits 80 GB "
+              f"{m['fits_card']} ({r['trace_s']} s traced)")
+    report["dryrun_grid"] = {
+        "seconds": seconds, "waited_s": waited, "workers": DRYRUN_WORKERS,
+        "status": status,
+        "cells": {f"{r['arch']}/{r['shape']}": {
+            k: r[k] for k in ("status", "trace_s", "n_ops", "memory",
+                              "roofline", "model_flops", "cast_bytes")
+            if k in r} for r in records}}
+    print(f"dryrun grid: {len(records)} cells in {seconds:.1f} s on "
+          f"{DRYRUN_WORKERS} background processes (phase 23 waited "
+          f"{waited:.1f} s for them): {status}; tables in "
+          "chiprun_out/dryrun_report.md")
+    if status != {"ok": 32, "skipped": 8, "error": 0}:
+        raise AssertionError(f"dry-run grid: {status}, expected 32 ok, 8 "
+                             f"skipped, 0 errors")
+
+
+def roofline_cell(torch, arch: str, kind: str, batch: int, seq: int,
+                  seed: int) -> dict:
+    """Phase 23 (b), one cell: the step counted by ``op_count.analyze`` on
+    ``meta``, then run on the card with the model kernels and with their
+    plain versions (``flash_attention``, and ``ssd_scan`` where the model
+    has SSD layers), each run's peak device memory from
+    ``reset_peak_memory_stats`` to its end against the count's estimate,
+    and the kernel run's time against the roofline bound on the kernel
+    path."""
+    from repro_torch import configs
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch import op_count, roofline
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import abstract_params
+    from repro_torch.serve.serve_step import make_prefill_step
+    from repro_torch.train import AdamW, make_train_step
+    cfg = configs.get(arch)
+
+    def inputs(device):
+        tokens = (torch.empty((batch, seq), dtype=torch.int32, device="meta")
+                  if device == "meta" else torch.randint(
+                      0, cfg.vocab, (batch, seq), dtype=torch.int32,
+                      generator=torch.Generator(device=device).manual_seed(
+                          seed + 7), device=device))
+        return ({"tokens": tokens, "labels": tokens.clone()}
+                if kind == "train" else {"tokens": tokens})
+
+    def step_and_args(model, device):
+        if kind == "train":
+            opt = AdamW()
+            return make_train_step(cfg, opt), (model, opt.init(model),
+                                               inputs(device))
+        return make_prefill_step(cfg, device=device), (model, inputs(device))
+
+    t0 = time.perf_counter()
+    abstract = abstract_params(cfg).requires_grad_(kind == "train")
+    step, args = step_and_args(abstract, "meta")
+    cost = op_count.analyze(step, *args)
+    del abstract, args
+    roof = roofline.roofline_from_cost(
+        cost, 1, roofline.flash_attention_io_bytes(cfg, seq, batch, kind, 1))
+    count_s = time.perf_counter() - t0
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    model = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed),
+                        DEVICE, trainable=kind == "train")
+    step, args = step_and_args(model, DEVICE)
+
+    def run():
+        out = step(*args)
+        torch.cuda.synchronize()
+        return out
+
+    def plain_scan(xs, bmat, cmat, dt, a, chunk=256):
+        ss.check_operands(xs, bmat, cmat, dt, a, chunk)
+        return ss.ssd_scan_plain(xs, bmat, cmat, dt, a, chunk)
+
+    def peak_of(ctx) -> int:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with ctx:
+            out = run()
+        del out
+        raw.append(torch.cuda.max_memory_allocated())
+        return raw[-1] - base
+
+    raw: list = []
+
+    ms = cuda_ms(torch, run, 2)               # after one warm-up run
+    kernel_peak = peak_of(contextlib.nullcontext())
+    plain = contextlib.ExitStack()
+    plain.enter_context(plain_flash(torch))
+    if cfg.ssd is not None:
+        plain.enter_context(swap_plain(ss, "ssd_scan", plain_scan))
+    plain_peak = peak_of(plain)
+    del model, args, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    est = cost.peak_estimate_bytes
+    out = {"arch": arch, "kind": kind, "batch": batch, "seq": seq,
+           "count_s": count_s, "n_ops": cost.n_ops, "flops": cost.flops,
+           "flops_by_dtype": cost.flops_by_dtype, "bytes": cost.bytes,
+           "attn_bytes": cost.attn_bytes, "cast_bytes": cost.cast_bytes,
+           "flash_io_bytes": roof.flash_io_bytes,
+           "compute_ms": 1e3 * roof.compute_s,
+           "memory_ms": 1e3 * roof.memory_s,
+           "memory_flash_ms": 1e3 * roof.memory_s_flash,
+           "bound_ms": 1e3 * roof.bound_s, "dominant": roof.dominant,
+           "ms": ms, "ms_over_bound": ms / (1e3 * roof.bound_s),
+           "argument_bytes": cost.argument_bytes,
+           "peak_estimate_bytes": est, "kernel_peak_bytes": kernel_peak,
+           "plain_peak_bytes": plain_peak,
+           "plain_peak_rel": (plain_peak - est) / est,
+           "allocated_before_bytes": base,
+           "max_memory_allocated_bytes": {"kernels": raw[0],
+                                          "plain": raw[1]}}
+    print(f"roofline {cfg.name} {kind} B {batch} x S {seq}: counted in "
+          f"{count_s:.1f} s ({cost.n_ops:,} ops, {cost.flops:.3e} FLOPs "
+          f"{ {k: f'{v:.3e}' for k, v in cost.flops_by_dtype.items()} }, "
+          f"{cost.bytes:.3e} B, casts {cost.cast_bytes:.3e} B); bound on the "
+          f"kernel path {out['bound_ms']:.3f} ms ({roof.dominant}: compute "
+          f"{out['compute_ms']:.3f}, memory {out['memory_flash_ms']:.3f} ms, "
+          f"materialised {out['memory_ms']:.3f}); measured {ms:.3f} ms "
+          f"({out['ms_over_bound']:.2f}x the bound)")
+    print(f"  peak memory: estimate {est / 1e9:.3f} GB (arguments "
+          f"{cost.argument_bytes / 1e9:.3f}); measured plain "
+          f"{plain_peak / 1e9:.3f} GB ({100 * out['plain_peak_rel']:+.2f}%), "
+          f"kernels {kernel_peak / 1e9:.3f} GB (max_memory_allocated "
+          f"{raw[1] / 1e9:.3f} and {raw[0] / 1e9:.3f} GB, "
+          f"{base / 1e9:.3f} GB allocated before the model)")
+    if abs(out["plain_peak_rel"]) > PEAK_RTOL:
+        raise AssertionError(f"{cfg.name} {kind}: the plain run's peak "
+                             f"{plain_peak} is not within {PEAK_RTOL:.0%} of "
+                             f"the count's estimate {est}")
+    return out
+
+
+def phase_roofline_cells(torch, seed: int, report: dict) -> None:
+    """Phase 23 (b): the three cells of ``ROOFLINE_CELLS``, then flash at
+    InternLM2-1.8B's training shape (B 8, S 256, 16 / 8 heads of 128, bf16,
+    causal) against its bound and ``scaled_dot_product_attention``."""
+    cells = {f"{a}/{k}": roofline_cell(torch, a, k, b, s, seed)
+             for a, k, b, s in ROOFLINE_CELLS}
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 9)
+    q, k, v = (torch.randn((TRAIN_BATCH, TRAIN_SEQ, h, 128), generator=gen,
+                           device=DEVICE, dtype=torch.bfloat16)
+               for h in (16, 8, 8))
+    train_flash = flash_timing(torch, q, k, v, True)
+    bound_and_print(torch, "flash_attention at internlm2's training shape",
+                    train_flash)
+    del q, k, v
+    report["roofline_cells"] = cells
+    report["train_shape_flash"] = train_flash
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3854,54 +4110,65 @@ def main(argv=None) -> int:
     gpu = gpu_line(torch)
     report["gpu"] = gpu
     phase_build(report)
-    phase_small(torch, np, report)
-    phase_segments(torch, np, report)
-    phase_gather_bitmap_small(torch, np, report)
-    phase_model_small(torch, report)
-    store, w, tree = make_store(np, args.seed, report)
-    waves = wave_traffic(np, args.seed, args.waves, store.graph.n_versions)
-    phase_main(torch, np, store, waves, report)
-    mean = phase_timing(torch, np, store, waves, report)
-    if args.profile:
-        fresh = wave_traffic(np, args.seed + 1, 8, store.graph.n_versions)
-        phase_profile(torch, store, fresh, report, "fresh")
-        phase_profile(torch, store, fresh, report, "repeat")
-    ds_vids = phase_dataset(torch, np, store, args.seed, report)
-    inputs = phase_analytics(torch, np, store, args.seed, report)
-    timed = phase_dataset_analytics_timing(torch, np, store, ds_vids, inputs,
-                                           report)
-    del store, inputs           # the read path's store and superblock go
-    gc.collect()
-    torch.cuda.empty_cache()
-    captured = phase_write(torch, np, w, tree, args.seed,
-                           dict(TRIGGER, min_waves=args.min_waves), report)
-    seg = phase_write_timing(torch, np, captured, report)
-    del captured
-    phase_durable(torch, np, w, tree, args.seed, gpu, report)
-    del w, tree
-    gc.collect()
-    torch.cuda.empty_cache()
-    model = phase_serve(torch, args.seed, report)
-    model_inputs = phase_long_prefill(torch, model, args.seed, report)
-    phase_model_profile(torch, model, args.seed, report)
-    del model
-    gc.collect()
-    torch.cuda.empty_cache()
-    model_t = phase_model_timing(torch, model_inputs, report)
-    family_inputs = phase_families(torch, args.seed, report)
-    phase_family_flash_timing(torch, family_inputs, report)
-    gc.collect()
-    torch.cuda.empty_cache()
-    encdec_inputs = phase_encdec_serve(torch, args.seed, report)
-    vlm_inputs = phase_vlm_serve(torch, args.seed, report)
-    phase_new_family_flash_timing(torch, encdec_inputs, vlm_inputs, report)
-    del encdec_inputs, vlm_inputs
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_train_dense(torch, np, args.seed, report)
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_train_ssm(torch, np, args.seed, report)
+    grid = start_dryrun_grid()          # phase 23 (a), in the background
+    try:
+        phase_small(torch, np, report)
+        phase_segments(torch, np, report)
+        phase_gather_bitmap_small(torch, np, report)
+        phase_model_small(torch, report)
+        store, w, tree = make_store(np, args.seed, report)
+        waves = wave_traffic(np, args.seed, args.waves,
+                             store.graph.n_versions)
+        phase_main(torch, np, store, waves, report)
+        mean = phase_timing(torch, np, store, waves, report)
+        if args.profile:
+            fresh = wave_traffic(np, args.seed + 1, 8, store.graph.n_versions)
+            phase_profile(torch, store, fresh, report, "fresh")
+            phase_profile(torch, store, fresh, report, "repeat")
+        ds_vids = phase_dataset(torch, np, store, args.seed, report)
+        inputs = phase_analytics(torch, np, store, args.seed, report)
+        timed = phase_dataset_analytics_timing(torch, np, store, ds_vids,
+                                               inputs, report)
+        del store, inputs           # the read path's store and superblock go
+        gc.collect()
+        torch.cuda.empty_cache()
+        captured = phase_write(torch, np, w, tree, args.seed,
+                               dict(TRIGGER, min_waves=args.min_waves),
+                               report)
+        seg = phase_write_timing(torch, np, captured, report)
+        del captured
+        phase_durable(torch, np, w, tree, args.seed, gpu, report)
+        del w, tree
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = phase_serve(torch, args.seed, report)
+        model_inputs = phase_long_prefill(torch, model, args.seed, report)
+        phase_model_profile(torch, model, args.seed, report)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        model_t = phase_model_timing(torch, model_inputs, report)
+        family_inputs = phase_families(torch, args.seed, report)
+        phase_family_flash_timing(torch, family_inputs, report)
+        gc.collect()
+        torch.cuda.empty_cache()
+        encdec_inputs = phase_encdec_serve(torch, args.seed, report)
+        vlm_inputs = phase_vlm_serve(torch, args.seed, report)
+        phase_new_family_flash_timing(torch, encdec_inputs, vlm_inputs,
+                                      report)
+        del encdec_inputs, vlm_inputs
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_train_dense(torch, np, args.seed, report)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_train_ssm(torch, np, args.seed, report)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_roofline_cells(torch, args.seed, report)
+        phase_dryrun_grid(grid, report)
+    finally:
+        grid[0].terminate()             # stops its workers, done or not
     report["total_s"] = time.perf_counter() - t_all
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -13,7 +13,10 @@ names by dtype and Dh alone: ``"wgmma"`` (bfloat16 with Dh a multiple of
 ``"mma_sync"`` (the other bfloat16 head dims) or ``"fma"`` (float32 on the
 CUDA cores).  TMA reads from 16-byte boundaries, so the wrapper copies an
 operand that starts off one.  A CPU tensor runs
-``flash_attention_plain``, the materialised softmax in float32.  All keep
+``flash_attention_plain``, the materialised softmax in float32, and so
+does a ``meta`` tensor (shape and dtype, no storage: the dry run's
+``launch.op_count`` counts it, its products keyed by the operands' dtype,
+which the kernel runs them in).  All keep
 the probabilities in float32 for ``p·v``, as the TPU kernel does (the bf16
 instances carry them as a hi + lo pair of bf16 terms, 16 significant
 bits); the JAX package's model code rounds them to bf16 first.  Sums run
@@ -30,6 +33,7 @@ from __future__ import annotations
 
 import torch
 
+from ..launch.op_count import plain_kernel
 from . import build
 from .build import PlanError
 
@@ -95,12 +99,13 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """(B, Sq, H, Dh) attention output on q's device, ONE launch: the CUDA
-    kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    kernel for a CUDA tensor, the plain version for a CPU or meta
+    tensor."""
     check_operands(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal)
+    if q.device.type in ("cpu", "meta"):
+        return plain_kernel(flash_attention_plain, q.dtype, q, k, v, causal)
     if q.device.type != "cuda":
-        raise PlanError(f"flash_attention runs on cuda or cpu, not "
+        raise PlanError(f"flash_attention runs on cuda, cpu or meta, not "
                         f"{q.device}")
     return _launch(_aligned(q), _aligned(k), _aligned(v), causal)
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..launch.op_count import attn_core, replay
 from . import build as _build
 from . import checkout_batched as _cb
 from . import checkout_gather as _cg
@@ -386,7 +387,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o = ctx.saved_tensors
-        return (*_flash_bwd(q, k, v, o, do, ctx.causal), None)
+        with attn_core:
+            return (*replay(_flash_bwd, q, k, v, o, do, ctx.causal), None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -413,19 +415,26 @@ class _SSDScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dstate):
-        from ..models.ssd import chunk_scan
-        need = ctx.needs_input_grad[:5]
-        inputs = [t.detach().requires_grad_(n)
-                  for t, n in zip(ctx.saved_tensors, need)]
-        with torch.enable_grad():
-            y, state = chunk_scan(*inputs, ctx.chunk)
-        outs = [(t, g) for t, g in ((y, dy), (state, dstate))
-                if g is not None]
-        wrt = [t for t, n in zip(inputs, need) if n]
-        grads = iter(torch.autograd.grad([t for t, _ in outs],
-                                         wrt, [g for _, g in outs],
-                                         allow_unused=True))
-        return (*(next(grads) if n else None for n in need), None)
+        with attn_core:
+            return (*replay(_ssd_bwd, *ctx.saved_tensors, ctx.chunk,
+                            ctx.needs_input_grad[:5], dy, dstate), None)
+
+
+def _ssd_bwd(xs, bmat, cmat, dt, a, chunk: int, need: tuple, dy, dstate):
+    """The gradients of ``(xs, bmat, cmat, dt, a)`` (None where ``need``
+    says none is wanted) from the cotangents of y and the final state:
+    ``models.ssd.chunk_scan`` recomputed and differentiated."""
+    from ..models.ssd import chunk_scan
+    inputs = [t.detach().requires_grad_(n)
+              for t, n in zip((xs, bmat, cmat, dt, a), need)]
+    with torch.enable_grad():
+        y, state = chunk_scan(*inputs, chunk)
+    outs = [(t, g) for t, g in ((y, dy), (state, dstate)) if g is not None]
+    wrt = [t for t, n in zip(inputs, need) if n]
+    grads = iter(torch.autograd.grad([t for t, _ in outs], wrt,
+                                     [g for _, g in outs],
+                                     allow_unused=True))
+    return tuple(next(grads) if n else None for n in need)
 
 
 def ssd_scan(xs, bmat, cmat, dt, a, chunk: int = 256):

@@ -18,7 +18,9 @@ on one stream (chunk states, state passing, chunk outputs) counted as one
 launch, with the chunk states in a float32 scratch the wrapper allocates;
 float32 runs one block per (batch, head) that walks its chunks with float32
 FMAs.  A CPU tensor runs ``ssd_scan_plain``, the same three passes in
-float32 torch.
+float32 torch, and so does a ``meta`` tensor (shape and dtype, no storage:
+the dry run's ``launch.op_count`` counts it, its products keyed by xs's
+dtype, which the kernel runs them in).
 
 The contract is the TPU kernel's (``repro.kernels.ssd_scan``): L is a
 multiple of the chunk ``Q = min(chunk, L)``; and the CUDA kernel's
@@ -30,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from ..launch.op_count import plain_kernel
 from . import build
 from .build import PlanError
 
@@ -149,12 +152,13 @@ def ssd_scan(xs, bmat, cmat, dt, a, chunk: int = 256
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """(y (B, L, H, P) in xs's dtype, final state (B, H, P, N) float32) on
     xs's device, ONE launch: the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor."""
+    version for a CPU or meta tensor."""
     q = check_operands(xs, bmat, cmat, dt, a, chunk)
-    if xs.device.type == "cpu":
-        return ssd_scan_plain(xs, bmat, cmat, dt, a, q)
+    if xs.device.type in ("cpu", "meta"):
+        return plain_kernel(ssd_scan_plain, xs.dtype, xs, bmat, cmat, dt, a,
+                            q)
     if xs.device.type != "cuda":
-        raise PlanError(f"ssd_scan runs on cuda or cpu, not {xs.device}")
+        raise PlanError(f"ssd_scan runs on cuda, cpu or meta, not {xs.device}")
     return _launch(*(t.contiguous() for t in (xs, bmat, cmat, dt, a)), q)
 
 

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops, ref
+from ..launch.op_count import attn_core
 
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32
@@ -155,11 +156,13 @@ def _sdpa_core(q, k, v, causal: bool, q_offset: int) -> torch.Tensor:
     many queries as keys, or non-causal with more than one query: the
     kernel's causal mask aligns the first query with the first key); else
     the reference's materialised softmax, its probabilities rounded to q's
-    dtype before ``p·v``."""
+    dtype before ``p·v``.  Both are the reference's ``attn_core`` scope
+    (``launch.op_count.attn_core``)."""
     sq, sk = q.shape[1], k.shape[1]
-    if q_offset == 0 and (sq == sk or (not causal and sq > 1)):
-        return ops.flash_attention(q, k, v, causal=causal)
-    return ref.mha_ref(q, k, v, causal, q_offset)
+    with attn_core:
+        if q_offset == 0 and (sq == sk or (not causal and sq > 1)):
+            return ops.flash_attention(q, k, v, causal=causal)
+        return ref.mha_ref(q, k, v, causal, q_offset)
 
 
 def attention(p: Attention, x: torch.Tensor, cfg: AttnConfig,

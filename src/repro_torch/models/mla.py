@@ -28,6 +28,7 @@ from torch import nn
 
 from ..kernels import ops, ref
 from ..kernels.build import PlanError
+from ..launch.op_count import attn_core
 from . import layers as L
 
 
@@ -104,7 +105,8 @@ def mla_attention(p: MLA, x: torch.Tensor, cfg: MLAConfig,
 
     if cache is None:
         k, v = _expand_kv(p, c_kv, k_rope, cfg)
-        out = _prefill_core(q, k, v)
+        with attn_core:
+            out = _prefill_core(q, k, v)
         new_cache = None
     else:
         idx = int(cache["len"])
@@ -117,5 +119,6 @@ def mla_attention(p: MLA, x: torch.Tensor, cfg: MLAConfig,
         full = buf.to(x.dtype)
         k, v = _expand_kv(p, full[..., :cfg.kv_lora], full[..., cfg.kv_lora:],
                           cfg)
-        out = ref.mha_ref(q, k, v, causal=True, q_offset=idx)
+        with attn_core:
+            out = ref.mha_ref(q, k, v, causal=True, q_offset=idx)
     return L.dense(p.wo, out.reshape(b, s, h * dv)), new_cache

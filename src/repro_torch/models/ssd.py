@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
+from ..launch.op_count import attn_core
 from .layers import Dense, dense, param, rms_norm
 
 
@@ -159,8 +160,9 @@ def ssd_forward(p: SSD, x: torch.Tensor, cfg: SSDConfig):
     a = -torch.exp(p.A_log)                                     # (H,)
     # dt reaches the scan rounded to the compute dtype, as the reference's
     # scan carries it
-    y, h_final = ops.ssd_scan(xs, bmat, cmat, dt.to(x.dtype), a,
-                              chunk=cfg.chunk)
+    with attn_core:                 # the reference's chunk_step scope
+        y, h_final = ops.ssd_scan(xs, bmat, cmat, dt.to(x.dtype), a,
+                                  chunk=cfg.chunk)
     y = y + p.D.to(x.dtype)[None, None, :, None] * xs
     y = y.reshape(b, l, cfg.d_inner)
     y = y * F.silu(z)

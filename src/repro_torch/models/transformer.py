@@ -236,6 +236,22 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
         trainable)
 
 
+def abstract_params(cfg: ArchConfig) -> Model:
+    """The model's parameters as ``meta`` tensors (shape and dtype, no
+    storage): the port of ``repro.models.transformer.abstract_params``,
+    whose ``ShapeDtypeStruct`` tree it stands for.  ``Model`` takes the
+    device as given (``resolve_device`` refuses ``meta``)."""
+    return Model(cfg, None, torch.device("meta"))
+
+
+def count_params(model) -> int:
+    """Parameters of ``model`` (a ``Model``, or a dict of tensors by
+    name), counted as the reference's ``count_params`` sums its leaves."""
+    named = (dict(model.named_parameters())
+             if isinstance(model, nn.Module) else dict(model))
+    return int(sum(t.numel() for t in named.values()))
+
+
 def _embed(params: Model, tokens: torch.Tensor) -> torch.Tensor:
     return params.embed[tokens.long()].to(L.COMPUTE_DTYPE)
 

@@ -5,7 +5,8 @@ eagerly; there is nothing to jit), run under ``torch.inference_mode``.
 
 Each step runs on ``device`` (the card unless the caller names the CPU),
 resolved when it is called: the parameters must already be there, and the
-tokens are moved there.
+tokens are moved there.  ``device="meta"`` runs it on shapes alone, with
+no storage and nothing computed (the dry run, ``launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ from ..sharding import MeshContext
 
 
 def _on(device, params, t: torch.Tensor) -> torch.Tensor:
-    dev = resolve_device(device)
+    meta = device is not None and torch.device(device).type == "meta"
+    dev = torch.device("meta") if meta else resolve_device(device)
     if params.embed.device.type != dev.type:
         raise ValueError(f"parameters on {params.embed.device}, step on "
                          f"{dev}")
