@@ -206,18 +206,37 @@ Phases, each of which raises on failure:
     lowest priority and collected here: 32 ``ok`` and 8 ``skipped``
     (``long_500k`` on the full-attention configs) or the phase fails; the
     records in ``chiprun_out/dryrun/``, ``launch.report``'s tables in
-    ``chiprun_out/dryrun_report.md``.
+    ``chiprun_out/dryrun_report.md``;
+24. the mesh (after phase 19, before phase 23) — a one-rank NCCL group
+    and a (pod, data, model) = (1, 1, 1) ``DeviceMesh`` through
+    ``launch.mesh.make_mesh`` (no other backend is tried), InternLM2-1.8B
+    at full size laid out by ``param_specs`` (FSDP DTensors), residuals
+    from ``ef_init``, 3 steps of 8 × 256 seeded tokens through the
+    compressed train step (``grad_compress=True``: the int8 exchange over
+    "pod"): the first step's residuals against ``g − round(g/s)·s`` from
+    ``accumulate_grads`` on the same weights and batch (``g``) and the
+    reference leaf's scale ``s``, taken apart from the step in plain torch
+    (``residual_check``), ``|e| ≤ s/2``; its loss against that plain
+    loss; later losses finite; 48 flash launches a step; then a
+    checkpoint of the phase's one-device state (layer 0's and the final
+    norm's parameters and residuals) restored onto the NCCL mesh by
+    ``elastic_reshard``, bit-exact; ms a step beside phase 18's, the
+    residuals' bytes and the peak memory; the group freed.  One card
+    holds one NCCL rank (NCCL refuses two ranks on one device), so the
+    numerics across ranks are held on the CPU by gloo ranks
+    (``tests/test_torch_data_parallel.py``), as the reference holds its
+    own on faked host devices.
 
 Phases 3, 5, 6, 8, 11, 12, 14 (twice: from the tenants to the kill, and
 from the restore to the end), 15-17 and 21 (once a config), 18 (the
-uninterrupted and the interrupted run), 19 (its two steps) and 20 (from
-the prompt store to the prefill) each set every kernel's launch count to
-0 just before they drive their path and read the counts just after;
-launches made to compare or time a kernel fall outside those windows,
-and so do phase 23's.
+uninterrupted and the interrupted run), 19 (its two steps), 20 (from
+the prompt store to the prefill) and 24 (its three steps) each set every
+kernel's launch count to 0 just before they drive their path and read the
+counts just after; launches made to compare or time a kernel fall outside
+those windows, and so do phase 23's.
 The kernels line's ``flash_attention`` launches are the sum over the
-model paths (phases 11, 15-18, 20 and 21), ``ssd_scan``'s over phases 11
-and 19, and ``gather_row_tiles``'s over phases 5, 18 and 19.
+model paths (phases 11, 15-18, 20, 21 and 24), ``ssd_scan``'s over phases
+11 and 19, and ``gather_row_tiles``'s over phases 5, 18 and 19.
 TF32 is off (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` False): the float32 plain versions
 compare in full float32.
@@ -3841,6 +3860,196 @@ def phase_train_ssm(torch, np, seed: int, report: dict) -> None:
 # they run in DRYRUN_WORKERS background processes started after the build,
 # at the lowest priority, and phase 23 collects them; the three measured
 # cells are the one-card sizes phases 12, 15 and 18 run
+MESH_STEPS = 3                    # phase 24's compressed steps
+RESIDUAL_TOL = 1e-3               # a residual's agreement, in its scale
+HALF_POINT = 1e-3                 # a flip's distance from a half-point
+FLIP_SHARE = 0.01                 # flips a leaf may hold
+MESH_LOSS_RTOL = 1e-6             # the step's first loss vs the plain one
+E_SLACK = 127 * 2.0 ** -23        # |e| / s past 1/2: q·s rounds in float32
+
+
+def residual_check(torch, ef, g_host: dict, amax: dict) -> dict:
+    """The compressed step's residuals after one step from zero against
+    ``g − round(g/s)·s`` in plain torch, ``g`` a parameter's gradient by
+    ``accumulate_grads`` on the same weights and batch (kept on the host)
+    and ``s`` the scale of its reference leaf (a stack's layers share
+    theirs: the leaf's largest |g| / 127 + 1e-12, as ``quantize_int8``).
+    The embedding's backward adds with atomics, so ``g`` differs from the
+    step's in its last bits: an element's ``q`` may flip where ``g / s``
+    lies at a rounding half-point.  Away from flips the residual agrees
+    within ``RESIDUAL_TOL`` of ``s``; every flip lies within
+    ``HALF_POINT`` of a half-point, and flips are at most ``FLIP_SHARE``
+    of a leaf.  Every residual holds ``|e| ≤ s/2`` but for ``E_SLACK``
+    of ``s`` (``target − q·s`` rounds q·s, up to 127 s, in float32)."""
+    from repro_torch.models.convert import reference_path
+    from repro_torch.sharding import local
+    groups: dict = {}
+    for n, a in amax.items():
+        path = reference_path(n)
+        groups[path] = torch.maximum(groups[path], a) if path in groups \
+            else a
+    out = {"leaves": 0, "flips": 0, "worst_rel": 0.0, "max_e_over_s": 0.0}
+    for n, g in g_host.items():
+        s = groups[reference_path(n)] / 127.0 + 1e-12
+        g = g.to(DEVICE)
+        want = g - torch.round(g / s) * s
+        e = local(ef[n])[0]
+        diff = (e - want).abs()
+        flip = diff > 0.5 * s
+        frac = (g / s)[flip]
+        near = ((frac - torch.floor(frac)) - 0.5).abs()
+        rest = diff[~flip]
+        worst = float(rest.max() / s) if rest.numel() else 0.0
+        e_over_s = float(e.abs().max() / s)
+        n_flip = int(flip.sum())
+        if (worst > RESIDUAL_TOL or bool((near > HALF_POINT).any())
+                or n_flip > max(1, FLIP_SHARE * e.numel())
+                or e_over_s > 0.5 + E_SLACK):
+            raise AssertionError(f"{n}: residual off by {worst:.2e} of its "
+                                 f"scale, {n_flip} flips, |e|/s "
+                                 f"{e_over_s:.6f}")
+        out["leaves"] += 1
+        out["flips"] += n_flip
+        out["worst_rel"] = max(out["worst_rel"], worst)
+        out["max_e_over_s"] = max(out["max_e_over_s"], e_over_s)
+        del g, want, e, diff
+    return out
+
+
+def phase_train_compressed(torch, np, seed: int, gpu: str,
+                           report: dict) -> None:
+    """Phase 24: InternLM2-1.8B at full size on a one-rank NCCL mesh
+    through the compressed train step, its residuals held against a plain
+    recomputation, and an elastic restore onto the mesh."""
+    import shutil
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_mesh, mesh_shape
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import param_specs
+    from repro_torch.sharding import distribute, local, make_ctx, whole
+    from repro_torch.train import (AdamW, CheckpointStore, accumulate_grads,
+                                   cosine_schedule, ef_init, ef_specs,
+                                   elastic_reshard, make_train_step)
+    cfg = configs.get(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh((1, 1, 1), ("pod", "data", "model"), DEVICE)
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    if dist.get_backend() != backend:
+        raise AssertionError(f"the mesh's group is {dist.get_backend()}, "
+                             f"not {backend}")
+    ctx = make_ctx(mesh)
+    model = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed),
+                        DEVICE, trainable=True)
+    rng = np.random.default_rng(seed + 24)
+    batches = []
+    for _ in range(MESH_STEPS):
+        toks = rng.integers(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1)
+                            ).astype(np.int32)
+        batches.append({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    # g and the plain loss, apart from the step, on the same weights and
+    # the first batch; g waits on the host
+    loss_plain, g = accumulate_grads(model, batches[0], cfg)
+    loss_plain = float(loss_plain)
+    amax = {n: t.abs().max() for n, t in g.items()}
+    g_host = {n: t.detach().cpu() for n, t in g.items()}
+    del g
+    gc.collect()
+    torch.cuda.empty_cache()
+    distribute(model, param_specs(cfg), mesh)
+    opt = AdamW(lr=cosine_schedule(3e-4, warmup=10, total=TRAIN_STEPS))
+    state = opt.init(model)
+    ef = ef_init(model, 1, ctx)
+    step = make_train_step(cfg, opt, grad_compress=True, ctx=ctx)
+    ef_bytes = sum(4 * e.numel() for e in ef.values())
+    losses, norms, step_s = [], [], []
+    zero_launch_counts()                      # the compressed path's window
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, state, ef, m = step(model, state, ef, b)
+        losses.append(float(m["loss"]))       # waits for the step
+        step_s.append(time.perf_counter() - t0)
+        norms.append(float(m["grad_norm"]))
+        if i == 0:                            # plain torch: no kernel
+            check = residual_check(torch, ef, g_host, amax)
+            del g_host, amax
+    launches = launch_counts()                # the window closes
+    peak = torch.cuda.max_memory_allocated()
+    loss_rel = abs(losses[0] - loss_plain) / abs(loss_plain)
+    want = MESH_STEPS * cfg.n_layers * (2 if cfg.remat else 1)
+    if loss_rel > MESH_LOSS_RTOL or not all(
+            math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"compressed step losses {losses} (plain "
+                             f"{loss_plain}), grad norms {norms}")
+    if launches["flash_attention"] != want or launches["ssd_scan"]:
+        raise AssertionError(f"compressed training launches {launches}, "
+                             f"expected {want} flash_attention")
+    # the one-device state of layer 0 and the final norm, onto the mesh
+    names = [n for n, _ in model.named_parameters()
+             if n.startswith("layers.0.") or n == "final_norm"]
+    one = {"params": {n: local(dict(model.named_parameters())[n]).detach()
+                      .clone() for n in names},
+           "ef": {n: local(ef[n]).clone() for n in names}}
+    specs = {n: param_specs(cfg)[n] for n in names}
+    ckpt_dir = ROOT / "build" / "mesh_ckpt_phase24"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        store = CheckpointStore(str(ckpt_dir), shard_rows=1 << 12)
+        vid = store.save(step=MESH_STEPS, tree=one, meta={"cursor": 3})
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = elastic_reshard(store, vid, mesh,
+                               {"params": specs, "ef": ef_specs(specs)},
+                               treedef_like=one)
+        torch.cuda.synchronize()
+        reshard_s = time.perf_counter() - t0
+        bitexact = all(
+            torch.equal(whole(back[k][n]), one[k][n])
+            and back[k][n].device_mesh == mesh for k in one for n in names)
+        ckpt_bytes = sum(4 * t.numel() for k in one for t in one[k].values())
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if not bitexact:
+        raise AssertionError("elastic_reshard onto the NCCL mesh differs "
+                             "from the saved state")
+    ms_step = 1e3 * float(np.mean(step_s[1:]))
+    plain_ms = report.get("train_dense", {}).get("ms_per_step")
+    report["train_compressed"] = {
+        "arch": cfg.name, "mesh": mesh_shape(mesh), "backend": backend,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": MESH_STEPS,
+        "losses": losses, "grad_norms": norms, "step_s": step_s,
+        "loss_plain": loss_plain, "loss_rel": loss_rel,
+        "residuals": check, "ms_per_step": ms_step,
+        "plain_step_ms_phase18": plain_ms, "residual_bytes": ef_bytes,
+        "peak_memory_bytes": peak, "launches": launches,
+        "reshard": {"leaves": 2 * len(names), "bytes": ckpt_bytes,
+                    "save_s": save_s, "reshard_s": reshard_s,
+                    "bitexact": bitexact}, "gpu": gpu}
+    del model, state, ef, back, one, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    print(f"mesh: {mesh_shape(mesh)} over one {backend} rank; {cfg.name} "
+          f"through "
+          f"the compressed step, {MESH_STEPS} steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}: losses {[round(x, 4) for x in losses]} (the first "
+          f"vs the plain loss rel {loss_rel:.1e}), grad norms "
+          f"{[round(x, 3) for x in norms]}")
+    print(f"residuals vs g - round(g/s)*s: {check['leaves']} leaves, "
+          f"{check['flips']} flips, worst {check['worst_rel']:.2e} of s "
+          f"elsewhere, max |e|/s {check['max_e_over_s']:.6f}; elastic "
+          f"restore of {2 * len(names)} leaves ({ckpt_bytes / 1e6:.0f} MB) "
+          f"onto the mesh bit-exact {bitexact} (save {save_s:.1f} s, "
+          f"restore {reshard_s:.1f} s)")
+    print(f"compressed step {ms_step:.1f} ms after the first "
+          f"({1e3 * step_s[0]:.1f} ms), phase 18's plain step "
+          f"{plain_ms if plain_ms is None else round(plain_ms, 1)} ms; "
+          f"residuals {ef_bytes / 1e9:.2f} GB; peak device memory "
+          f"{peak / 1e9:.2f} GB; launches {launches}; {gpu}")
+
+
 DRYRUN_WORKERS = 2
 ROOFLINE_CELLS = (("zamba2_2_7b", "prefill", LONG_BATCH, LONG_SEQ),
                   ("olmoe_1b_7b", "prefill", SERVE_REQUESTS, SERVE_PROMPT),
@@ -4165,6 +4374,9 @@ def main(argv=None) -> int:
         phase_train_ssm(torch, np, args.seed, report)
         gc.collect()
         torch.cuda.empty_cache()
+        phase_train_compressed(torch, np, args.seed, gpu, report)
+        gc.collect()
+        torch.cuda.empty_cache()
         phase_roofline_cells(torch, args.seed, report)
         phase_dryrun_grid(grid, report)
     finally:
@@ -4184,7 +4396,8 @@ def main(argv=None) -> int:
             **{k: seg[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "library_ms")},
             bound_by="bytes")
-    train = [report[k]["launches"] for k in ("train_dense", "train_ssm")]
+    train = [report[k]["launches"] for k in ("train_dense", "train_ssm",
+                                             "train_compressed")]
     for name, path in (("gather_row_tiles", "dataset"),
                        ("gather_rows", "dataset"),
                        ("membership_scan", "analytics"),

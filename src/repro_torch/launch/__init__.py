@@ -1,1 +1,2 @@
-"""Launch drivers of the port (``serve``) and its one-device mesh."""
+"""Launch drivers of the port (``serve``, ``train``, ``dryrun``) and its
+mesh over ``torch.distributed``."""

@@ -49,9 +49,10 @@ MESHES = ("host",)
 
 def check_mesh(mesh_kind: str) -> None:
     if mesh_kind not in MESHES:
-        raise ValueError(f"--mesh {mesh_kind}: the port runs on one card "
-                         "(--mesh host); the 256- and 512-chip meshes wait "
-                         "for ROADMAP A.11f")
+        raise ValueError(f"--mesh {mesh_kind}: the count runs on one card "
+                         "(--mesh host); the 256- and 512-chip meshes, "
+                         "whose model axis is 16, wait for ROADMAP "
+                         "A.11f-2")
 
 
 def active_params(cfg, abstract) -> float:

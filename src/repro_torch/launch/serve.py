@@ -57,8 +57,7 @@ from ..models.transformer import (ArchConfig, _embed, check_supported,
                                   init_cache, init_params)
 from ..serve.checkout import BatchedCheckoutServer
 from ..serve.serve_step import make_prefill_step, make_serve_step
-from ..sharding import make_ctx
-from .mesh import make_host_mesh
+from .mesh import host_mesh_shape
 from .train import reduced_config
 
 ROUNDINGS_PER_BLOCK = 6   # norm, projections, conv or probabilities, gate, out
@@ -146,7 +145,7 @@ def prompt_store(vocab: int, *, requests: int, prompt_len: int,
     reps = -(-requests // len(pool))               # cycle to fill the batch
     rows = np.tile(pool, (reps, 1))[:requests]
     rows = rows[:, :prompt_len] % vocab
-    log(f"mesh={make_host_mesh(ds.store.device).shape} serving {len(rows)} "
+    log(f"mesh={host_mesh_shape()} serving {len(rows)} "
         f"requests from prompt CVD versions {vids} "
         f"({server.stats.waves} checkout wave)")
     return rows.astype(np.int32)
@@ -226,7 +225,7 @@ def serve(cfg: ArchConfig, *, requests: int = 16, prompt_len: int = 64,
     prompts = torch.from_numpy(rows).to(dev)
     b = prompts.shape[0]
     max_len = prompt_len + decode_steps
-    step = make_serve_step(cfg, make_ctx(), device=dev)
+    step = make_serve_step(cfg, None, device=dev)
 
     before = _launches()
     cache = init_cache(cfg, b, max_len, device=dev)
@@ -251,7 +250,7 @@ def serve(cfg: ArchConfig, *, requests: int = 16, prompt_len: int = 64,
     launches = {"fill_decode": _since(before)}
     dropped = {"fill_decode": sum(MOE.drop_counts(fill_drops))}
 
-    prefill = make_prefill_step(cfg, make_ctx(), device=dev)
+    prefill = make_prefill_step(cfg, None, device=dev)
     batch = {"tokens": prompts}
     if cfg.family == "vlm":
         batch["patch_embeds"] = _embed(params, prompts[:, :cfg.n_patches])

@@ -20,9 +20,22 @@ Fault tolerance exercised here:
                 preempted job would.
   * straggler:  --straggler-p simulates slow hosts; StragglerPolicy drops
                 and re-enqueues their shards deterministically.
-The mesh is the one card (``--mesh host``); the reference's production
-meshes and its elastic restore onto another mesh wait for the multi-card
-slice (ROADMAP A.11f).
+The mesh (``--mesh host``) is the data axis of the ranks the environment
+starts, as ``torchrun`` sets ``RANK``/``WORLD_SIZE``; one rank is the
+default and trains with no process group.  Several ranks each check out
+the same deterministic global batch and train on their own rows of it
+(``train.train_step``), the parameters, AdamW moments and checkpoints
+FSDP-sharded over the ranks; only rank 0 prints and writes checkpoints.
+On the CPU:
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch internlm2_1_8b --reduced --device cpu --steps 4 --batch 4
+
+(gloo); on the card each rank takes the device of its ``LOCAL_RANK``
+(NCCL, one card a rank).  ``--grad-compress`` takes effect only on a mesh
+with a "pod" axis, as the reference's does, and the host mesh has none.
+The reference's production meshes (``--mesh single|multi``) have a model
+axis of 16, which is ROADMAP A.11f-2.
 """
 from __future__ import annotations
 
@@ -44,11 +57,13 @@ from ..kernels import flash_attention as _fa
 from ..kernels import ssd_scan as _ss
 from ..kernels.ops import resolve_device
 from ..models import init_params, load_reference, reference_like, to_reference
-from ..models.transformer import ArchConfig, check_supported
+from ..models.transformer import ArchConfig, check_supported, param_specs
 from ..train import (AdamW, CheckpointStore, HeartbeatMonitor,
                      StragglerPolicy, cosine_schedule, make_train_step,
                      resume_latest)
-from .mesh import make_host_mesh
+from ..sharding import distribute, make_ctx, whole
+from .mesh import (env_world_size, host_mesh_shape, make_host_mesh,
+                   mesh_shape, world_size)
 
 # checkpoints go under the checkout's git-ignored build directory
 DEFAULT_CKPT_DIR = Path(__file__).resolve().parents[3] / "build" / "train_ckpt"
@@ -111,20 +126,26 @@ def corpus(cfg: ArchConfig, *, seq: int, seed: int, device,
 
 
 def restore_or_init(cfg: ArchConfig, store: CheckpointStore, *, seed: int,
-                    device, log=print):
+                    device, ctx=None, log=print):
     """(model, start step, parent checkpoint vid): trainable parameters from
     a generator seeded with ``seed`` on the device, overwritten by the
-    store's latest checkpoint when there is one."""
+    store's latest checkpoint when there is one; with a mesh context every
+    rank reads the checkpoint and keeps its own shards
+    (``param_specs``)."""
     dev = resolve_device(device)
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
                         dev, trainable=True)
     vid0, tree, meta = resume_latest(store, device=dev,
                                      treedef_like=reference_like(model))
-    if tree is None:
+    if tree is not None:
+        load_reference(model, tree)
+        del tree
+    if ctx is not None:
+        distribute(model, param_specs(cfg), ctx.mesh)
+    if vid0 is None:
         n_params = sum(p.numel() for p in model.parameters())
         log(f"fresh run: {n_params / 1e6:.1f}M params")
         return model, 0, None
-    load_reference(model, tree)
     log(f"resumed from checkpoint v{vid0} at step {meta['cursor']}")
     return model, int(meta["cursor"]), vid0
 
@@ -133,16 +154,21 @@ def train(cfg: ArchConfig, model, ds: VersionedDataset, data_vid: int, *,
           store: CheckpointStore | None, start: int, parent_vid, steps: int,
           batch: int, seed: int, lr: float = 3e-4, ckpt_every: int = 0,
           grad_compress: bool = False, straggler_p: float = 0.0,
-          preempt_after: int = 0, log=print) -> dict:
+          preempt_after: int = 0, ctx=None, log=print) -> dict:
     """Train ``model`` in place from step ``start`` to ``steps`` (or for
     ``preempt_after`` steps) on the corpus version ``data_vid``, committing
     a checkpoint every ``ckpt_every`` steps.  AdamW starts fresh, with the
-    reference's cosine schedule (warmup 10, ``total`` = ``steps``).
+    reference's cosine schedule (warmup 10, ``total`` = ``steps``).  With
+    a mesh context every rank of it calls this, and rank 0 alone logs and
+    writes the checkpoints (each of them the whole weights, gathered).
     Returns the per-step losses, grad norms, seconds and batch tokens, and
     each checkpoint's vid, seconds and bytes."""
     opt = AdamW(lr=cosine_schedule(lr, warmup=10, total=steps))
     state = opt.init(model)
-    step_fn = make_train_step(cfg, opt, grad_compress=grad_compress)
+    step_fn = make_train_step(cfg, opt, grad_compress=grad_compress, ctx=ctx)
+    lead = ctx is None or torch.distributed.get_rank() == 0
+    if not lead:
+        log = _quiet
     straggle = StragglerPolicy(n_hosts=4)
     hb = HeartbeatMonitor(n_hosts=4)
     rng = np.random.default_rng(seed + 17)
@@ -176,12 +202,20 @@ def train(cfg: ArchConfig, model, ds: VersionedDataset, data_vid: int, *,
                 f"s/step")
         if store is not None and ckpt_every and step % ckpt_every == 0:
             tc = time.perf_counter()
-            parent_vid = store.save(step=step,
-                                    tree=to_reference(model, host=False),
-                                    parent_vid=parent_vid,
-                                    meta={"cursor": step,
-                                          "data_vid": int(data_vid),
-                                          "arch": cfg.name})
+            tree = to_reference(model, {n: whole(p).detach() for n, p
+                                        in model.named_parameters()},
+                                host=False)
+            if lead:
+                parent_vid = store.save(step=step, tree=tree,
+                                        parent_vid=parent_vid,
+                                        meta={"cursor": step,
+                                              "data_vid": int(data_vid),
+                                              "arch": cfg.name})
+            del tree
+            if ctx is not None:
+                # no rank goes on (or resumes) before the checkpoint is
+                # on disk
+                torch.distributed.barrier()
             out["checkpoints"].append({
                 "vid": parent_vid, "step": step,
                 "save_s": time.perf_counter() - tc,
@@ -192,6 +226,10 @@ def train(cfg: ArchConfig, model, ds: VersionedDataset, data_vid: int, *,
             break
     out["wall_s"] = time.perf_counter() - t0
     return out
+
+
+def _quiet(*args, **kw) -> None:
+    """The log of a rank other than 0."""
 
 
 def main(argv=None) -> int:
@@ -221,9 +259,9 @@ def main(argv=None) -> int:
                          "preempted job would (0 = run to --steps)")
     args = ap.parse_args(argv)
     if args.mesh != "host":
-        raise ValueError(f"--mesh {args.mesh}: the port trains on one card "
-                         "(--mesh host); multi-card meshes wait for "
-                         "ROADMAP A.11f")
+        raise ValueError(f"--mesh {args.mesh}: the production meshes have a "
+                         "model axis of 16 (ROADMAP A.11f-2); the port "
+                         "trains on the data axis (--mesh host)")
 
     cfg = configs.get(configs.canonical(args.arch))
     if args.reduced:
@@ -233,20 +271,26 @@ def main(argv=None) -> int:
     check_supported(cfg)
     dev = resolve_device(args.device)
 
+    # several ranks (torchrun's environment): their data mesh; one rank
+    # needs no process group
+    started = not torch.distributed.is_initialized()
+    ctx = make_ctx(make_host_mesh(dev)) if env_world_size() > 1 else None
+    lead = ctx is None or torch.distributed.get_rank() == 0
+    log = print if lead else _quiet
     ds, data_vid = corpus(cfg, seq=args.seq, seed=args.seed, device=dev,
-                          data_version=args.data_version)
-    print(f"mesh={make_host_mesh(dev).shape} arch={cfg.name}"
-          f"{' (reduced)' if args.reduced else ''}")
+                          data_version=args.data_version, log=log)
+    log(f"mesh={mesh_shape(ctx.mesh) if ctx else host_mesh_shape()} "
+        f"arch={cfg.name}{' (reduced)' if args.reduced else ''}")
     store = CheckpointStore(args.ckpt_dir, shard_rows=1 << 12)
     model, start, parent_vid = restore_or_init(cfg, store, seed=args.seed,
-                                               device=dev)
+                                               device=dev, ctx=ctx, log=log)
     before = launches()
     run = train(cfg, model, ds, data_vid, store=store, start=start,
                 parent_vid=parent_vid, steps=args.steps, batch=args.batch,
                 seed=args.seed, lr=args.lr, ckpt_every=args.ckpt_every,
                 grad_compress=args.grad_compress,
                 straggler_p=args.straggler_p,
-                preempt_after=args.preempt_after)
+                preempt_after=args.preempt_after, ctx=ctx, log=log)
     losses = run["losses"]
     out = {"arch": cfg.name, "steps": args.steps,
            "first_loss": losses[0] if losses else None,
@@ -257,9 +301,11 @@ def main(argv=None) -> int:
            "ms_per_step": 1e3 * float(np.mean(run["step_s"]))
            if losses else None,
            "checkpoints": [c["vid"] for c in run["checkpoints"]],
-           "device": str(dev),
+           "device": str(dev), "ranks": world_size(),
            "launches": {k: v - before[k] for k, v in launches().items()}}
-    print(json.dumps(out))
+    log(json.dumps(out))
+    if ctx is not None and started:
+        torch.distributed.destroy_process_group()
     return 0
 
 

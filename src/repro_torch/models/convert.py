@@ -31,6 +31,15 @@ from .transformer import ArchConfig, Model
 STACKED = ("layers", "dense_layers", "enc_layers")
 
 
+def reference_path(name: str) -> str:
+    """The reference's path of the leaf a port parameter is (a row of):
+    ``layers.3.attn.wq.w`` -> ``layers/attn/wq/w``."""
+    parts = name.split(".")
+    if parts[0] in STACKED:
+        parts = [parts[0]] + parts[2:]
+    return "/".join(parts)
+
+
 def _leaves(tree, prefix=()):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -81,6 +90,34 @@ def to_reference(model: Model, named: dict | None = None, *,
                                             for i in range(len(rows))]))
     if host:
         tree = _map(tree, lambda t: t.cpu().numpy())
+    return tree
+
+
+def reference_specs(specs: dict) -> dict:
+    """``transformer.param_specs``'s specs (by the port's parameter name)
+    as the reference's nested tree: a stacked leaf's spec gains the layer
+    axis's leading ``None``.  The specs of a ``to_reference`` checkpoint,
+    and what the reference's ``param_specs`` gives."""
+    tree: dict = {}
+    for name, spec in specs.items():
+        parts = name.split(".")
+        if parts[0] in STACKED:
+            path, spec = [parts[0], *parts[2:]], (None, *spec)
+            have = _get(tree, path)
+            if have is not None and have != spec:
+                raise ValueError(f"{name}: spec {spec} differs from the "
+                                 f"stack's {have}")
+        else:
+            path = parts
+        _put(tree, path, spec)
+    return tree
+
+
+def _get(tree: dict, path: list):
+    for key in path:
+        if not isinstance(tree, dict) or key not in tree:
+            return None
+        tree = tree[key]
     return tree
 
 

@@ -146,8 +146,10 @@ class Attention(nn.Module):
 
 def _sdpa(q, k, v, causal: bool, q_offset: int = 0) -> torch.Tensor:
     """q: (B, Sq, H, Dh); k/v: (B, Sk, Hkv, Dh) — GQA by head repetition.
-    One device: no mesh is ever active (``sharding.current_ctx()`` is
-    None), so this is always the single-device core."""
+    Always the single-device core: the forward runs on one device or on
+    a rank's own rows with whole weights (the data axes,
+    ``train.train_step``); the reference's sequence-sharded attention on
+    the model axis is ROADMAP A.11f-2."""
     return _sdpa_core(q, k, v, causal, q_offset)
 
 

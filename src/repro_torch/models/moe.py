@@ -1,12 +1,16 @@
-"""Mixture-of-Experts, forward only: the port of ``repro.models.moe`` on one
-device.
+"""Mixture-of-Experts: the port of ``repro.models.moe`` on one rank's
+tokens.
 
-The reference dispatches inside a ``shard_map`` over its mesh, its expert
-exchange an explicit ``all_to_all`` pair on the "model" axis.  Its served
-path (``make_serve_step``/``make_prefill_step`` under
-``make_ctx(make_host_mesh())``) has a model axis of size 1, on which both
-exchanges are the identity; that computation is what is ported here, and
-``forward`` and ``decode_step`` run it for every MoE block:
+The reference dispatches inside a ``shard_map`` over its mesh, once per
+(pod, data) shard, its expert exchange an explicit ``all_to_all`` pair on
+the "model" axis.  A model axis of size 1 (all this port runs) makes both
+exchanges the identity; that computation is what is ported here, and
+``forward`` and ``decode_step`` run it for every MoE block.  The data axes
+need nothing more: a data-parallel train step (``train.train_step``) runs
+the forward on each rank's own rows, so the capacity C is taken over a
+rank's tokens, as the reference takes it over a (pod, data) shard's
+(``moe.py:82-94``), and results depend on the data axis as the
+reference's do:
 
     tokens (T, d) --route in float32, top-k, renormalise-->
       stable sort of the (token, k) slots by expert, rank within the
@@ -76,6 +80,20 @@ class MoE(nn.Module):
         self.wo = L.param((e, f, d), g, dev, scale=f ** -0.5)
         self.shared = (L.SwiGLU(d, cfg.d_ff_shared or f * cfg.n_shared, g, dev)
                        if cfg.n_shared else None)
+
+
+def moe_param_specs(cfg: MoEConfig) -> dict:
+    """Specs by ``MoE``'s parameter names (the reference's ``moe.py:67``):
+    the experts sharded over the model axis (EP)."""
+    p = {"router.w": (None, None),
+         "wi": ("model", None, None),
+         "wg": ("model", None, None),
+         "wo": ("model", None, None)}
+    if cfg.n_shared:
+        p.update({"shared.wi.w": (None, "model"),
+                  "shared.wg.w": (None, "model"),
+                  "shared.wo.w": ("model", None)})
+    return p
 
 
 def moe_init(generator: torch.Generator, cfg: MoEConfig, device=None) -> MoE:

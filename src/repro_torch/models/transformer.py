@@ -244,6 +244,42 @@ def abstract_params(cfg: ArchConfig) -> Model:
     return Model(cfg, None, torch.device("meta"))
 
 
+def _spec_for(joined: str, body: int) -> tuple:
+    """The reference's rule (``transformer.py:279-303``) on a reference
+    path ``joined`` (``layers/attn/wq/w``) of a leaf with ``body`` dims
+    past the layer axis, that axis left out."""
+    if "embed" in joined:
+        return ("model", "data")
+    if "lm_head" in joined:
+        return ("data", "model")
+    if body == 1:                          # norms, biases, A_log, D, ...
+        return (None,)
+    if "router" in joined:
+        return (None, None)
+    if "moe/wi" in joined or "moe/wg" in joined or "moe/wo" in joined:
+        return ("model", None, None)                  # EP over experts
+    if any(t in joined for t in ("wq", "wk", "wv", "wi", "wg", "wkv_a",
+                                 "in_proj")):
+        return ("data", "model")                      # col-parallel
+    if any(t in joined for t in ("wo", "out_proj", "wkv_b")):
+        return ("model", "data")                      # row-parallel
+    if "conv_w" in joined:
+        return (None, "model")
+    return (None,) * body
+
+
+def param_specs(cfg: ArchConfig) -> dict:
+    """Specs by the port's parameter name (``sharding``'s tuples; the
+    reference's ``:276-305``): FSDP ("data") on weight rows, TP ("model")
+    on QKV/FFN columns, vocab over "model".  Each name gets the
+    reference's spec of the leaf ``models.convert`` maps it to; a stacked
+    leaf (``convert.STACKED``) has no layer axis here, so its spec loses
+    the reference's leading ``None``."""
+    from .convert import reference_path
+    return {name: _spec_for(reference_path(name), p.ndim)
+            for name, p in abstract_params(cfg).named_parameters()}
+
+
 def count_params(model) -> int:
     """Parameters of ``model`` (a ``Model``, or a dict of tensors by
     name), counted as the reference's ``count_params`` sums its leaves."""

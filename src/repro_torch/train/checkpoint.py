@@ -12,8 +12,14 @@ for datasets:
   * cheap restore-any-step — checkout(vid).
 
 A leaf is a numpy array or a torch tensor on any device; ``save`` brings it
-to host numpy.  ``restore`` returns host numpy, or tensors on the device it
-is given.  The tree is walked as the JAX package walks it (dict keys in
+to host numpy.  ``restore`` returns host numpy, tensors on the device it is
+given, or DTensors laid out on a mesh by specs (``sharding``'s tuples),
+each rank keeping its own shard of each leaf: any mesh whose axis names
+the specs use, so a checkpoint saved on one mesh restores onto another
+(``ft.elastic_reshard``).  A tree of DTensors saves whole: every rank of
+their mesh calls ``save``, the leaves are gathered, rank 0 writes and the
+others reread the store, so the CVD's rows are a one-rank save's byte for
+byte.  The tree is walked as the JAX package walks it (dict keys in
 sorted order, ``[i]`` for list and tuple items, a namedtuple's field names,
 ``None`` an empty subtree), so both packages write the same manifest
 ``layout`` and the same CVD rows for the same tree.
@@ -33,6 +39,7 @@ import torch
 from ..core.datamodels import SplitByRlist, _raw_keys
 from ..core.journal import fsync_dir
 from ..kernels.ops import resolve_device
+from ..sharding import distribute, whole
 
 
 def _walk(node, path: tuple, paths: list, leaves: list) -> None:
@@ -76,8 +83,13 @@ def _unflatten(like, leaves):
 
 def _to_host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        return whole(leaf).detach().cpu().numpy()
     return np.asarray(leaf)
+
+
+def _has_dtensor(leaves) -> bool:
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(leaf, DTensor) for leaf in leaves)
 
 
 @dataclasses.dataclass
@@ -123,6 +135,9 @@ class CheckpointStore:
         exactly — what ``core.durability`` needs for int64 rid arrays —
         at the cost of dedup granularity staying byte-block-level."""
         paths, leaves, _ = _flatten_with_paths(tree)
+        if _has_dtensor(leaves):
+            return self._save_sharded(step, leaves, parent_vid, meta,
+                                      bitexact, tree)
         rows = []
         layout = []
         for path, leaf in zip(paths, leaves):
@@ -170,12 +185,33 @@ class CheckpointStore:
         self._persist()
         return vid
 
+    def _save_sharded(self, step, leaves, parent_vid, meta, bitexact,
+                      tree) -> int:
+        """``save`` of a tree holding DTensors: every rank gathers each
+        leaf, rank 0 writes, and the other ranks reread the store once it
+        has; all return the new vid."""
+        import torch.distributed as dist
+        host = [_to_host(leaf) for leaf in leaves]     # collective gathers
+        rank = dist.get_rank()
+        box = [None]
+        if rank == 0:
+            box[0] = self.save(step, _unflatten(tree, iter(host)),
+                               parent_vid=parent_vid, meta=meta,
+                               bitexact=bitexact)
+        dist.broadcast_object_list(box, src=0)
+        if rank != 0:
+            self.__post_init__()                       # rank 0's files
+        return box[0]
+
     # -- restore ------------------------------------------------------------------
-    def restore(self, vid: int, *, device=None,
+    def restore(self, vid: int, *, device=None, mesh=None, specs: Any = None,
                 treedef_like: Any = None) -> Any:
         """Rebuild the tree: the leaves in flatten order, or the structure
         of ``treedef_like`` holding them.  Leaves are host numpy with
-        ``device=None``, and tensors on ``device`` otherwise."""
+        ``device=None``, and tensors on ``device`` otherwise; with ``mesh``
+        and ``specs`` (a tree of specs of the restored tree's structure)
+        they are DTensors on ``mesh`` laid out by ``specs`` (the
+        reference's ``:133-170``), each rank keeping its own shard."""
         info = self.manifest["versions"][str(vid)]
         table_i32 = self.cvd.checkout(vid)
         if "row_perm" in info:
@@ -198,6 +234,10 @@ class CheckpointStore:
                 arr = flat.reshape(entry["shape"]).astype(entry["dtype"])
             leaves.append(arr)
             off += entry["n_blocks"]
+        if mesh is not None and specs is not None:
+            tree = (_unflatten(treedef_like, iter(leaves))
+                    if treedef_like is not None else leaves)
+            return distribute(tree, specs, mesh)
         if device is not None:
             dev = resolve_device(device)
             leaves = [torch.from_numpy(np.array(a)).to(dev) for a in leaves]

@@ -1,5 +1,5 @@
-"""Fault tolerance for the trainer: the port of ``repro.train.ft`` on one
-card.
+"""Fault tolerance & elasticity for the trainer: the port of
+``repro.train.ft``.
 
 * restart-from-CVD — the train driver checkpoints into a CheckpointStore (a
   CVD); ``resume_latest`` restores the parameters and the data-pipeline
@@ -10,9 +10,9 @@ card.
   for the step (the versioned store makes the dropped shard reproducible —
   it is re-enqueued, not lost).
 * ``HeartbeatMonitor`` detects dead hosts for restart decisions.
-
-The reference's ``elastic_reshard`` (a restore onto another mesh) waits for
-the multi-card slice (ROADMAP A.11f).
+* elastic_reshard — checkpoints are whole leaves and the layout lives in
+  specs, so a restore onto a different mesh shape (2 pods -> 1 pod after a
+  pod loss) is ``restore`` with the new mesh; no format change.
 """
 from __future__ import annotations
 
@@ -26,18 +26,30 @@ from .checkpoint import CheckpointStore
 
 
 # ------------------------------------------------------------- restart ----
-def resume_latest(store: CheckpointStore, device=None,
-                  treedef_like=None) -> tuple[Optional[int], Any, dict]:
+def resume_latest(store: CheckpointStore, device=None, mesh=None,
+                  specs=None, treedef_like=None
+                  ) -> tuple[Optional[int], Any, dict]:
     """Latest committed checkpoint version (by step), restored; (vid, tree,
     meta).  Returns (None, None, {}) on a fresh run.  The leaves are host
-    numpy with ``device=None``, tensors on ``device`` otherwise (the
-    reference's ``mesh``/``specs`` place them on a mesh)."""
+    numpy with ``device=None``, tensors on ``device`` otherwise, and
+    DTensors with ``mesh`` and ``specs`` (the reference's ``:31``)."""
     if not store.manifest["versions"]:
         return None, None, {}
     vid, info = max(store.manifest["versions"].items(),
                     key=lambda kv: kv[1]["step"])
-    tree = store.restore(int(vid), device=device, treedef_like=treedef_like)
+    tree = store.restore(int(vid), device=device, mesh=mesh, specs=specs,
+                         treedef_like=treedef_like)
     return int(vid), tree, info["meta"]
+
+
+# ------------------------------------------------------------ elastic ----
+def elastic_reshard(store: CheckpointStore, vid: int, new_mesh, specs,
+                    treedef_like=None) -> Any:
+    """Restore checkpoint ``vid`` onto a DIFFERENT mesh (the reference's
+    ``:45``): any mesh whose axis names exist works (names absent from the
+    new mesh are dropped, so that dim replicates)."""
+    return store.restore(vid, mesh=new_mesh, specs=specs,
+                         treedef_like=treedef_like)
 
 
 # ---------------------------------------------------------- stragglers ----

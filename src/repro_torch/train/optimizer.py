@@ -42,25 +42,35 @@ class AdamW:
     def init(self, params) -> AdamWState:
         named = _named(params)
         dev = next(iter(named.values())).device
-        zeros = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        # a DTensor parameter gets moments laid out as it is
+        zeros = {n: torch.zeros_like(p.detach(), dtype=torch.float32,
+                                     memory_format=torch.contiguous_format)
                  for n, p in named.items()}
         return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                           m=zeros,
                           v={n: torch.zeros_like(z) for n, z in zeros.items()})
 
+    def state_specs(self, param_specs: dict) -> AdamWState:
+        """The state's specs (the reference's ``optimizer.py:43``): the
+        moments laid out as the parameters, the step replicated."""
+        return AdamWState(step=(), m=param_specs, v=param_specs)
+
     @torch.no_grad()
-    def update(self, grads: dict, state: AdamWState, params):
+    def update(self, grads: dict, state: AdamWState, params,
+               gnorm: torch.Tensor | None = None):
         """(params, new state, global grad norm) after one step on
         ``grads`` (name -> gradient); the parameters and moments change in
-        place."""
+        place.  A sharded step passes each rank's shards of the three and
+        the global norm ``gnorm``, which only it can take."""
         named = _named(params)
         step = state.step + 1
         stepf = step.float()
         lr = self.lr(step) if callable(self.lr) else self.lr
 
         # global-norm clip
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(grads[n].float()))
-                               for n in named))
+        if gnorm is None:
+            gnorm = torch.sqrt(sum(torch.sum(torch.square(grads[n].float()))
+                                   for n in named))
         scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
 

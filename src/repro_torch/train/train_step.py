@@ -1,5 +1,6 @@
-"""Training step: microbatched gradient accumulation + AdamW, the port of
-``repro.train.train_step`` on one device.
+"""Training step: microbatched gradient accumulation + AdamW, with optional
+int8 error-feedback gradient compression on the cross-pod reduction: the
+port of ``repro.train.train_step``.
 
 The engine is versioning-UNAWARE: batches arrive as plain (tokens, labels),
 numpy or tensors; the paper's machinery lives entirely in ``repro_torch.data``.
@@ -7,21 +8,51 @@ The step runs eagerly (there is nothing to jit) on the device that holds
 the parameters, which must require gradients (``init_params(...,
 trainable=True)``).
 
-The reference's int8 error-feedback compression rides the cross-pod
-gradient reduction, which needs a "pod" mesh axis; one card has none, so
-``grad_compress=True`` gives the plain step, as the reference's does on a
-host mesh.  ``quantize_int8`` and ``ef_init`` are here for that later
-multi-card slice (ROADMAP A.11f), as are the reference's FSDP helpers
-(``cast_and_gather_params``), which are not ported.
+Without a mesh context (``ctx=None``) the step runs on one device.  With
+one (``sharding.MeshContext`` over ``launch.mesh``'s ``DeviceMesh``) every
+rank of the mesh calls the step with the same global batch and takes its
+own rows, as the reference shards the batch over ("pod", "data"):
+
+* the plain step: each rank runs the forward and backward on its rows of
+  each microbatch, and the gradients and the loss are averaged over the
+  batch axes (summed for ``vlm``, whose loss the reference divides by one
+  row's count); the grad norm is the global one;
+* FSDP: parameters laid out by ``sharding.distribute(model,
+  param_specs(cfg), mesh)`` hold 1/dp of every leaf that the specs shard
+  over "data" on each rank, and so do the AdamW moments and the
+  error-feedback residuals.  Each step gathers the whole weights once
+  (``cast_and_gather_params``'s one all-gather a step; the reference's
+  FSDP2 alternative, ``fully_shard``, is not used) into a model of plain
+  tensors for the forward, so the flash, SSD and RMS-norm Functions and
+  the kernels see plain local tensors, never DTensors; the gradients are
+  all-reduced and each rank keeps its shard for AdamW;
+* ``grad_compress=True`` on a mesh with a "pod" axis: the reference's
+  compressed step (``:140-184``).  Gradients are averaged within the pod
+  at full precision; then per leaf ``target = g + e``, ``q, scale =
+  quantize_int8(target)`` (each pod its own scale, over the whole
+  reference leaf: a stacked leaf's scale spans its layers, as the
+  reference's leaf holds them all),
+  an int32 SUM of ``q`` and a MAX of the scale over "pod", ``ĝ = s · sc /
+  npods`` and ``e ← target − q · scale`` (the pod's own residual row); the
+  loss is averaged over pods.  Without a "pod" axis ``grad_compress`` gives
+  the plain step, as the reference's does.
+
+Collectives run on the mesh's groups (NCCL on the card, gloo on the CPU);
+a group of one rank still runs them.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
+from torch import nn
 from torch.profiler import record_function
 
+from ..models.convert import reference_path
 from ..models.transformer import FRONTEND_INPUTS, ArchConfig, Model, loss_fn
+from ..sharding import MeshContext, local, sharding, tree_map
 from .optimizer import AdamW, AdamWState
 
 
@@ -87,38 +118,303 @@ def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
-def ef_init(params, npods: int) -> dict:
-    """Per-pod error-feedback residuals, stacked on a leading pod axis."""
+def ef_init(params, npods: int, ctx: Optional[MeshContext] = None) -> dict:
+    """Per-pod error-feedback residuals, stacked on a leading pod axis.
+    With ``ctx`` (a mesh with ``npods`` on its "pod" axis) they are
+    DTensors laid out by ``ef_specs``: each rank holds its pod's row, over
+    "data" as the parameter's shard."""
     named = (dict(params.named_parameters())
              if isinstance(params, torch.nn.Module) else dict(params))
-    return {n: torch.zeros((npods, *p.shape), dtype=torch.float32,
-                           device=p.device) for n, p in named.items()}
+    if ctx is None:
+        return {n: torch.zeros((npods, *p.shape), dtype=torch.float32,
+                               device=p.device) for n, p in named.items()}
+    if ctx.size("pod") != npods:
+        raise ValueError(f"{npods} pods on a mesh whose pod axis has "
+                         f"{ctx.size('pod')}")
+    from torch.distributed.tensor import zeros
+    specs = ef_specs(_specs_of(named, ctx))
+    return {n: zeros((npods, *p.shape), dtype=torch.float32,
+                     device_mesh=ctx.mesh,
+                     placements=sharding(specs[n], ctx.mesh).placements)
+            for n, p in named.items()}
+
+
+def ef_init_abstract(abstract_params, npods: int) -> dict:
+    """``ef_init``'s leaves as ``meta`` tensors (the reference's
+    ``:103``)."""
+    named = (dict(abstract_params.named_parameters())
+             if isinstance(abstract_params, torch.nn.Module)
+             else dict(abstract_params))
+    return {n: torch.empty((npods, *p.shape), dtype=torch.float32,
+                           device="meta") for n, p in named.items()}
+
+
+def ef_specs(param_specs):
+    """The residuals' specs: the parameters' with "pod" on the leading axis
+    (the reference's ``:109``)."""
+    return tree_map(lambda s: ("pod", *s), param_specs)
+
+
+def _drop_fsdp(spec: tuple) -> tuple:
+    """``spec`` with its FSDP ("data") factor replaced by None (the
+    reference's ``:29``)."""
+    def fix(e):
+        if e == "data":
+            return None
+        if isinstance(e, (tuple, list)):
+            kept = tuple(a for a in e if a != "data")
+            return kept if kept else None
+        return e
+    return tuple(fix(e) for e in spec)
+
+
+def cast_and_gather_params(params: Model, cfg: ArchConfig,
+                           ctx: MeshContext) -> Model:
+    """The forward's working copy (the reference's ``:41``): ``params`` (a
+    ``Model`` of ``cfg`` with DTensor parameters) gathered over the FSDP
+    axis once a step, each leaf laid out by ``_drop_fsdp`` of its spec
+    (whole, on a model axis of 1), as a ``Model`` of plain tensors that
+    require gradients.  A leaf already so laid out is its own storage, not
+    a copy.  The reference casts its working copy to bf16; the port's
+    forward casts at each use, as its one-device step does, so the copy
+    stays float32."""
+    work = Model(cfg, None, torch.device("meta"))
+    named = dict(params.named_parameters())
+    specs = _specs_of(named, ctx)
+    for name, p in named.items():
+        if _is_dtensor(p):
+            want = sharding(_drop_fsdp(specs[name]), ctx.mesh).placements
+            # a dim of one rank holds the whole leaf either way
+            same = all(a == b or n == 1 for a, b, n in
+                       zip(p.placements, want, ctx.mesh.shape))
+            p = (p if same else p.redistribute(ctx.mesh, want)).to_local()
+        owner, _, leaf = name.rpartition(".")
+        work.get_submodule(owner)._parameters[leaf] = nn.Parameter(
+            p.detach(), requires_grad=True)
+    return work
 
 
 # ----------------------------------------------------------- train step ----
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _working(params: Model, cfg: ArchConfig, ctx: MeshContext) -> Model:
+    """The model the forward runs: ``params`` itself when it holds plain
+    tensors, else its gathered working copy."""
+    if any(_is_dtensor(p) for p in params.parameters()):
+        return cast_and_gather_params(params, cfg, ctx)
+    return params
+
+
+def _specs_of(named: dict, ctx: MeshContext) -> dict:
+    """Each leaf's spec on ``ctx``'s mesh, read off its placements (a plain
+    tensor is replicated)."""
+    from torch.distributed.tensor import DTensor, Shard
+    names = ctx.mesh.mesh_dim_names
+    out = {}
+    for n, p in named.items():
+        spec = [None] * p.ndim
+        if isinstance(p, DTensor):
+            for axis, pl in zip(names, p.placements):
+                if isinstance(pl, Shard):
+                    have = spec[pl.dim]
+                    spec[pl.dim] = axis if have is None else (
+                        (have,) if isinstance(have, str) else have) + (axis,)
+        out[n] = tuple(spec)
+    return out
+
+
+def _rank_rows(b: int, n: int, outer: tuple, inner: tuple) -> torch.Tensor:
+    """The batch rows a rank takes: the batch split over the ``outer``
+    (index, size) axes, each part into ``n`` microbatches, each microbatch
+    over the ``inner`` (index, size) axes, contiguously; the rank's rows of
+    its microbatches in order (so ``accumulate_grads`` splits them into
+    the same microbatches)."""
+    (oi, on), (ii, inn) = outer, inner
+    if b % (on * n * inn):
+        raise ValueError(f"batch {b} does not split over {on} x {inn} ranks "
+                         f"and {n} microbatches")
+    part = b // on
+    mb = part // n
+    chunk = mb // inn
+    return torch.cat([torch.arange(oi * part + i * mb + ii * chunk,
+                                   oi * part + i * mb + (ii + 1) * chunk)
+                      for i in range(n)])
+
+
+def _select(batch: dict, rows: torch.Tensor) -> dict:
+    return {k: torch.as_tensor(batch[k])[rows]
+            for k in ("tokens", "labels", *FRONTEND_INPUTS) if k in batch}
+
+
+def _all_reduce(t: torch.Tensor, ctx: MeshContext, axes, op=None):
+    """``t`` reduced in place over the mesh lines of ``axes``."""
+    for a in axes:
+        if a in ctx.mesh.mesh_dim_names:
+            dist.all_reduce(t, op=op or dist.ReduceOp.SUM, group=ctx.group(a))
+    return t
+
+
+def _shard_of(g: torch.Tensor, p) -> torch.Tensor:
+    """A rank's shard of a whole gradient ``g``, laid out as ``p``."""
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+    if not isinstance(p, DTensor) or all(
+            not isinstance(pl, Shard) or n == 1
+            for pl, n in zip(p.placements, p.device_mesh.shape)):
+        return g
+    return distribute_tensor(g, p.device_mesh, p.placements,
+                             src_data_rank=None).to_local()
+
+
+def _global_norm(shards: dict, specs: dict, ctx: MeshContext) -> torch.Tensor:
+    """sqrt of the sum of squares of the whole leaves whose shards these
+    are: each leaf's squares summed over the ranks that hold its other
+    shards (its spec's axes), once."""
+    groups: dict = {}
+    for n, g in shards.items():
+        axes = tuple(a for e in specs[n] if e is not None
+                     for a in ((e,) if isinstance(e, str) else e))
+        sq = torch.sum(torch.square(g.float()))
+        groups[axes] = groups.get(axes, 0) + sq
+    return torch.sqrt(sum(_all_reduce(sq, ctx, axes)
+                          for axes, sq in groups.items()))
+
+
 def make_train_step(cfg: ArchConfig, opt: Optional[AdamW] = None,
-                    grad_compress: bool = False):
+                    grad_compress: bool = False, *,
+                    ctx: Optional[MeshContext] = None):
     """Returns ``step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``, metrics ``loss``, ``grad_norm`` (before clipping) and
-    ``step`` as 0-d device tensors.  The parameters and the optimizer
-    state are updated in place.  ``grad_compress`` has no cross-pod hop to
-    compress on one card and gives the same plain step."""
+    metrics)``, or with ``grad_compress`` on a mesh with a "pod" axis
+    ``step(params, opt_state, ef, batch) -> (params, opt_state, ef,
+    metrics)``; metrics ``loss``, ``grad_norm`` (before clipping) and
+    ``step`` as 0-d device tensors.  The parameters, the optimizer state
+    and the residuals are updated in place.  ``ctx=None`` is the
+    one-device step, where ``grad_compress`` has no cross-pod hop to
+    compress and gives the same plain step."""
     opt = opt or AdamW()
-    del grad_compress                    # one card: no "pod" axis
+    if ctx is None:
+        def train_step(params: Model, opt_state: AdamWState, batch: dict):
+            loss, grads = accumulate_grads(params, batch, cfg)
+            with record_function("train.optimizer"):
+                params, new_state, gnorm = opt.update(grads, opt_state,
+                                                      params)
+            metrics = {"loss": loss.float(), "grad_norm": gnorm.float(),
+                       "step": new_state.step}
+            return params, new_state, metrics
+        return train_step
 
-    def train_step(params: Model, opt_state: AdamWState, batch: dict):
-        loss, grads = accumulate_grads(params, batch, cfg)
-        with record_function("train.optimizer"):
-            params, new_state, gnorm = opt.update(grads, opt_state, params)
-        metrics = {"loss": loss.float(), "grad_norm": gnorm.float(),
-                   "step": new_state.step}
-        return params, new_state, metrics
-    return train_step
+    # vlm's loss is a sum over rows divided by one row's count
+    mean = cfg.family != "vlm"
+    n = max(cfg.microbatches, 1)
+    compressed = grad_compress and "pod" in ctx.mesh.mesh_dim_names
+    inner = tuple(a for a in ctx.dp if a != "pod") if compressed else ctx.dp
+    inner_size = math.prod(ctx.size(a) for a in inner)
+    npods = ctx.size("pod")
+
+    # the compressed step splits the batch over the pods first, then each
+    # pod's microbatches over its data ranks (the reference's shard_map
+    # over "pod" around accumulate_grads); the plain step splits each
+    # microbatch over all the batch axes
+    outer = (ctx.rank_along(("pod",)), npods) if compressed else (0, 1)
+
+    def grads_on_rows(params, batch):
+        named = _trainable(params)
+        rows = _rank_rows(batch["tokens"].shape[0], n, outer,
+                          (ctx.rank_along(inner), inner_size))
+        loss, grads = accumulate_grads(_working(params, cfg, ctx),
+                                       _select(batch, rows), cfg)
+        with record_function("train.reduce"):
+            loss = loss.float().clone()
+            for g in (loss, *grads.values()):
+                _all_reduce(g, ctx, inner)
+                if mean:
+                    g.div_(inner_size)
+        return named, loss, grads
+
+    def update(named, opt_state, shards, specs):
+        with torch.no_grad():
+            gnorm = _global_norm(shards, specs, ctx)
+            local_state = AdamWState(
+                step=opt_state.step,
+                m={k: local(v) for k, v in opt_state.m.items()},
+                v={k: local(v) for k, v in opt_state.v.items()})
+            with record_function("train.optimizer"):
+                _, new_state, gnorm = opt.update(
+                    shards, local_state,
+                    {k: local(p) for k, p in named.items()}, gnorm=gnorm)
+        return gnorm, AdamWState(step=new_state.step, m=opt_state.m,
+                                 v=opt_state.v)
+
+    if not compressed:
+        def train_step_dp(params: Model, opt_state: AdamWState, batch: dict):
+            named, loss, grads = grads_on_rows(params, batch)
+            specs = _specs_of(named, ctx)
+            shards = {k: _shard_of(grads.pop(k), p)
+                      for k, p in named.items()}
+            gnorm, state = update(named, opt_state, shards, specs)
+            metrics = {"loss": loss, "grad_norm": gnorm.float(),
+                       "step": state.step}
+            return params, state, metrics
+        return train_step_dp
+
+    def train_step_c(params: Model, opt_state: AdamWState, ef: dict,
+                     batch: dict):
+        named, loss, grads = grads_on_rows(params, batch)
+        specs = _specs_of(named, ctx)
+        pod = ctx.rank_along(("pod",))
+        # a scale per reference leaf: a stack's layers share theirs
+        leaf = {k: reference_path(k) for k in named}
+        slot = {path: i for i, path in enumerate(sorted(set(leaf.values())))}
+        with torch.no_grad(), record_function("train.compress"):
+            _all_reduce(loss, ctx, ("pod",))
+            loss.div_(npods)                              # pod mean
+            grads = {k: _shard_of(grads.pop(k), p) for k, p in named.items()}
+            # the pod's row: a DTensor's shard holds only its own
+            res = {k: local(e)[0] if _is_dtensor(e) else e[pod]
+                   for k, e in ef.items()}
+            amax = torch.zeros(len(slot), device=loss.device)
+            for k, g in grads.items():
+                if g.numel():
+                    i = slot[leaf[k]]
+                    amax[i] = torch.maximum(amax[i],
+                                            (g.float() + res[k]).abs().max())
+            _all_reduce(amax, ctx, inner, dist.ReduceOp.MAX)  # the pod's max
+            scale = amax / 127.0 + 1e-12
+            sc = _all_reduce(scale.clone(), ctx, ("pod",),
+                             dist.ReduceOp.MAX)               # shared scale
+            shards = {}
+            for k in named:
+                g, i = grads.pop(k), slot[leaf[k]]
+                target = g.float() + res[k]
+                q = torch.clamp(torch.round(target / scale[i]), -127,
+                                127).to(torch.int8)
+                s = _all_reduce(q.to(torch.int32), ctx, ("pod",))  # int8 wire
+                shards[k] = (s.float() * sc[i] / npods).to(g.dtype)  # pod mean
+                res[k].copy_(target - q.float() * scale[i])       # residual
+                del g, target, q, s
+        gnorm, state = update(named, opt_state, shards, specs)
+        metrics = {"loss": loss, "grad_norm": gnorm.float(),
+                   "step": state.step}
+        return params, state, ef, metrics
+    return train_step_c
 
 
-def make_eval_step(cfg: ArchConfig):
-    """Returns ``eval_step(params, batch) -> loss`` (no gradients)."""
+def make_eval_step(cfg: ArchConfig, ctx: Optional[MeshContext] = None):
+    """Returns ``eval_step(params, batch) -> loss`` (no gradients); with
+    ``ctx`` each rank takes its rows and the loss is averaged over the
+    batch axes (the reference's ``:186``)."""
     @torch.no_grad()
     def eval_step(params: Model, batch: dict):
-        return loss_fn(params, _to_device(batch, params.embed.device), cfg)
+        if ctx is None:
+            return loss_fn(params, _to_device(batch, params.embed.device),
+                           cfg)
+        rows = _rank_rows(batch["tokens"].shape[0], 1, (0, 1),
+                          (ctx.dp_rank, ctx.dp_size))
+        work = _working(params, cfg, ctx)
+        loss = loss_fn(work, _to_device(_select(batch, rows),
+                                        work.embed.device), cfg).float()
+        _all_reduce(loss, ctx, ctx.dp)
+        return loss / ctx.dp_size if cfg.family != "vlm" else loss
     return eval_step

@@ -7,8 +7,9 @@ wave, a kill and ``restore(device="cuda")``), four threaded tenants, a
 ``VersionedDataset``, the bitmap analytics on a CUDA store against numpy,
 a ``SMOKE``-size model forward through both model kernels, the
 differentiable flash and SSD Functions' gradients against autograd through
-their plain versions, and a ``SMOKE``-size train step on the card against
-the CPU's.  This file imports neither jax nor the JAX package, so it runs
+their plain versions, a ``SMOKE``-size train step on the card against
+the CPU's, and a compressed step on a one-rank NCCL mesh against the same
+step on a one-rank gloo mesh on the CPU.  This file imports neither jax nor the JAX package, so it runs
 on a machine with a GPU and no jax:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -858,6 +859,66 @@ def test_cuda_smoke_train_step_matches_cpu(cuda_device, arch):
     assert abs(out[0][0] - out[1][0]) <= bound * abs(out[1][0])
     for name, p in out[1][1].items():
         assert _rel(out[0][1][name].cpu(), p) <= 2 ** 0.5 * bound, name
+
+
+def test_cuda_nccl_compressed_step_matches_cpu_gloo(cuda_device, tmp_path):
+    """One compressed train step (``grad_compress=True``) of InternLM2's
+    SMOKE config on a one-rank NCCL mesh (pod, data, model) = (1, 1, 1),
+    FSDP-laid-out parameters and ``ef_init`` residuals, against the same
+    step on a one-rank gloo mesh on the CPU (a spawned process: a process
+    holds one group) from the same weights and batch: the flash kernel
+    launches, and the loss and every parameter agree within the bf16
+    bounds of ``test_cuda_smoke_train_step_matches_cpu``, and every
+    residual is finite."""
+    import torch.distributed as dist
+    import torch_ranks as R
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import from_reference, to_reference
+    from repro_torch.models.transformer import param_specs
+    from repro_torch.sharding import distribute, local, make_ctx
+    from repro_torch.train import ef_init
+    cfg = R.port_cfg("internlm2_1_8b")
+    tree = to_reference(init_params(cfg, torch.Generator().manual_seed(0),
+                                    "cpu"))
+    toks = torch.randint(0, cfg.vocab, (2, 65),
+                         generator=torch.Generator().manual_seed(3)).numpy()
+    np.savez(tmp_path / "in.npz", tokens0=toks[:, :-1], labels0=toks[:, 1:],
+             **{"w/" + k: v for k, v in R.flat(tree).items()})
+    spec = dict(arch="internlm2_1_8b", inputs=str(tmp_path / "in.npz"),
+                shape=(1, 1, 1), lr=1e-3, f32=False)
+    R.spawn(R.run_cases, 1, tmp_path, [("compressed", spec,
+                                        str(tmp_path / "cpu"))])
+    want = dict(np.load(tmp_path / "cpu.npz"))
+    weights, batches = R.load_inputs(spec["inputs"])
+    assert not dist.is_initialized()
+    mesh = make_mesh((1, 1, 1), ("pod", "data", "model"), "cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        ctx = make_ctx(mesh)
+        model = from_reference(cfg, weights, device="cuda"
+                               ).requires_grad_(True)
+        distribute(model, param_specs(cfg), mesh)
+        opt = AdamW(lr=1e-3)
+        ef = ef_init(model, 1, ctx)
+        before = fa.LAUNCHES
+        model, _, ef, m = make_train_step(cfg, opt, grad_compress=True,
+                                          ctx=ctx)(model, opt.init(model),
+                                                   ef, batches[0])
+        launched = fa.LAUNCHES - before
+        got = R.flat(to_reference(model, {n: local(p).detach().cpu()
+                                          for n, p in
+                                          model.named_parameters()}))
+        e_max = {n: float(local(e).abs().max()) for n, e in ef.items()}
+        loss = float(m["loss"])
+    finally:
+        dist.destroy_process_group()
+    assert launched == cfg.n_layers * (2 if cfg.remat else 1)
+    bound = prefill_bound(cfg)
+    assert abs(loss - want["loss"][0]) <= bound * abs(want["loss"][0])
+    for k, v in got.items():
+        assert _rel(torch.from_numpy(v), torch.from_numpy(want["p/" + k])) \
+            <= 2 ** 0.5 * bound, k
+    assert all(np.isfinite(list(e_max.values())))
 
 
 def _durable_workload(seed):
