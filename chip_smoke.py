@@ -225,17 +225,42 @@ Phases, each of which raises on failure:
     holds one NCCL rank (NCCL refuses two ranks on one device), so the
     numerics across ranks are held on the CPU by gloo ranks
     (``tests/test_torch_data_parallel.py``), as the reference holds its
+    own on faked host devices;
+25. the model axis (after phase 24, before phase 23) — DeepSeek-V2-Lite
+    at full width cut to ``MLA_DEPTH`` = 4 layers (latent attention, the
+    dense SwiGLU layer, 3 MoE layers of 64 experts with shared experts;
+    2.05 B seeded parameters) on the train launcher's traffic (2 steps of
+    8 × 256 seeded tokens in the config's 4 microbatches): first the
+    one-device step (``ctx=None``), then, from the same seeded weights, a
+    one-rank NCCL ("data", "model") = (1, 1) ``DeviceMesh`` through
+    ``launch.mesh.make_mesh``, the weights laid out by ``param_specs``
+    and the plain train step through the tensor- and expert-parallel
+    layers (``copy_to_tp``/``reduce_from_tp`` around the column- and
+    row-parallel products, the token-parallel split and the all-to-all
+    pair of the experts, their collectives on a one-rank group); the
+    first loss and grad norm equal to the one-device step's within
+    ``TP_RTOL`` (on one rank the slices and the capacity are the
+    one-device path's, and the collectives copy), the second loss
+    finite, the model group's collectives by kind as
+    ``expected_tp_calls`` reckons, 64 flash launches; then the first MoE
+    layer's leaves (2.28 GB) saved from the one-rank state and restored
+    onto the mesh by ``elastic_reshard``, bit-exact; ms a step beside the
+    one-device step's, the peaks; the group freed.  The numerics across
+    model ranks are held on the CPU by gloo ranks
+    (``tests/test_torch_tensor_parallel.py``,
+    ``tests/test_torch_expert_parallel.py``), as the reference holds its
     own on faked host devices.
 
 Phases 3, 5, 6, 8, 11, 12, 14 (twice: from the tenants to the kill, and
 from the restore to the end), 15-17 and 21 (once a config), 18 (the
 uninterrupted and the interrupted run), 19 (its two steps), 20 (from
-the prompt store to the prefill) and 24 (its three steps) each set every
+the prompt store to the prefill), 24 (its three steps) and 25 (its two
+TP/EP steps; the one-device steps have their own window) each set every
 kernel's launch count to 0 just before they drive their path and read the
 counts just after; launches made to compare or time a kernel fall outside
 those windows, and so do phase 23's.
 The kernels line's ``flash_attention`` launches are the sum over the
-model paths (phases 11, 15-18, 20, 21 and 24), ``ssd_scan``'s over phases
+model paths (phases 11, 15-18, 20, 21, 24 and 25), ``ssd_scan``'s over phases
 11 and 19, and ``gather_row_tiles``'s over phases 5, 18 and 19.
 TF32 is off (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` False): the float32 plain versions
@@ -4050,6 +4075,188 @@ def phase_train_compressed(torch, np, seed: int, gpu: str,
           f"{peak / 1e9:.2f} GB; launches {launches}; {gpu}")
 
 
+# phase 25: the model axis (tensor and expert parallelism) on one NCCL rank
+TP_STEPS = 2                      # plain steps through the TP/EP path
+TP_RTOL = 1e-5                    # its first loss and grad norm vs ctx=None
+TP_RESHARD_LAYER = "layers.0.moe."  # model layer 1: the first MoE layer
+
+
+def expected_tp_calls(cfg, steps: int) -> dict:
+    """The model group's collectives ``steps`` plain steps of ``cfg`` (a
+    latent-attention MoE stack with shared experts, S divisible by the
+    model axis) issue, by ``sharding.TP_CALLS`` kind, a microbatch each.
+    ``copy_to_tp``'s all-reduces run in the backward (latent attention:
+    ``wq`` and the latent; a SwiGLU or shared expert: ``wi`` and ``wg``;
+    an MoE layer's router) and so do ``split_seq``'s all-gathers;
+    ``reduce_from_tp`` (each attention's and SwiGLU's ``wo``),
+    ``gather_seq`` and an MoE layer's two all-to-alls run in the forward,
+    the all-to-alls once each again in the backward.  Remat's recompute
+    counts apart (``sharding.TP_RECOMPUTE``): where torch stops it
+    differs between builds and devices."""
+    if cfg.attn_type != "mla" or not cfg.moe.n_shared:
+        raise ValueError(f"{cfg.name}: the reckoning is for latent "
+                         "attention and shared experts")
+    n_moe = cfg.n_layers - cfg.first_dense
+    per_mb = {"copy_to_tp": 4 * cfg.first_dense + 5 * n_moe,
+              "reduce_from_tp": 2 * cfg.n_layers, "split_seq": n_moe,
+              "gather_seq": n_moe, "all_to_all": 4 * n_moe}
+    n = steps * max(cfg.microbatches, 1)
+    return {k: n * v for k, v in per_mb.items()}
+
+
+def phase_train_tp(torch, np, seed: int, gpu: str, report: dict) -> None:
+    """Phase 25: DeepSeek-V2-Lite at full width and ``MLA_DEPTH`` layers
+    (latent attention, the dense SwiGLU layer, 3 MoE layers with shared
+    experts) through the tensor- and expert-parallel train step on a
+    one-rank NCCL ("data", "model") mesh, against the one-device step
+    (``ctx=None``) on the same weights and batches; the model group's
+    collectives counted; an elastic restore of the first MoE layer's
+    leaves onto the mesh.  One card holds one NCCL rank, so the numerics
+    across model ranks are held on the CPU by gloo ranks
+    (``tests/test_torch_tensor_parallel.py``,
+    ``tests/test_torch_expert_parallel.py``), as the reference holds its
+    own on faked host devices."""
+    import shutil
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_mesh, mesh_shape
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import count_params, param_specs
+    from repro_torch.sharding import (TP_CALLS, TP_RECOMPUTE, distribute,
+                                      local, make_ctx, whole, zero_tp_calls)
+    from repro_torch.train import (AdamW, CheckpointStore, cosine_schedule,
+                                   elastic_reshard, make_train_step)
+    cfg = dataclasses.replace(configs.get(MLA_ARCH), n_layers=MLA_DEPTH)
+    rng = np.random.default_rng(seed + 25)
+    batches = []
+    for _ in range(TP_STEPS):
+        toks = rng.integers(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1)
+                            ).astype(np.int32)
+        batches.append({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+
+    def run(ctx, mesh):
+        """TP_STEPS steps from the seeded weights: (losses, grad norms,
+        step seconds, launches, collectives, peak bytes, the model)."""
+        torch.cuda.reset_peak_memory_stats()
+        model = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
+            seed), DEVICE, trainable=True)
+        if mesh is not None:
+            distribute(model, param_specs(cfg), mesh)
+        opt = AdamW(lr=cosine_schedule(3e-4, warmup=10, total=TRAIN_STEPS))
+        state = opt.init(model)
+        step = make_train_step(cfg, opt, ctx=ctx)
+        losses, norms, step_s = [], [], []
+        zero_launch_counts()                  # the path's window
+        zero_tp_calls()
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model, state, m = step(model, state, b)
+            losses.append(float(m["loss"]))   # waits for the step
+            step_s.append(time.perf_counter() - t0)
+            norms.append(float(m["grad_norm"]))
+        out = (losses, norms, step_s, launch_counts(), dict(TP_CALLS),
+               dict(TP_RECOMPUTE), torch.cuda.max_memory_allocated())
+        del state, step
+        return out, model
+
+    (p_losses, p_norms, p_s, p_launches, p_calls, _, p_peak), model = run(
+        None, None)
+    n_params = count_params(model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_mesh((1, 1), ("data", "model"), DEVICE)
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    if dist.get_backend() != backend:
+        raise AssertionError(f"the mesh's group is {dist.get_backend()}, "
+                             f"not {backend}")
+    ctx = make_ctx(mesh)
+    (losses, norms, step_s, launches, calls, recomputed, peak), model = run(
+        ctx, mesh)
+    loss_rel = abs(losses[0] - p_losses[0]) / abs(p_losses[0])
+    norm_rel = abs(norms[0] - p_norms[0]) / abs(p_norms[0])
+    want_calls = expected_tp_calls(cfg, TP_STEPS)
+    want_flash = (TP_STEPS * max(cfg.microbatches, 1) * cfg.n_layers
+                  * (2 if cfg.remat else 1))
+    if (loss_rel > TP_RTOL or norm_rel > TP_RTOL
+            or not all(math.isfinite(x) for x in losses + norms)):
+        raise AssertionError(f"TP/EP step losses {losses}, grad norms "
+                             f"{norms}; ctx=None {p_losses}, {p_norms}")
+    if calls != want_calls or any(p_calls.values()):
+        raise AssertionError(f"the model group's collectives {calls}, "
+                             f"expected {want_calls} (ctx=None: {p_calls})")
+    if launches["flash_attention"] != want_flash or launches["ssd_scan"] \
+            or p_launches["flash_attention"] != want_flash:
+        raise AssertionError(f"TP/EP training launches {launches} "
+                             f"(ctx=None {p_launches}), expected "
+                             f"{want_flash} flash_attention")
+    # the first MoE layer's leaves, saved from the one-rank state and
+    # restored onto the mesh
+    named = dict(model.named_parameters())
+    names = [n for n in named if n.startswith(TP_RESHARD_LAYER)]
+    one = {n: local(named[n]).detach().clone() for n in names}
+    specs = {n: param_specs(cfg)[n] for n in names}
+    ckpt_dir = ROOT / "build" / "mesh_ckpt_phase25"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        store = CheckpointStore(str(ckpt_dir), shard_rows=1 << 12)
+        vid = store.save(step=TP_STEPS, tree=one, meta={"cursor": TP_STEPS})
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = elastic_reshard(store, vid, mesh, specs, treedef_like=one)
+        torch.cuda.synchronize()
+        reshard_s = time.perf_counter() - t0
+        bitexact = all(torch.equal(whole(back[n]), one[n])
+                       and back[n].device_mesh == mesh for n in names)
+        ckpt_bytes = sum(4 * t.numel() for t in one.values())
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if not bitexact:
+        raise AssertionError("elastic_reshard of the MoE leaves onto the "
+                             "NCCL mesh differs from the saved state")
+    ms_step = 1e3 * float(np.mean(step_s[1:]))
+    plain_ms = 1e3 * float(np.mean(p_s[1:]))
+    report["train_tp"] = {
+        "arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+        "mesh": mesh_shape(mesh), "backend": backend,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TP_STEPS,
+        "microbatches": cfg.microbatches, "losses": losses,
+        "grad_norms": norms, "step_s": step_s, "plain_losses": p_losses,
+        "plain_grad_norms": p_norms, "plain_step_s": p_s,
+        "loss_rel": loss_rel, "norm_rel": norm_rel, "rtol": TP_RTOL,
+        "tp_calls": calls, "tp_recompute": recomputed,
+        "ms_per_step": ms_step,
+        "plain_ms_per_step": plain_ms, "peak_memory_bytes": peak,
+        "plain_peak_memory_bytes": p_peak, "launches": launches,
+        "reshard": {"leaves": len(names), "bytes": ckpt_bytes,
+                    "save_s": save_s, "reshard_s": reshard_s,
+                    "bitexact": bitexact}, "gpu": gpu}
+    del model, named, one, back
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    print(f"model axis: {mesh_shape(mesh)} over one {backend} rank; "
+          f"{cfg.name} at {cfg.n_layers} layers ({n_params / 1e9:.2f} B "
+          f"parameters) through the TP/EP step, {TP_STEPS} steps of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} in {cfg.microbatches} microbatches: "
+          f"losses {[round(x, 5) for x in losses]}, grad norms "
+          f"{[round(x, 4) for x in norms]}; ctx=None {[round(x, 5) for x in p_losses]}, "
+          f"{[round(x, 4) for x in p_norms]} (first loss rel {loss_rel:.1e}, "
+          f"grad norm rel {norm_rel:.1e}, tolerance {TP_RTOL})")
+    print(f"model-group collectives {calls} (as reckoned), remat's "
+          f"recompute {recomputed}; flash launches "
+          f"{launches['flash_attention']}; elastic restore of "
+          f"{len(names)} MoE leaves ({ckpt_bytes / 1e9:.2f} GB) onto the "
+          f"mesh bit-exact {bitexact} (save {save_s:.1f} s, restore "
+          f"{reshard_s:.1f} s)")
+    print(f"TP/EP step {ms_step:.1f} ms after the first "
+          f"({1e3 * step_s[0]:.1f} ms), ctx=None step {plain_ms:.1f} ms "
+          f"({1e3 * p_s[0]:.1f} ms); peak device memory {peak / 1e9:.2f} GB "
+          f"(ctx=None {p_peak / 1e9:.2f} GB); {gpu}")
+
+
 DRYRUN_WORKERS = 2
 ROOFLINE_CELLS = (("zamba2_2_7b", "prefill", LONG_BATCH, LONG_SEQ),
                   ("olmoe_1b_7b", "prefill", SERVE_REQUESTS, SERVE_PROMPT),
@@ -4377,6 +4584,9 @@ def main(argv=None) -> int:
         phase_train_compressed(torch, np, args.seed, gpu, report)
         gc.collect()
         torch.cuda.empty_cache()
+        phase_train_tp(torch, np, args.seed, gpu, report)
+        gc.collect()
+        torch.cuda.empty_cache()
         phase_roofline_cells(torch, args.seed, report)
         phase_dryrun_grid(grid, report)
     finally:
@@ -4397,7 +4607,7 @@ def main(argv=None) -> int:
                                          "bound_ms", "library_ms")},
             bound_by="bytes")
     train = [report[k]["launches"] for k in ("train_dense", "train_ssm",
-                                             "train_compressed")]
+                                             "train_compressed", "train_tp")]
     for name, path in (("gather_row_tiles", "dataset"),
                        ("gather_rows", "dataset"),
                        ("membership_scan", "analytics"),

@@ -4,10 +4,12 @@
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` made by
 ``init_device_mesh`` over the process group that is running: one rank a
 device, the ranks laid out row-major over the named axes, as
-``jax.make_mesh`` lays out devices.  This half of the port runs the axes
-that hold the batch, ``"pod"`` and ``"data"``; ``make_mesh`` refuses a
-``"model"`` axis above 1 with ``PlanError`` (tensor, expert and sequence
-parallelism are ROADMAP A.11f-2, the second half of A.11f).
+``jax.make_mesh`` lays out devices.  Every axis runs: the batch axes
+``"pod"`` and ``"data"``, and ``"model"`` at any size, whose tensor and
+expert parallelism the train and eval steps run (``train.train_step``);
+what a model axis above 1 cannot run yet (the reference's
+sequence-sharded attention, SSD heads, serving on a mesh: ROADMAP
+A.11f-2b) raises ``PlanError`` where it is met.
 
 Process groups.  ``start_group(device)`` starts the group of the ranks that
 the environment names (``RANK``/``WORLD_SIZE``/``MASTER_ADDR``/
@@ -72,11 +74,6 @@ def make_mesh(shape, names, device=None):
             or list(names) != sorted(names, key=AXES.index):
         raise PlanError(f"mesh axes {names} of shape {shape}: the axes are "
                         f"a subset of {AXES}, in that order, one size each")
-    if dict(zip(names, shape)).get("model", 1) > 1:
-        raise PlanError(f"mesh {dict(zip(names, shape))}: a model axis above "
-                        "1 (tensor, expert and sequence parallelism) is the "
-                        "second half of ROADMAP A.11f (A.11f-2), not ported "
-                        "yet")
     dev = resolve_device(device)
     start_group(dev)
     if math.prod(shape) != dist.get_world_size():
@@ -89,8 +86,7 @@ def make_mesh(shape, names, device=None):
 
 def make_production_mesh(*, multi_pod: bool = False, device=None):
     """16 × 16 = 256 ranks a pod; 2 pods = 512 ranks multi-pod (the
-    reference's ``:24``).  Raises unless the group has that many ranks,
-    and, while the model axis is not ported, for its model axis of 16."""
+    reference's ``:24``).  Raises unless the group has that many ranks."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     names = ("pod", "data", "model") if multi_pod else ("data", "model")
     if world_size() != math.prod(shape):

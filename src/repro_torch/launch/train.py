@@ -34,8 +34,9 @@ On the CPU:
 (gloo); on the card each rank takes the device of its ``LOCAL_RANK``
 (NCCL, one card a rank).  ``--grad-compress`` takes effect only on a mesh
 with a "pod" axis, as the reference's does, and the host mesh has none.
-The reference's production meshes (``--mesh single|multi``) have a model
-axis of 16, which is ROADMAP A.11f-2.
+The reference's production meshes (``--mesh single|multi``, 256 and 512
+ranks with a model axis of 16) wait for ROADMAP A.11f-2b; the train step
+itself runs any (pod, data, model) mesh (``train.train_step``).
 """
 from __future__ import annotations
 
@@ -259,9 +260,10 @@ def main(argv=None) -> int:
                          "preempted job would (0 = run to --steps)")
     args = ap.parse_args(argv)
     if args.mesh != "host":
-        raise ValueError(f"--mesh {args.mesh}: the production meshes have a "
-                         "model axis of 16 (ROADMAP A.11f-2); the port "
-                         "trains on the data axis (--mesh host)")
+        raise ValueError(f"--mesh {args.mesh}: the production meshes (256 "
+                         "and 512 ranks, a model axis of 16) wait for "
+                         "ROADMAP A.11f-2b; the launcher trains on the data "
+                         "axis (--mesh host)")
 
     cfg = configs.get(configs.canonical(args.arch))
     if args.reduced:

@@ -12,6 +12,20 @@ or ``init_params(..., trainable=True)`` makes them trainable.  The RMS norm
 carries the reference's hand-written backward (``_RMSNorm``); everything
 else is differentiated by autograd.
 
+Under a mesh context (``sharding.mesh_context``, as the train and eval
+steps run the forward) attention and the SwiGLU are tensor-parallel over
+"model", Megatron-style: ``wq``/``wk``/``wv``/``wi``/``wg`` are
+column-parallel on this rank's columns (``dense(..., gather="col")``,
+whose input passes ``sharding.copy_to_tp``), ``wo`` is row-parallel and
+followed by ``sharding.reduce_from_tp`` (``gather="row"``).  The weights
+are then each rank's shards as plain tensors (``train.train_step``
+``cast_and_gather_params``), and each layer reads its local head count off
+its shard (local columns / head_dim), so one config serves every model
+axis; without a context the same code is the one-device layer.  The
+reference's sequence-sharded attention (``layers.py:191-259``, taken where
+the kv heads do not split over the axis) is ROADMAP A.11f-2b: those cases
+raise ``PlanError``.
+
 Attention with ``q_offset == 0`` runs the flash kernel (``kernels.ops
 .flash_attention``) when ``Sq == Sk`` (every self-attention prefill and
 full-sequence forward) or when it is non-causal with ``Sq > 1`` (an
@@ -32,7 +46,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops, ref
+from ..kernels.build import PlanError
 from ..launch.op_count import attn_core
+from ..sharding import copy_to_tp, reduce_from_tp, tp_group
 
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32
@@ -67,11 +83,60 @@ class Dense(nn.Module):
                   else None)
 
 
-def dense(p: Dense, x: torch.Tensor) -> torch.Tensor:
+def dense(p: Dense, x: torch.Tensor, gather: Optional[str] = None
+          ) -> torch.Tensor:
+    """``x @ w (+ b)``.  ``gather`` keeps the reference's signature
+    (``layers.py:39-55``, where it pins the weight's layout for the
+    partitioner); here, under a mesh context, it names the tensor-parallel
+    role of the rank's shard: ``"col"`` a column-parallel product (the
+    input through ``copy_to_tp``, the output this rank's columns, the bias
+    its slice), ``"row"`` a row-parallel one (the input this rank's
+    features, the partial sums through ``reduce_from_tp``, then the bias).
+    Without a context, or with ``gather=None``, the plain product."""
+    tp = tp_group() if gather else None
+    if tp is not None and gather == "col":
+        x = copy_to_tp(x, tp)
     y = x @ p.w.to(x.dtype)
+    if tp is not None and gather == "row":
+        y = reduce_from_tp(y, tp)
     if p.b is not None:
         y = y + p.b.to(x.dtype)
     return y
+
+
+def check_heads(n_heads: int, n_kv: int, s: int, what: str) -> None:
+    """Refuse, under a mesh context whose model axis is above 1, heads that
+    do not split over it: where the kv heads do not divide the axis and the
+    sequence does, the reference shards the sequence instead
+    (``_sdpa_seq_sharded``), which is ROADMAP A.11f-2b."""
+    tp = tp_group()
+    if tp is None or tp.size == 1:
+        return
+    m = tp.size
+    if n_kv % m and s > 1 and s % m == 0:
+        raise PlanError(f"{what}: {n_kv} kv heads do not split over a model "
+                        f"axis of {m} and the sequence of {s} does; the "
+                        "reference's sequence-sharded attention there is "
+                        "ROADMAP A.11f-2b, not ported yet")
+    if n_heads % m or n_kv % m:
+        raise PlanError(f"{what}: {n_heads} heads ({n_kv} kv) do not split "
+                        f"over a model axis of {m} (the reference leaves "
+                        "this layout to its partitioner; ROADMAP A.11f-2b)")
+
+
+def local_heads(t: torch.Tensor, n_heads: int, dh: int, what: str) -> int:
+    """The heads of this rank's shard ``t`` (local columns / ``dh``), which
+    must be its 1/m of ``n_heads`` under a mesh context, all of them
+    without one."""
+    tp = tp_group()
+    m = tp.size if tp is not None else 1
+    h = t.shape[-1] // dh
+    if h * m != n_heads or t.shape[-1] % dh:
+        raise PlanError(f"{what}: a shard of {t.shape[-1]} columns is not "
+                        f"1/{m} of {n_heads} heads of {dh}; under a model "
+                        "axis the weights are each rank's shards "
+                        "(train.train_step.cast_and_gather_params)")
+    return h
 
 
 class _RMSNorm(torch.autograd.Function):
@@ -145,11 +210,10 @@ class Attention(nn.Module):
 
 
 def _sdpa(q, k, v, causal: bool, q_offset: int = 0) -> torch.Tensor:
-    """q: (B, Sq, H, Dh); k/v: (B, Sk, Hkv, Dh) — GQA by head repetition.
-    Always the single-device core: the forward runs on one device or on
-    a rank's own rows with whole weights (the data axes,
-    ``train.train_step``); the reference's sequence-sharded attention on
-    the model axis is ROADMAP A.11f-2."""
+    """q: (B, Sq, H, Dh); k/v: (B, Sk, Hkv, Dh) — GQA by head repetition,
+    on a rank's heads under a mesh context (``attention`` refuses, through
+    ``check_heads``, the layouts where the reference would shard the
+    sequence, ROADMAP A.11f-2b), so always the core."""
     return _sdpa_core(q, k, v, causal, q_offset)
 
 
@@ -175,17 +239,23 @@ def attention(p: Attention, x: torch.Tensor, cfg: AttnConfig,
     Dh), "len": int} for decode: the new keys and values are written into
     the cache's tensors IN PLACE at ``len`` (the reference returns new
     arrays), and the returned cache holds the same tensors and the new
-    length.  cross_kv for encoder-decoder cross attention."""
+    length.  cross_kv for encoder-decoder cross attention.  Under a mesh
+    context this rank's heads only: q, k and v column-parallel, ``wo``
+    row-parallel."""
     b, s, _ = x.shape
+    check_heads(cfg.n_heads, cfg.n_kv, s, "attention")
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
-    q = dense(p.wq, x).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    hd = cfg.head_dim
+    h = local_heads(p.wq.w, cfg.n_heads, hd, "attention wq")
+    q = dense(p.wq, x, gather="col").reshape(b, s, h, hd)
     if cross_kv is not None:
         k, v = cross_kv
         out = _sdpa(q, k, v, causal=False)
-        return dense(p.wo, out.reshape(b, s, -1)), kv_cache
-    k = dense(p.wk, x).reshape(b, s, cfg.n_kv, cfg.head_dim)
-    v = dense(p.wv, x).reshape(b, s, cfg.n_kv, cfg.head_dim)
+        return dense(p.wo, out.reshape(b, s, -1), gather="row"), kv_cache
+    hkv = local_heads(p.wk.w, cfg.n_kv, hd, "attention wk")
+    k = dense(p.wk, x, gather="col").reshape(b, s, hkv, hd)
+    v = dense(p.wv, x, gather="col").reshape(b, s, hkv, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     if kv_cache is None:
@@ -203,14 +273,16 @@ def attention(p: Attention, x: torch.Tensor, cfg: AttnConfig,
         # mask out cache slots beyond len via causal mask w/ offset
         out = _sdpa(q, ck.to(q.dtype), cv.to(q.dtype), causal=True,
                     q_offset=idx)
-    return dense(p.wo, out.reshape(b, s, -1)), new_cache
+    return dense(p.wo, out.reshape(b, s, -1), gather="row"), new_cache
 
 
 def cross_kv_init(p: Attention, memory: torch.Tensor, cfg: AttnConfig):
-    """Precompute encoder-memory K/V once per sequence (enc-dec decode)."""
+    """Precompute encoder-memory K/V once per sequence (enc-dec decode);
+    this rank's kv heads under a mesh context."""
     b, sm, _ = memory.shape
-    k = dense(p.wk, memory).reshape(b, sm, cfg.n_kv, cfg.head_dim)
-    v = dense(p.wv, memory).reshape(b, sm, cfg.n_kv, cfg.head_dim)
+    hkv = local_heads(p.wk.w, cfg.n_kv, cfg.head_dim, "cross wk")
+    k = dense(p.wk, memory, gather="col").reshape(b, sm, hkv, cfg.head_dim)
+    v = dense(p.wv, memory, gather="col").reshape(b, sm, hkv, cfg.head_dim)
     return k, v
 
 
@@ -224,5 +296,7 @@ class SwiGLU(nn.Module):
 
 
 def swiglu(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
-    h = F.silu(dense(p.wg, x)) * dense(p.wi, x)
-    return dense(p.wo, h)
+    """Under a mesh context this rank's columns of ``wi``/``wg`` and rows
+    of ``wo``, the partial sums reduced over "model"."""
+    h = F.silu(dense(p.wg, x, gather="col")) * dense(p.wi, x, gather="col")
+    return dense(p.wo, h, gather="row")

@@ -16,6 +16,24 @@ On the card the kernel launches or raises; it never falls back.  The
 decode's core (one query against the cache, offset by its length) is the
 reference's materialised softmax, its probabilities rounded to x's dtype
 before ``p·v``.
+
+Under a mesh context (the train and eval steps) the heads split over
+"model": ``wq`` is column-parallel and ``wo`` row-parallel, as in
+``layers.attention``.  The latent's weights are stored as the reference
+stores them, which does not line up with a head split: ``wkv_a`` is
+column-sharded over the latent and its rope part, ``wkv_b`` row-sharded
+over the latent (``transformer.py:296-300``).  So the step's working copy
+(``train.train_step.working_specs``) holds ``wkv_a`` whole, gathered
+over "model" once a step, and ``wkv_b`` redistributed to a head split (its
+columns over "model", an all-to-all of the leaf) once a step; every rank
+computes the whole latent, and the latent passes ``copy_to_tp`` before
+the head-split ``wkv_b``, so ``wkv_a``'s and ``kv_norm``'s gradients are
+whole and equal on every rank.  The train step takes each rank's shard of
+``wkv_a``'s gradient and redistributes ``wkv_b``'s back to rows (another
+all-to-all).  Cost a step: ``wkv_a``'s all-gather and two all-to-alls of
+``wkv_b`` (V2-Lite: 2048 × 576 and 512 × 4096 floats a layer), where the
+other choice, ``wkv_b`` row-parallel, would all-reduce a
+(B, S, H·(dn + dv)) activation twice a layer.
 """
 from __future__ import annotations
 
@@ -29,6 +47,7 @@ from torch import nn
 from ..kernels import ops, ref
 from ..kernels.build import PlanError
 from ..launch.op_count import attn_core
+from ..sharding import copy_to_tp, tp_group
 from . import layers as L
 
 
@@ -61,9 +80,11 @@ class MLA(nn.Module):
 def _expand_kv(p: MLA, c_kv: torch.Tensor, k_rope: torch.Tensor,
                cfg: MLAConfig):
     """latent (B, S, kv_lora) + shared rope key (B, S, dr) -> per-head K
-    (B, S, H, dn + dr), V (B, S, H, dv)."""
+    (B, S, H, dn + dr), V (B, S, H, dv); this rank's heads (``wkv_b``'s
+    local columns) under a mesh context."""
     b, s, _ = c_kv.shape
-    h, dn = cfg.n_heads, cfg.qk_nope
+    dn = cfg.qk_nope
+    h = L.local_heads(p.wkv_b.w, cfg.n_heads, dn + cfg.v_head, "mla wkv_b")
     kv = L.dense(p.wkv_b, c_kv).reshape(b, s, h, dn + cfg.v_head)
     k = torch.cat([kv[..., :dn],
                    k_rope[:, :, None, :].expand(b, s, h, cfg.qk_rope)], dim=-1)
@@ -89,19 +110,30 @@ def mla_attention(p: MLA, x: torch.Tensor, cfg: MLAConfig,
     """Returns (out, new_cache).  cache = {"ckv": (B, Smax, kv_lora + dr),
     "len": int}: the step's latents are written into ``ckv`` IN PLACE at
     ``len``, and the returned cache holds the same tensor and the new
-    length."""
+    length.  Under a mesh context this rank's heads (see the module's
+    docstring)."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
-    h, dn, dr, dv = cfg.n_heads, cfg.qk_nope, cfg.qk_rope, cfg.v_head
+    dn, dr, dv = cfg.qk_nope, cfg.qk_rope, cfg.v_head
+    L.check_heads(cfg.n_heads, cfg.n_heads, s, "latent attention")
+    h = L.local_heads(p.wq.w, cfg.n_heads, dn + dr, "mla wq")
 
-    q = L.dense(p.wq, x).reshape(b, s, h, dn + dr)
+    q = L.dense(p.wq, x, gather="col").reshape(b, s, h, dn + dr)
     q = torch.cat([q[..., :dn], L.rope(q[..., dn:], positions,
                                        cfg.rope_theta)], dim=-1)
     ckv_full = L.dense(p.wkv_a, x)                       # (B, S, kv_lora+dr)
+    if ckv_full.shape[-1] != cfg.kv_lora + dr:
+        raise PlanError(f"mla wkv_a: {ckv_full.shape[-1]} columns, not the "
+                        f"whole latent {cfg.kv_lora} + {dr} (the working "
+                        "copy gathers it over the model axis)")
     c_kv = L.rms_norm(p.kv_norm, ckv_full[..., :cfg.kv_lora])
     k_rope = L.rope(ckv_full[..., None, cfg.kv_lora:], positions,
                     cfg.rope_theta)[..., 0, :]           # (B, S, dr)
+    tp = tp_group()
+    if tp is not None:        # each rank's heads add their part of the grad
+        latent = copy_to_tp(torch.cat([c_kv, k_rope], dim=-1), tp)
+        c_kv, k_rope = latent[..., :cfg.kv_lora], latent[..., cfg.kv_lora:]
 
     if cache is None:
         k, v = _expand_kv(p, c_kv, k_rope, cfg)
@@ -121,4 +153,4 @@ def mla_attention(p: MLA, x: torch.Tensor, cfg: MLAConfig,
                           cfg)
         with attn_core:
             out = ref.mha_ref(q, k, v, causal=True, q_offset=idx)
-    return L.dense(p.wo, out.reshape(b, s, h * dv)), new_cache
+    return L.dense(p.wo, out.reshape(b, s, h * dv), gather="row"), new_cache

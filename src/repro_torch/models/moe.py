@@ -1,22 +1,44 @@
-"""Mixture-of-Experts: the port of ``repro.models.moe`` on one rank's
-tokens.
+"""Mixture-of-Experts with expert parallelism: the port of
+``repro.models.moe``.
 
 The reference dispatches inside a ``shard_map`` over its mesh, once per
 (pod, data) shard, its expert exchange an explicit ``all_to_all`` pair on
-the "model" axis.  A model axis of size 1 (all this port runs) makes both
-exchanges the identity; that computation is what is ported here, and
-``forward`` and ``decode_step`` run it for every MoE block.  The data axes
-need nothing more: a data-parallel train step (``train.train_step``) runs
-the forward on each rank's own rows, so the capacity C is taken over a
-rank's tokens, as the reference takes it over a (pod, data) shard's
-(``moe.py:82-94``), and results depend on the data axis as the
-reference's do:
+the "model" axis (``moe.py:87-131``).  The port runs the same computation
+on each rank's rows.  Without a mesh context (serving, the one-device
+step) the exchange is the identity, as on the reference's model axis of 1.
+Under one (``sharding.mesh_context``, as the train and eval steps run the
+forward) the rank holds its E/m experts (``moe_param_specs``: the expert
+leaves' rows over "model") and, at every model-axis size, 1 included:
+
+* the token-parallel split (``moe.py:134-168``): when S > 1 and S % m ==
+  0, each model rank takes its S/m slice of its rows (``split_seq``) and
+  routes those B·S/m tokens with the capacity ``_capacity(B·S/m)``, so
+  results depend on the model axis as the reference's do; the router's
+  weights are replicated but each rank routes other tokens, so they pass
+  ``copy_to_tp`` (their gradient summed over "model"), and the slices come
+  back through ``gather_seq`` (whose backward is a slice: the gradient of
+  the whole output is the same on every rank);
+* otherwise (decode, or S that does not divide) every model rank dispatches
+  all its rows (``moe.py:140-143``): its buffer's rows for rank j's experts
+  reach rank j from every rank, so in the backward the routed path's
+  gradient is scaled by 1/m and the input and the router pass
+  ``copy_to_tp``, which sums the m equal parts back to one;
+
+then, per rank:
 
     tokens (T, d) --route in float32, top-k, renormalise-->
       stable sort of the (token, k) slots by expert, rank within the
       expert, slots past the capacity C dropped --> buf (E, C, d)
-      --the experts' SwiGLU as batched products--> (E, C, d)
-      --combine through the same slots, weighted--> (T, d) (+ shared expert)
+      --expert_exchange (split E, concat C)--> (E/m, C·m, d)
+      --the local experts' SwiGLU as batched products--> (E/m, C·m, d)
+      --expert_return--> (E, C, d)
+      --combine through the same slots, weighted--> (T, d)
+
+plus the shared expert, tensor-parallel as ``layers.swiglu`` (its
+``wi``/``wg`` columns and ``wo`` rows over "model").  Capacity is taken
+over a rank's tokens, as the reference takes it over a (pod, data, model)
+shard's, so results depend on the data and model axes as the
+reference's do.
 
 Which slots drop depends on order, so the order is the reference's: the
 top-k in descending probability, ties to the lower expert (a stable
@@ -34,7 +56,11 @@ Inside ``with counting_drops() as drops:`` each ``moe_ffn`` call appends
 the routed slots its dispatch dropped to ``drops`` (a 0-d tensor on x's
 device, so counting never waits for the device); ``drop_counts(drops)``
 reads them as ints, one per call in call order.  Outside such a block
-``moe_ffn`` counts nothing.
+``moe_ffn`` counts nothing.  Under a mesh context each rank counts its own
+dispatch's drops: a layer's drops over the whole batch are the sum over
+the batch axes and, in the token-parallel split, over "model" too (each
+model rank routes other tokens); in the replicated dispatch every model
+rank counts the same drops, so one rank's count is the line's.
 """
 from __future__ import annotations
 
@@ -46,7 +72,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.build import PlanError
 from ..kernels.ops import resolve_device
+from ..sharding import (copy_to_tp, expert_exchange, expert_return,
+                        gather_seq, scale_grad, split_seq, tp_group)
 from . import layers as L
 
 # the list of the innermost counting_drops() block, None outside any
@@ -172,16 +201,51 @@ def _combine(out: torch.Tensor, order, dest_e, dest_c, keep,
     return (y_flat.reshape(t, k, -1) * top_w[..., None].to(out.dtype)).sum(1)
 
 
+def _dispatch_combine(x: torch.Tensor, router_w: torch.Tensor,
+                      wi: torch.Tensor, wg: torch.Tensor, wo: torch.Tensor,
+                      cfg: MoEConfig, tp=None):
+    """The reference's ``_dispatch_combine`` (``moe.py:87-131``) on one
+    rank's tokens x (T, d) with its local experts (wi/wg (E/m, d, f), wo
+    (E/m, f, d)); ``tp`` the model axis (``sharding.tp_group``) or None
+    for the one-device identity exchange.  Returns (y (T, d), keep (T·k,)
+    in expert-sorted slot order)."""
+    top_w, top_e = _route(x, router_w, cfg)
+    buf, order, dest_e, dest_c, keep = _dispatch(x, top_e, cfg)
+    if tp is not None:
+        buf = expert_exchange(buf, tp)                  # (E/m, C·m, d)
+    out = _experts(buf, wi, wg, wo)
+    if tp is not None:
+        out = expert_return(out, tp)                    # (E, C, d)
+    return _combine(out, order, dest_e, dest_c, keep, top_w), keep
+
+
 def moe_ffn(p: MoE, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d): the routed experts through the
-    capacity-bounded dispatch over all B·S tokens at once, plus the shared
-    expert."""
+    capacity-bounded dispatch, plus the shared expert.  Without a mesh
+    context all B·S tokens at once; under one the token-parallel split or
+    the replicated dispatch across "model" (the module's docstring)."""
     b, s, d = x.shape
-    xt = x.reshape(b * s, d)
-    top_w, top_e = _route(xt, p.router.w, cfg)
-    buf, order, dest_e, dest_c, keep = _dispatch(xt, top_e, cfg)
-    out = _experts(buf, p.wi, p.wg, p.wo)
-    y = _combine(out, order, dest_e, dest_c, keep, top_w).reshape(b, s, d)
+    tp = tp_group()
+    if tp is None:
+        y, keep = _dispatch_combine(x.reshape(b * s, d), p.router.w, p.wi,
+                                    p.wg, p.wo, cfg)
+        y = y.reshape(b, s, d)
+    else:
+        m = tp.size
+        if cfg.n_experts % m or p.wi.shape[0] * m != cfg.n_experts:
+            raise PlanError(f"moe: {p.wi.shape[0]} local experts are not "
+                            f"1/{m} of {cfg.n_experts} (the expert leaves "
+                            "are each rank's rows over the model axis)")
+        router_w = copy_to_tp(p.router.w, tp)
+        if s > 1 and s % m == 0:                        # token-parallel
+            xs = split_seq(x, tp)                       # (B, S/m, d)
+            y, keep = _dispatch_combine(xs.reshape(-1, d), router_w, p.wi,
+                                        p.wg, p.wo, cfg, tp)
+            y = gather_seq(y.reshape(xs.shape), tp)
+        else:                                           # replicated
+            y, keep = _dispatch_combine(copy_to_tp(x, tp).reshape(b * s, d),
+                                        router_w, p.wi, p.wg, p.wo, cfg, tp)
+            y = scale_grad(y, 1.0 / m).reshape(b, s, d)
     if _COUNTING is not None:
         _COUNTING.append((~keep).sum())
     if p.shared is not None:

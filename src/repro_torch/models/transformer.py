@@ -39,6 +39,19 @@ runs under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``),
 so its activations are recomputed in the backward.  ``init_params(...,
 trainable=True)`` (or ``model.requires_grad_(True)``) makes the parameters
 trainable; serving keeps them frozen.
+
+Under a mesh context (``sharding.mesh_context``; the train and eval steps
+run the forward under one) attention, latent attention, the SwiGLU and the
+experts are tensor- and expert-parallel over "model" on each rank's
+shards (``models.layers``, ``models.mla``, ``models.moe``).  The residual
+stream stays replicated over "model" (the reference shards its sequence,
+``residual_spec``: ROADMAP A.11f-2b), and so do the embedding and the LM
+head: the step's working copy gathers them whole over "model" once a step
+(``train.train_step.working_specs``), so the logits and the loss are whole
+on every rank, where the reference's logits are vocab-sharded
+(``transformer.py:402``; a vocab-parallel cross-entropy is later work).
+The ``ssm`` and ``hybrid`` families on a model axis above 1 raise
+``PlanError``: their SSD heads over "model" are ROADMAP A.11f-2b.
 """
 from __future__ import annotations
 
@@ -51,7 +64,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels.build import PlanError
 from ..kernels.ops import resolve_device
+from ..sharding import current_ctx, mesh_context, tp_group
 from . import layers as L
 from . import mla as MLA
 from . import moe as MOE
@@ -117,6 +132,16 @@ def check_supported(cfg: ArchConfig) -> None:
                                    or cfg.n_layers % cfg.shared_every):
         raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not split "
                          f"into groups of {cfg.shared_every}")
+
+
+def check_mesh(cfg: ArchConfig) -> None:
+    """Refuse, under a mesh context with a model axis above 1, the families
+    whose layers this half of the model axis does not split."""
+    tp = tp_group()
+    if tp is not None and tp.size > 1 and cfg.family in ("ssm", "hybrid"):
+        raise PlanError(f"{cfg.name}: the {cfg.family} family on a model "
+                        f"axis of {tp.size}: the SSD heads over \"model\" "
+                        "are ROADMAP A.11f-2b, not ported yet")
 
 
 # =============================================================== blocks ====
@@ -301,11 +326,18 @@ def _logits(params: Model, x: torch.Tensor) -> torch.Tensor:
 def _maybe_remat(apply, cfg: ArchConfig):
     """``apply(p, x, cfg)``'s residual out, under ``torch.utils.checkpoint``
     when ``cfg.remat`` and autograd is recording (the reference's
-    ``jax.checkpoint`` around each block); a plain call otherwise."""
+    ``jax.checkpoint`` around each block); a plain call otherwise.  The
+    recompute runs inside the backward, which on the card runs on the
+    autograd engine's device thread, where the forward's thread-local mesh
+    context is not set: it re-enters the context the forward ran under."""
     def block(p, x):
         if cfg.remat and torch.is_grad_enabled():
-            return checkpoint(lambda h: apply(p, h, cfg)[0], x,
-                              use_reentrant=False)
+            ctx = current_ctx()
+
+            def run(h):
+                with mesh_context(ctx):
+                    return apply(p, h, cfg)[0]
+            return checkpoint(run, x, use_reentrant=False)
         return apply(p, x, cfg)[0]
     return block
 
@@ -344,6 +376,7 @@ def forward(params: Model, batch: dict, cfg: ArchConfig,
     positions' embeddings, ``encdec`` batch["enc_embeds"] (B, S_enc,
     d_model) as the encoder's input."""
     check_supported(cfg)
+    check_mesh(cfg)
     attn = _maybe_remat(_attn_block_apply, cfg)
     ssd = _maybe_remat(_ssd_block_apply, cfg)
     x = _embed(params, batch["tokens"])
@@ -445,6 +478,7 @@ def decode_step(params: Model, batch: dict, cache: dict, cfg: ArchConfig):
     caller fills (``cross_kv_init`` of the encoder's output) before the
     first step."""
     check_supported(cfg)
+    check_mesh(cfg)
     tokens = batch["tokens"]
     b = tokens.shape[0]
     x = _embed(params, tokens)

@@ -4,8 +4,8 @@
 Axis roles (as the reference's):
   pod    — data parallelism across pods (multi-pod mesh only)
   data   — data parallelism + FSDP parameter sharding within a pod
-  model  — tensor / expert / sequence parallelism (size 1 in this port:
-           ``launch.mesh.make_mesh`` refuses more, ROADMAP A.11f-2)
+  model  — tensor and expert parallelism (this half of the port; the
+           reference's sequence parallelism on it is ROADMAP A.11f-2b)
 
 A spec is a tuple whose entries are ``None``, an axis name, or a tuple of
 names, one entry a tensor dim: the counterpart of ``PartitionSpec``.
@@ -15,11 +15,35 @@ are dropped), and ``distribute`` lays a tree or a model out by it, each
 rank keeping its own shard.
 
 The models never see a DTensor: the train step (``train.train_step``)
-gathers whole weights for the forward, which runs on a rank's own rows as
-plain tensors, so the models never read the context either.  ``shard`` is
-the identity without a context or on a plain tensor, and redistributes a
-DTensor.  The reference's ``compat_shard_map`` papers over jax versions'
-``shard_map`` signatures; it has no counterpart here.
+gathers each weight over the batch axes into a plain tensor, each rank
+keeping its shard over "model", and runs the forward on a rank's own
+rows.  The tensor- and expert-parallel layers read ``current_ctx()`` for
+the model group, as the reference's ``moe_ffn`` and ``_sdpa`` read theirs,
+and cross it with the differentiable collectives below, each a
+``torch.autograd.Function`` over plain ``torch.distributed`` calls on that
+group (a group of one rank still runs them):
+
+  copy_to_tp      identity forward, all-reduce backward (before a
+                  column-parallel product: the input's gradient is the sum
+                  of every rank's columns' part);
+  reduce_from_tp  all-reduce forward, identity backward (after a
+                  row-parallel product);
+  split_seq       this rank's slice of a dim forward, all-gather backward;
+  gather_seq      all-gather of a dim forward, this rank's slice backward;
+  expert_exchange the MoE ``all_to_all`` (split E, concat C) forward, the
+                  reverse exchange backward, and ``expert_return`` the
+                  other way round.
+
+``TP_CALLS`` counts the collectives these issue, by function (``copy_to_tp``
+counts its backward's all-reduces, ``split_seq`` its backward's
+all-gathers), once for each forward and each backward; a forward rerun
+inside the backward (remat's recompute, which ``torch.utils.checkpoint``
+stops once the tensors the backward needs are rebuilt, at a point that
+differs between torch builds and devices) counts in ``TP_RECOMPUTE``
+instead.  ``zero_tp_calls`` resets both.  ``shard`` is the identity
+without a context or on a plain tensor, and redistributes a DTensor.  The
+reference's ``compat_shard_map`` papers over jax versions' ``shard_map``
+signatures; it has no counterpart here.
 """
 from __future__ import annotations
 
@@ -30,6 +54,7 @@ import threading
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 
 from .kernels.build import PlanError
 
@@ -225,3 +250,190 @@ def residual_spec(x) -> tuple:
     if ctx is not None and s > 1 and s % ctx.tp_size == 0:
         return (dp, "model", None)
     return (dp, None, None)
+
+
+# ------------------------------------------ collectives over "model" --
+TP_CALLS = {"copy_to_tp": 0, "reduce_from_tp": 0, "split_seq": 0,
+            "gather_seq": 0, "all_to_all": 0}
+TP_RECOMPUTE = dict(TP_CALLS)
+
+
+def zero_tp_calls() -> None:
+    for k in TP_CALLS:
+        TP_CALLS[k] = TP_RECOMPUTE[k] = 0
+
+
+def _count(kind: str, forward: bool) -> None:
+    """One collective of ``kind``; a forward's inside a running backward
+    (a graph task) is a recompute."""
+    rerun = forward and torch._C._current_graph_task_id() != -1
+    (TP_RECOMPUTE if rerun else TP_CALLS)[kind] += 1
+
+
+@dataclasses.dataclass(frozen=True)
+class TPGroup:
+    """The model axis as the layers use it: the process group of this
+    rank's line along it, its size and this rank's index on it."""
+    group: Any
+    size: int
+    rank: int
+
+
+def tp_group(ctx: Optional[MeshContext] = None) -> Optional[TPGroup]:
+    """The active context's model axis, or None without a context."""
+    ctx = ctx if ctx is not None else current_ctx()
+    if ctx is None:
+        return None
+    if ctx.tp not in ctx.mesh.mesh_dim_names:
+        raise PlanError(f"mesh {tuple(ctx.mesh.mesh_dim_names)} has no "
+                        f"{ctx.tp!r} axis")
+    return TPGroup(ctx.group(ctx.tp), ctx.tp_size,
+                   ctx.mesh.get_local_rank(ctx.tp))
+
+
+def _all_gather(x: torch.Tensor, dim: int, tp: TPGroup) -> torch.Tensor:
+    parts = [torch.empty_like(x) for _ in range(tp.size)]
+    dist.all_gather(parts, x.contiguous(), group=tp.group)
+    return torch.cat(parts, dim=dim)
+
+
+def _slice(x: torch.Tensor, dim: int, tp: TPGroup) -> torch.Tensor:
+    n = x.shape[dim]
+    if n % tp.size:
+        raise PlanError(f"dim {dim} of {tuple(x.shape)} does not split over "
+                        f"{tp.size} model ranks")
+    return x.narrow(dim, tp.rank * (n // tp.size), n // tp.size)
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        _count("copy_to_tp", False)
+        dist.all_reduce(g, group=ctx.tp.group)
+        return g, None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        y = x.contiguous().clone()
+        _count("reduce_from_tp", True)
+        dist.all_reduce(y, group=tp.group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SplitSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, tp):
+        ctx.dim, ctx.tp = dim, tp
+        return _slice(x, dim, tp).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        _count("split_seq", False)
+        return _all_gather(g, ctx.dim, ctx.tp), None, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, tp):
+        ctx.dim, ctx.tp = dim, tp
+        _count("gather_seq", True)
+        return _all_gather(x, dim, tp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _slice(g, ctx.dim, ctx.tp).contiguous(), None, None
+
+
+def _exchange(x: torch.Tensor, tp: TPGroup, back: bool,
+              forward: bool) -> torch.Tensor:
+    """The reference's tiled ``all_to_all`` pair on (E, C, d) buffers:
+    forward (split E, concat C) (E, C, d) -> (E/m, m·C, d); ``back`` (split
+    C, concat E) (E/m, m·C, d) -> (E, C, d)."""
+    m = tp.size
+    if back:
+        e_loc, mc, d = x.shape
+        send = x.reshape(e_loc, m, mc // m, d).transpose(0, 1).contiguous()
+    else:
+        send = x.contiguous()
+    recv = torch.empty_like(send)
+    _count("all_to_all", forward)
+    dist.all_to_all_single(recv, send, group=tp.group)
+    if back:
+        return recv.reshape(m * e_loc, mc // m, d)
+    e, c, d = x.shape
+    return recv.reshape(m, e // m, c, d).transpose(0, 1).reshape(
+        e // m, m * c, d)
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, back):
+        ctx.tp, ctx.back = tp, back
+        return _exchange(x, tp, back, True)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.tp, not ctx.back, False), None, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def copy_to_tp(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
+    """Identity forward; the gradient all-reduced over the model group."""
+    return _CopyToTP.apply(x, tp)
+
+
+def reduce_from_tp(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
+    """All-reduce (sum) over the model group forward; identity backward."""
+    return _ReduceFromTP.apply(x, tp)
+
+
+def split_seq(x: torch.Tensor, tp: TPGroup, dim: int = 1) -> torch.Tensor:
+    """This rank's 1/m slice of ``dim`` forward (rank r takes the r-th
+    contiguous part); the slices' gradients all-gathered backward."""
+    return _SplitSeq.apply(x, dim, tp)
+
+
+def gather_seq(x: torch.Tensor, tp: TPGroup, dim: int = 1) -> torch.Tensor:
+    """The ranks' slices all-gathered along ``dim`` in rank order forward;
+    this rank's slice of the gradient backward (every rank holds the same
+    whole gradient, so nothing is summed)."""
+    return _GatherSeq.apply(x, dim, tp)
+
+
+def expert_exchange(buf: torch.Tensor, tp: TPGroup) -> torch.Tensor:
+    """(E, C, d) -> (E/m, m·C, d): each rank's slots for rank j's experts
+    to rank j, concatenated in rank order (``all_to_all(split_axis=0,
+    concat_axis=1, tiled=True)``)."""
+    return _Exchange.apply(buf, tp, False)
+
+
+def expert_return(out: torch.Tensor, tp: TPGroup) -> torch.Tensor:
+    """(E/m, m·C, d) -> (E, C, d): the reverse of ``expert_exchange``."""
+    return _Exchange.apply(out, tp, True)
+
+
+def scale_grad(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """Identity forward; the gradient times ``scale`` backward."""
+    return _ScaleGrad.apply(x, scale)

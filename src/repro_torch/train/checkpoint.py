@@ -16,10 +16,11 @@ to host numpy.  ``restore`` returns host numpy, tensors on the device it is
 given, or DTensors laid out on a mesh by specs (``sharding``'s tuples),
 each rank keeping its own shard of each leaf: any mesh whose axis names
 the specs use, so a checkpoint saved on one mesh restores onto another
-(``ft.elastic_reshard``).  A tree of DTensors saves whole: every rank of
-their mesh calls ``save``, the leaves are gathered, rank 0 writes and the
-others reread the store, so the CVD's rows are a one-rank save's byte for
-byte.  The tree is walked as the JAX package walks it (dict keys in
+(``ft.elastic_reshard``), across the batch axes and "model" alike.  A
+tree of DTensors saves whole: every rank of their mesh calls ``save``,
+the leaves (sharded over "data", "model" or both) are gathered, rank 0
+writes and the others reread the store, so the CVD's rows are a one-rank
+save's byte for byte.  The tree is walked as the JAX package walks it (dict keys in
 sorted order, ``[i]`` for list and tuple items, a namedtuple's field names,
 ``None`` an empty subtree), so both packages write the same manifest
 ``layout`` and the same CVD rows for the same tree.

@@ -46,8 +46,9 @@ def resume_latest(store: CheckpointStore, device=None, mesh=None,
 def elastic_reshard(store: CheckpointStore, vid: int, new_mesh, specs,
                     treedef_like=None) -> Any:
     """Restore checkpoint ``vid`` onto a DIFFERENT mesh (the reference's
-    ``:45``): any mesh whose axis names exist works (names absent from the
-    new mesh are dropped, so that dim replicates)."""
+    ``:45``): any mesh whose axis names exist works, (data, model) meshes
+    of any shape included (names absent from the new mesh are dropped, so
+    that dim replicates)."""
     return store.restore(vid, mesh=new_mesh, specs=specs,
                          treedef_like=treedef_like)
 

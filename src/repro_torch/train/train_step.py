@@ -14,18 +14,29 @@ rank of the mesh calls the step with the same global batch and takes its
 own rows, as the reference shards the batch over ("pod", "data"):
 
 * the plain step: each rank runs the forward and backward on its rows of
-  each microbatch, and the gradients and the loss are averaged over the
-  batch axes (summed for ``vlm``, whose loss the reference divides by one
-  row's count); the grad norm is the global one;
-* FSDP: parameters laid out by ``sharding.distribute(model,
-  param_specs(cfg), mesh)`` hold 1/dp of every leaf that the specs shard
-  over "data" on each rank, and so do the AdamW moments and the
-  error-feedback residuals.  Each step gathers the whole weights once
-  (``cast_and_gather_params``'s one all-gather a step; the reference's
-  FSDP2 alternative, ``fully_shard``, is not used) into a model of plain
-  tensors for the forward, so the flash, SSD and RMS-norm Functions and
-  the kernels see plain local tensors, never DTensors; the gradients are
-  all-reduced and each rank keeps its shard for AdamW;
+  each microbatch (every model rank of a (pod, data) line takes that
+  line's rows, as the reference shards the batch over the batch axes
+  only), and the gradients and the loss are averaged over the batch axes
+  (summed for ``vlm``, whose loss the reference divides by one row's
+  count); the grad norm is the global one, each leaf counted once across
+  the ranks that hold its shards;
+* FSDP and tensor/expert parallelism: parameters laid out by
+  ``sharding.distribute(model, param_specs(cfg), mesh)`` hold 1/dp of
+  every leaf that the specs shard over "data" and 1/tp of every leaf they
+  shard over "model" on each rank, and so do the AdamW moments and the
+  error-feedback residuals.  Each step gathers the weights over the batch
+  axes once (``cast_and_gather_params``; the reference's ``_drop_fsdp``;
+  the FSDP2 alternative, ``fully_shard``, is not used) into a model of
+  plain tensors, each rank keeping its "model" shard as the layers want it
+  (``working_specs``), and the forward runs under ``mesh_context(ctx)``,
+  so the attention, SwiGLU, latent-attention and expert layers run
+  tensor- and expert-parallel over "model" (``models.layers``,
+  ``models.mla``, ``models.moe``) at every model-axis size, 1 included,
+  while the flash, SSD and RMS-norm Functions and the kernels see plain
+  local tensors, never DTensors.  Each working shard's gradient is whole
+  for that shard (the layers' collectives sum what the model ranks share,
+  such as the router's); it is all-reduced over the batch axes and laid
+  back out as the parameter's shard for AdamW;
 * ``grad_compress=True`` on a mesh with a "pod" axis: the reference's
   compressed step (``:140-184``).  Gradients are averaged within the pod
   at full precision; then per leaf ``target = g + e``, ``q, scale =
@@ -34,14 +45,17 @@ own rows, as the reference shards the batch over ("pod", "data"):
   reference's leaf holds them all),
   an int32 SUM of ``q`` and a MAX of the scale over "pod", ``ĝ = s · sc /
   npods`` and ``e ← target − q · scale`` (the pod's own residual row); the
-  loss is averaged over pods.  Without a "pod" axis ``grad_compress`` gives
-  the plain step, as the reference's does.
+  loss is averaged over pods.  On TP shards the formula is the same: the
+  scale's max runs over the leaf's shards on "data" and "model", and the
+  residuals are laid out by ``ef_specs``.  Without a "pod" axis
+  ``grad_compress`` gives the plain step, as the reference's does.
 
 Collectives run on the mesh's groups (NCCL on the card, gloo on the CPU);
 a group of one rank still runs them.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -50,9 +64,11 @@ import torch.distributed as dist
 from torch import nn
 from torch.profiler import record_function
 
+from ..kernels.build import PlanError
 from ..models.convert import reference_path
-from ..models.transformer import FRONTEND_INPUTS, ArchConfig, Model, loss_fn
-from ..sharding import MeshContext, local, sharding, tree_map
+from ..models.transformer import (FRONTEND_INPUTS, ArchConfig, Model,
+                                  loss_fn, param_specs)
+from ..sharding import MeshContext, local, mesh_context, sharding, tree_map
 from .optimizer import AdamW, AdamWState
 
 
@@ -168,22 +184,50 @@ def _drop_fsdp(spec: tuple) -> tuple:
     return tuple(fix(e) for e in spec)
 
 
+@functools.lru_cache(maxsize=None)
+def working_specs(cfg: ArchConfig) -> dict:
+    """The layout of each leaf in the forward's working copy, by parameter
+    name: ``_drop_fsdp`` of its ``param_specs`` entry (gathered over
+    "data", each rank keeping its "model" shard, as the reference's
+    ``cast_and_gather_params``), but
+      * the embedding and the LM head whole: gathered over "model" once a
+        step (the reference's logits are vocab-sharded);
+      * latent attention's ``wkv_a`` whole and ``wkv_b``'s columns (its
+        heads) over "model" (``models.mla``'s docstring);
+      * a column-parallel product's bias over "model" with its columns
+        (the reference stores it replicated).
+    Made once a config (the step reads it every step); not to be
+    changed."""
+    specs = param_specs(cfg)
+    out = {}
+    for name, spec in specs.items():
+        leaf = name.rpartition(".")[2]
+        if name in ("embed", "lm_head") or name.endswith(".wkv_a.w"):
+            out[name] = (None,) * len(spec)
+        elif name.endswith(".wkv_b.w"):
+            out[name] = (None, "model")
+        elif leaf == "b" and specs.get(name[:-1] + "w", ())[-1:] == ("model",):
+            out[name] = ("model",)
+        else:
+            out[name] = _drop_fsdp(spec)
+    return out
+
+
 def cast_and_gather_params(params: Model, cfg: ArchConfig,
                            ctx: MeshContext) -> Model:
     """The forward's working copy (the reference's ``:41``): ``params`` (a
-    ``Model`` of ``cfg`` with DTensor parameters) gathered over the FSDP
-    axis once a step, each leaf laid out by ``_drop_fsdp`` of its spec
-    (whole, on a model axis of 1), as a ``Model`` of plain tensors that
-    require gradients.  A leaf already so laid out is its own storage, not
-    a copy.  The reference casts its working copy to bf16; the port's
-    forward casts at each use, as its one-device step does, so the copy
-    stays float32."""
+    ``Model`` of ``cfg`` with DTensor parameters) gathered over the batch
+    axes once a step, each leaf laid out by ``working_specs`` (each rank
+    its "model" shard; whole on a model axis of 1), as a ``Model`` of plain
+    tensors that require gradients.  A leaf already so laid out is its own
+    storage, not a copy.  The reference casts its working copy to bf16;
+    the port's forward casts at each use, as its one-device step does, so
+    the copy stays float32."""
     work = Model(cfg, None, torch.device("meta"))
-    named = dict(params.named_parameters())
-    specs = _specs_of(named, ctx)
-    for name, p in named.items():
+    specs = working_specs(cfg)
+    for name, p in params.named_parameters():
         if _is_dtensor(p):
-            want = sharding(_drop_fsdp(specs[name]), ctx.mesh).placements
+            want = sharding(specs[name], ctx.mesh).placements
             # a dim of one rank holds the whole leaf either way
             same = all(a == b or n == 1 for a, b, n in
                        zip(p.placements, want, ctx.mesh.shape))
@@ -201,10 +245,15 @@ def _is_dtensor(x) -> bool:
 
 
 def _working(params: Model, cfg: ArchConfig, ctx: MeshContext) -> Model:
-    """The model the forward runs: ``params`` itself when it holds plain
-    tensors, else its gathered working copy."""
+    """The model the forward runs: its gathered working copy, or
+    ``params`` itself when it holds plain tensors on a model axis of 1
+    (whole leaves are then every rank's shards)."""
     if any(_is_dtensor(p) for p in params.parameters()):
         return cast_and_gather_params(params, cfg, ctx)
+    if ctx.tp_size > 1:
+        raise PlanError(f"a model axis of {ctx.tp_size} needs the parameters "
+                        "laid out on the mesh (sharding.distribute(model, "
+                        "param_specs(cfg), mesh)); these are plain tensors")
     return params
 
 
@@ -257,15 +306,22 @@ def _all_reduce(t: torch.Tensor, ctx: MeshContext, axes, op=None):
     return t
 
 
-def _shard_of(g: torch.Tensor, p) -> torch.Tensor:
-    """A rank's shard of a whole gradient ``g``, laid out as ``p``."""
-    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
-    if not isinstance(p, DTensor) or all(
-            not isinstance(pl, Shard) or n == 1
-            for pl, n in zip(p.placements, p.device_mesh.shape)):
+def _shard_of(g: torch.Tensor, p, spec: tuple) -> torch.Tensor:
+    """A rank's shard, laid out as ``p``, of the gradient ``g`` of its
+    working shard (laid out by ``spec`` over "model", whole over the batch
+    axes): a local slice, or an all-to-all where both shard "model"
+    (latent attention's ``wkv_b``)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(p, DTensor):
         return g
-    return distribute_tensor(g, p.device_mesh, p.placements,
-                             src_data_rank=None).to_local()
+    mesh = p.device_mesh
+    have = sharding(spec, mesh).placements
+    if all(a == b or n == 1 for a, b, n in zip(have, p.placements,
+                                                 mesh.shape)):
+        return g
+    return DTensor.from_local(g, mesh, have, run_check=False, shape=p.shape,
+                              stride=p.stride()).redistribute(
+        mesh, p.placements).to_local()
 
 
 def _global_norm(shards: dict, specs: dict, ctx: MeshContext) -> torch.Tensor:
@@ -319,12 +375,15 @@ def make_train_step(cfg: ArchConfig, opt: Optional[AdamW] = None,
     # microbatch over all the batch axes
     outer = (ctx.rank_along(("pod",)), npods) if compressed else (0, 1)
 
+    work_specs = working_specs(cfg)
+
     def grads_on_rows(params, batch):
         named = _trainable(params)
         rows = _rank_rows(batch["tokens"].shape[0], n, outer,
                           (ctx.rank_along(inner), inner_size))
-        loss, grads = accumulate_grads(_working(params, cfg, ctx),
-                                       _select(batch, rows), cfg)
+        with mesh_context(ctx):
+            loss, grads = accumulate_grads(_working(params, cfg, ctx),
+                                           _select(batch, rows), cfg)
         with record_function("train.reduce"):
             loss = loss.float().clone()
             for g in (loss, *grads.values()):
@@ -351,7 +410,7 @@ def make_train_step(cfg: ArchConfig, opt: Optional[AdamW] = None,
         def train_step_dp(params: Model, opt_state: AdamWState, batch: dict):
             named, loss, grads = grads_on_rows(params, batch)
             specs = _specs_of(named, ctx)
-            shards = {k: _shard_of(grads.pop(k), p)
+            shards = {k: _shard_of(grads.pop(k), p, work_specs[k])
                       for k, p in named.items()}
             gnorm, state = update(named, opt_state, shards, specs)
             metrics = {"loss": loss, "grad_norm": gnorm.float(),
@@ -370,7 +429,8 @@ def make_train_step(cfg: ArchConfig, opt: Optional[AdamW] = None,
         with torch.no_grad(), record_function("train.compress"):
             _all_reduce(loss, ctx, ("pod",))
             loss.div_(npods)                              # pod mean
-            grads = {k: _shard_of(grads.pop(k), p) for k, p in named.items()}
+            grads = {k: _shard_of(grads.pop(k), p, work_specs[k])
+                     for k, p in named.items()}
             # the pod's row: a DTensor's shard holds only its own
             res = {k: local(e)[0] if _is_dtensor(e) else e[pod]
                    for k, e in ef.items()}
@@ -380,7 +440,8 @@ def make_train_step(cfg: ArchConfig, opt: Optional[AdamW] = None,
                     i = slot[leaf[k]]
                     amax[i] = torch.maximum(amax[i],
                                             (g.float() + res[k]).abs().max())
-            _all_reduce(amax, ctx, inner, dist.ReduceOp.MAX)  # the pod's max
+            _all_reduce(amax, ctx, inner + (ctx.tp,),
+                        dist.ReduceOp.MAX)                # the pod's max
             scale = amax / 127.0 + 1e-12
             sc = _all_reduce(scale.clone(), ctx, ("pod",),
                              dist.ReduceOp.MAX)               # shared scale
@@ -403,8 +464,10 @@ def make_train_step(cfg: ArchConfig, opt: Optional[AdamW] = None,
 
 def make_eval_step(cfg: ArchConfig, ctx: Optional[MeshContext] = None):
     """Returns ``eval_step(params, batch) -> loss`` (no gradients); with
-    ``ctx`` each rank takes its rows and the loss is averaged over the
-    batch axes (the reference's ``:186``)."""
+    ``ctx`` each rank takes its rows (every model rank its (pod, data)
+    line's), the forward runs tensor- and expert-parallel as the train
+    step's, and the loss is averaged over the batch axes (the reference's
+    ``:186``)."""
     @torch.no_grad()
     def eval_step(params: Model, batch: dict):
         if ctx is None:
@@ -413,8 +476,9 @@ def make_eval_step(cfg: ArchConfig, ctx: Optional[MeshContext] = None):
         rows = _rank_rows(batch["tokens"].shape[0], 1, (0, 1),
                           (ctx.dp_rank, ctx.dp_size))
         work = _working(params, cfg, ctx)
-        loss = loss_fn(work, _to_device(_select(batch, rows),
-                                        work.embed.device), cfg).float()
+        with mesh_context(ctx):
+            loss = loss_fn(work, _to_device(_select(batch, rows),
+                                            work.embed.device), cfg).float()
         _all_reduce(loss, ctx, ctx.dp)
         return loss / ctx.dp_size if cfg.family != "vlm" else loss
     return eval_step

@@ -8,8 +8,10 @@ wave, a kill and ``restore(device="cuda")``), four threaded tenants, a
 a ``SMOKE``-size model forward through both model kernels, the
 differentiable flash and SSD Functions' gradients against autograd through
 their plain versions, a ``SMOKE``-size train step on the card against
-the CPU's, and a compressed step on a one-rank NCCL mesh against the same
-step on a one-rank gloo mesh on the CPU.  This file imports neither jax nor the JAX package, so it runs
+the CPU's, a compressed step on a one-rank NCCL mesh against the same
+step on a one-rank gloo mesh on the CPU, and a tensor- and
+expert-parallel step on a one-rank NCCL (data, model) mesh against the
+same step on CPU gloo.  This file imports neither jax nor the JAX package, so it runs
 on a machine with a GPU and no jax:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -919,6 +921,70 @@ def test_cuda_nccl_compressed_step_matches_cpu_gloo(cuda_device, tmp_path):
         assert _rel(torch.from_numpy(v), torch.from_numpy(want["p/" + k])) \
             <= 2 ** 0.5 * bound, k
     assert all(np.isfinite(list(e_max.values())))
+
+
+def test_cuda_nccl_tensor_expert_parallel_step_matches_cpu_gloo(
+        cuda_device, tmp_path):
+    """One plain train step of DeepSeek-V2-Lite's SMOKE config (latent
+    attention, a dense layer, MoE layers with a shared expert) on a
+    one-rank NCCL (data, model) = (1, 1) mesh, through the tensor- and
+    expert-parallel layers (their collectives on a one-rank group),
+    against the same step on a one-rank gloo mesh on the CPU (a spawned
+    process) from the same weights and batch: the flash kernel launches,
+    the model group's collectives run, and the loss and every parameter
+    agree within the bf16 bounds of
+    ``test_cuda_smoke_train_step_matches_cpu``."""
+    import torch.distributed as dist
+    import torch_ranks as R
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import from_reference, to_reference
+    from repro_torch.models.transformer import param_specs
+    from repro_torch.sharding import (TP_CALLS, distribute, local, make_ctx,
+                                      zero_tp_calls)
+    arch = "deepseek_v2_lite_16b"
+    cfg = R.port_cfg(arch)
+    tree = to_reference(init_params(cfg, torch.Generator().manual_seed(0),
+                                    "cpu"))
+    toks = torch.randint(0, cfg.vocab, (2, 65),
+                         generator=torch.Generator().manual_seed(4)).numpy()
+    np.savez(tmp_path / "in.npz", tokens0=toks[:, :-1], labels0=toks[:, 1:],
+             **{"w/" + k: v for k, v in R.flat(tree).items()})
+    spec = dict(arch=arch, inputs=str(tmp_path / "in.npz"), mesh=(1, 1),
+                lr=1e-3, f32=False, steps=1)
+    R.spawn(R.run_cases, 1, tmp_path, [("plain", spec,
+                                        str(tmp_path / "cpu"))])
+    want = dict(np.load(tmp_path / "cpu.npz"))
+    weights, batches = R.load_inputs(spec["inputs"])
+    assert not dist.is_initialized()
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        ctx = make_ctx(mesh)
+        model = from_reference(cfg, weights, device="cuda"
+                               ).requires_grad_(True)
+        distribute(model, param_specs(cfg), mesh)
+        opt = AdamW(lr=1e-3)
+        zero_tp_calls()
+        before = fa.LAUNCHES
+        model, _, m = make_train_step(cfg, opt, ctx=ctx)(
+            model, opt.init(model), batches[0])
+        launched = fa.LAUNCHES - before
+        calls = dict(TP_CALLS)
+        got = R.flat(to_reference(model, {n: local(p).detach().cpu()
+                                          for n, p in
+                                          model.named_parameters()}))
+        loss = float(m["loss"])
+    finally:
+        dist.destroy_process_group()
+    assert launched == cfg.n_layers * (2 if cfg.remat else 1)
+    n_moe = cfg.n_layers - cfg.first_dense
+    assert calls["all_to_all"] == 4 * n_moe
+    assert calls["copy_to_tp"] > 0 and calls["reduce_from_tp"] > 0
+    bound = prefill_bound(cfg)
+    assert abs(loss - want["loss"][0]) <= bound * abs(want["loss"][0])
+    for k, v in got.items():
+        assert _rel(torch.from_numpy(v), torch.from_numpy(want["p/" + k])) \
+            <= 2 ** 0.5 * bound, k
 
 
 def _durable_workload(seed):

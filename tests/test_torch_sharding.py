@@ -4,8 +4,9 @@ shapes.
 
 * ``tests/test_sharding.py``'s five cases on the port, on a one-rank gloo
   group this file starts in its own process (and ends when it is done);
-* ``make_mesh``'s refusals: a model axis above 1 (ROADMAP A.11f-2), a mesh
-  that is not the group's size, axes out of order; the production meshes;
+* ``make_mesh``'s refusals: a mesh that is not the group's size (a model
+  axis above 1 included: it is refused for its size, not for its axis),
+  axes out of order; the production meshes;
 * ``param_specs`` equal to the reference's leaf for leaf for all ten
   configs at full size (each port name against the reference leaf that
   ``models.convert`` maps it to, a stacked leaf without its leading layer
@@ -110,7 +111,7 @@ def test_make_ctx_multi_pod_axes(host_mesh):
 
 # ----------------------------------------------------------- the mesh --
 def test_make_mesh_refusals(host_mesh):
-    with pytest.raises(PlanError, match="A.11f"):
+    with pytest.raises(PlanError, match="needs 2 ranks"):
         M.make_mesh((1, 2), ("data", "model"), "cpu")
     with pytest.raises(PlanError, match="needs 2 ranks"):
         M.make_mesh((2, 1), ("data", "model"), "cpu")

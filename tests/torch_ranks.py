@@ -12,6 +12,17 @@ The rank functions here import no jax: each case loads the reference's
 weights and batches from an ``.npz`` the test wrote, and rank 0 writes
 what the test compares.  ``reference_main`` is the reference side, run by
 a test in one subprocess with four faked host devices.
+
+The model axis's cases (``tests/test_torch_tensor_parallel.py`` and
+``tests/test_torch_expert_parallel.py``): a plain case's ``mesh`` (data,
+model) puts ranks on "model"; ``collectives`` holds the differentiable
+collectives and a SwiGLU and MoE block at tp m against the one-device
+computation; ``exchange`` runs the port's ``_dispatch_combine`` on a
+model axis; ``refusals`` records the ``PlanError``s of what the model axis
+does not run yet; ``tp_restore`` restores and saves checkpoints across
+(data, model) meshes; ``tp_calls`` counts the model group's collectives
+a step; ``remat_thread`` differentiates a remat'd block on another thread.  The reference's "exchange" case runs its
+``_dispatch_combine`` in ``shard_map`` over "model".
 """
 from __future__ import annotations
 
@@ -154,7 +165,8 @@ def _plain_case(rank, world, spec, out):
     from repro_torch.train import AdamW, make_eval_step, make_train_step
     cfg = port_cfg(spec["arch"], spec.get("microbatches", 1))
     weights, batches = load_inputs(spec["inputs"])
-    mesh = make_mesh((world, 1), ("data", "model"), "cpu")
+    mesh = make_mesh(tuple(spec.get("mesh", (world, 1))), ("data", "model"),
+                     "cpu")
     ctx = make_ctx(mesh)
     with _f32(spec["f32"]):
         model = from_reference(cfg, weights, device="cpu").requires_grad_(True)
@@ -250,7 +262,6 @@ def elastic_case(rank, world, spec):
     a state of parameters and per-pod residuals laid out on (pod, data,
     model) = (2, 1, 1) is saved into ``spec["pods"]`` and restored onto one
     pod, (1, 2, 1).  Rank 0 writes what it saw to ``spec["out"]``."""
-    from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import reference_like
     from repro_torch.models.convert import reference_specs
@@ -264,10 +275,7 @@ def elastic_case(rank, world, spec):
     want = flat(store.restore(0, treedef_like=like))
     seen = {"bitexact": {}, "shares": {}}
     meshes = {"2x1": make_mesh((2, 1), ("data", "model"), "cpu"),
-              # the model axis is not trained on yet, so make_mesh refuses
-              # it; a restore takes any mesh
-              "1x2": init_device_mesh("cpu", (1, 2),
-                                      mesh_dim_names=("data", "model"))}
+              "1x2": make_mesh((1, 2), ("data", "model"), "cpu")}
     restored = {}
     for key, mesh in meshes.items():
         tree = elastic_reshard(store, 0, mesh, specs, treedef_like=like)
@@ -328,30 +336,405 @@ def _launcher_case(rank, world, spec, out):
         assert lines == [[], []], lines       # rank 0 alone prints
 
 
+def _rel_err(got, want) -> float:
+    import torch
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def _tp_ctx(world):
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import make_ctx, tp_group
+    ctx = make_ctx(make_mesh((1, world), ("data", "model"), "cpu"))
+    return ctx, tp_group(ctx)
+
+
+def _collectives_case(rank, world, spec, out):
+    """Float32, on (data, model) = (1, world), against the one-device
+    computation of the same seeded inputs (every rank draws them all):
+    ``dense(gather="col")`` then ``dense(gather="row")`` (forward, the
+    input's and both weights' gradients; the weights are this rank's
+    shards); ``split_seq`` then ``gather_seq`` (the input's gradient
+    through a position-weighted loss); a SwiGLU block; and an MoE block
+    (OLMoE's SMOKE geometry with shared experts) in the token-parallel
+    split and in the replicated dispatch (an odd S), its capacity factor
+    E/k so that nothing drops and tp m computes what tp 1 does, every
+    gradient (the router's included) against tp 1's.  ``spec["parts"]``
+    picks "tp" (the first four) and/or "moe".  Rank 0 writes each check's
+    relative L2 error."""
+    import torch
+    ctx, tp = _tp_ctx(world)
+    g = torch.Generator().manual_seed(spec["seed"])
+    errs = {}
+    b, s, d, f = 2, 8, 16, 32
+    if "tp" in spec["parts"]:
+        errs.update(_tp_checks(rank, world, ctx, tp, g, (b, s, d, f)))
+    if "moe" in spec["parts"]:
+        errs.update(_moe_checks(rank, world, ctx, tp, g, (b, d, f)))
+    if rank == 0:
+        with open(out + ".json", "w") as fh:
+            json.dump(errs, fh)
+
+
+def _tp_checks(rank, world, ctx, tp, g, dims) -> dict:
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.sharding import (copy_to_tp, gather_seq, mesh_context,
+                                      reduce_from_tp, split_seq)
+    b, s, d, f = dims
+    errs = {}
+
+    def shard(t, dim):
+        n = t.shape[dim] // world
+        return t.narrow(dim, rank * n, n).detach().clone()
+
+    def leaf(t):
+        return t.detach().clone().requires_grad_(True)
+
+    # dense col -> row, and the bare collectives
+    x = torch.randn(b, s, d, generator=g)
+    w1 = torch.randn(d, f, generator=g) / d ** 0.5
+    w2 = torch.randn(f, d, generator=g) / f ** 0.5
+    dy = torch.randn(b, s, d, generator=g)
+    xs, a, c = leaf(x), leaf(w1), leaf(w2)
+    y = torch.tanh(xs @ a) @ c
+    y_grads = torch.autograd.grad((y * dy).sum(), (xs, a, c))
+    xt, at, ct = leaf(x), leaf(shard(w1, 1)), leaf(shard(w2, 0))
+    with mesh_context(ctx):
+        h = torch.tanh(copy_to_tp(xt, tp) @ at)
+        yt = reduce_from_tp(h @ ct, tp)
+    t_grads = torch.autograd.grad((yt * dy).sum(), (xt, at, ct))
+    errs["dense_fwd"] = _rel_err(yt, y)
+    errs["dense_dx"] = _rel_err(t_grads[0], y_grads[0])
+    errs["dense_dw_col"] = _rel_err(t_grads[1], shard(y_grads[1], 1))
+    errs["dense_dw_row"] = _rel_err(t_grads[2], shard(y_grads[2], 0))
+    # dense() itself with gather= on Dense modules
+    p1, p2 = L.Dense(d, f, True), L.Dense(f, d)
+    p1.w.data, p1.b.data, p2.w.data = w1, torch.randn(f, generator=g), w2
+    want = L.dense(p2, torch.tanh(L.dense(p1, x)))
+    q1, q2 = L.Dense(d, f // world, True), L.Dense(f // world, d)
+    q1.w.data, q1.b.data = shard(w1, 1), shard(p1.b, 0)
+    q2.w.data = shard(w2, 0)
+    with mesh_context(ctx):
+        got = L.dense(q2, torch.tanh(L.dense(q1, x, "col")), "row")
+    errs["dense_gather"] = _rel_err(got, want)
+    # split_seq / gather_seq
+    xs = leaf(x)
+    wpos = torch.arange(1.0, s + 1)[None, :, None]
+    want_g = torch.autograd.grad((torch.sin(xs) * wpos).sum(), xs)[0]
+    xt = leaf(x)
+    with mesh_context(ctx):
+        part = split_seq(xt, tp)
+        whole = gather_seq(torch.sin(part), tp)
+    errs["seq_fwd"] = _rel_err(whole, torch.sin(x))
+    errs["seq_shape"] = float(tuple(part.shape) != (b, s // world, d))
+    errs["seq_dx"] = _rel_err(torch.autograd.grad((whole * wpos).sum(),
+                                                  xt)[0], want_g)
+    # a SwiGLU block at tp m against tp 1
+    blk = L.SwiGLU(d, f, g, "cpu").requires_grad_(True)
+    names = ("wi.w", "wg.w", "wo.w")
+    cut = {"wi.w": 1, "wg.w": 1, "wo.w": 0}
+    xs = leaf(x)
+    y1 = L.swiglu(blk, xs)
+    g1 = torch.autograd.grad((y1 * dy).sum(), [xs] + [
+        blk.get_parameter(n) for n in names])
+    loc = L.SwiGLU(d, f // world, None, "cpu")
+    for n in names:
+        loc.get_submodule(n[:-2])._parameters["w"] = torch.nn.Parameter(
+            shard(blk.get_parameter(n), cut[n]), requires_grad=True)
+    xt = leaf(x)
+    with mesh_context(ctx):
+        ym = L.swiglu(loc, xt)
+    gm = torch.autograd.grad((ym * dy).sum(), [xt] + [
+        loc.get_parameter(n) for n in names])
+    errs["swiglu_fwd"] = _rel_err(ym, y1)
+    errs["swiglu_dx"] = _rel_err(gm[0], g1[0])
+    for i, n in enumerate(names):
+        errs[f"swiglu_d{n}"] = _rel_err(gm[i + 1], shard(g1[i + 1], cut[n]))
+    return errs
+
+
+def _moe_checks(rank, world, ctx, tp, g, dims) -> dict:
+    """An MoE block, token-parallel and replicated, at tp m against tp 1."""
+    import dataclasses as dc
+    import torch
+    from repro_torch.models import moe as MOE
+    from repro_torch.sharding import mesh_context
+    b, d, f = dims
+    errs = {}
+
+    def shard(t, dim):
+        n = t.shape[dim] // world
+        return t.narrow(dim, rank * n, n).detach().clone()
+
+    def leaf(t):
+        return t.detach().clone().requires_grad_(True)
+
+    base = MOE.MoEConfig(d_model=d, n_experts=8, top_k=2, d_ff_expert=f,
+                         n_shared=1, d_ff_shared=2 * f)
+    cfg = dc.replace(base, capacity_factor=base.n_experts / base.top_k)
+    moe = MOE.MoE(cfg, g, "cpu").requires_grad_(True)
+    split = {"wi": 0, "wg": 0, "wo": 0, "shared.wi.w": 1, "shared.wg.w": 1,
+             "shared.wo.w": 0, "router.w": None}
+    for label, seq in (("moe_split", 8), ("moe_replicated", 7)):
+        xm = torch.randn(b, seq, d, generator=g)
+        dym = torch.randn(b, seq, d, generator=g)
+        named = dict(moe.named_parameters())
+        xs = leaf(xm)
+        y1 = MOE.moe_ffn(moe, xs, cfg)
+        g1 = torch.autograd.grad((y1 * dym).sum(), [xs, *named.values()])
+        loc = MOE.MoE(cfg, None, "cpu")
+        for n, prm in named.items():
+            owner, _, lf = n.rpartition(".")
+            mod = loc.get_submodule(owner) if owner else loc
+            t = prm if split[n] is None else shard(prm, split[n])
+            mod._parameters[lf] = torch.nn.Parameter(t.detach().clone(),
+                                                     requires_grad=True)
+        xt = leaf(xm)
+        with mesh_context(ctx), MOE.counting_drops() as drops:
+            ym = MOE.moe_ffn(loc, xt, cfg)
+        gm = torch.autograd.grad((ym * dym).sum(),
+                                 [xt, *dict(loc.named_parameters()).values()])
+        errs[f"{label}_fwd"] = _rel_err(ym, y1)
+        errs[f"{label}_drops"] = float(sum(MOE.drop_counts(drops)))
+        errs[f"{label}_dx"] = _rel_err(gm[0], g1[0])
+        for i, n in enumerate(named):
+            want = g1[i + 1] if split[n] is None else shard(g1[i + 1],
+                                                            split[n])
+            errs[f"{label}_d{n}"] = _rel_err(gm[i + 1], want)
+    return errs
+
+
+def _exchange_case(rank, world, spec, out):
+    """The port's ``_dispatch_combine`` on (data, model) = (1, world):
+    each rank its contiguous T/m slice of the input's tokens, the whole
+    router, its E/m experts' rows; each rank writes its output and its
+    kept slots."""
+    import torch
+    from repro_torch.models import moe as MOE
+    from repro_torch.sharding import mesh_context
+    ctx, tp = _tp_ctx(world)
+    z = np.load(spec["inputs"])
+    cfg = MOE.MoEConfig(**spec["moe"])
+    t = z["x"].shape[0] // world
+    e = cfg.n_experts // world
+
+    def mine(a, n):
+        return torch.from_numpy(np.ascontiguousarray(a[rank * n:(rank + 1)
+                                                       * n]))
+    with mesh_context(ctx), torch.no_grad():
+        y, keep = MOE._dispatch_combine(
+            mine(z["x"], t), torch.from_numpy(z["router"]),
+            mine(z["wi"], e), mine(z["wg"], e), mine(z["wo"], e), cfg, tp)
+    np.savez(f"{out}.rank{rank}.npz", y=y.numpy(), keep=keep.numpy())
+
+
+def _refusals_case(rank, world, spec, out):
+    """One plain step of each ``spec["archs"]`` config on (data, model) =
+    ``spec["mesh"]``, recording the ``PlanError`` it raises (or that it
+    ran)."""
+    import torch
+    from repro_torch.kernels.build import PlanError
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import param_specs
+    from repro_torch.sharding import distribute, make_ctx
+    from repro_torch.train import AdamW, make_train_step
+    mesh = make_mesh(tuple(spec["mesh"]), ("data", "model"), "cpu")
+    ctx = make_ctx(mesh)
+    seen = {}
+    for arch in spec["archs"]:
+        cfg = port_cfg(arch)
+        model = init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                            trainable=True)
+        distribute(model, param_specs(cfg), mesh)
+        toks = np.random.default_rng(0).integers(
+            0, cfg.vocab, (2, spec["seq"] + 1)).astype(np.int32)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if cfg.family == "encdec":
+            batch["enc_embeds"] = np.zeros((2, spec["seq"], cfg.d_model),
+                                           np.float32)
+        if cfg.family == "vlm":
+            batch["patch_embeds"] = np.zeros((2, cfg.n_patches,
+                                              cfg.d_model), np.float32)
+        opt = AdamW()
+        try:
+            make_train_step(cfg, opt, ctx=ctx)(model, opt.init(model), batch)
+            seen[arch] = "ran"
+        except PlanError as exc:
+            seen[arch] = "PlanError: " + str(exc)
+    if rank == 0:
+        with open(out + ".json", "w") as fh:
+            json.dump(seen, fh)
+
+
+def _tp_restore_case(rank, world, spec, out):
+    """Checkpoints across (data, model) meshes.  ``spec["one_rank"]`` holds
+    a one-rank save (vid 0) of ``spec["arch"]``'s SMOKE parameters in the
+    trainer's layout; it is restored (``restore(mesh=, specs=)`` and
+    ``elastic_reshard``) onto each of ``spec["meshes"]`` and compared leaf
+    for leaf; a restore onto ``spec["save_from"]`` is saved again from all
+    its ranks into ``spec["saved"]``; ``spec["back"]`` (a save from
+    another mesh) is restored onto this one's first mesh.  Rank 0 writes
+    what it saw."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import reference_like
+    from repro_torch.models.convert import reference_specs
+    from repro_torch.models.transformer import abstract_params, param_specs
+    from repro_torch.sharding import local, whole
+    from repro_torch.train import CheckpointStore, elastic_reshard
+    cfg = port_cfg(spec["arch"])
+    like = reference_like(abstract_params(cfg))
+    specs = reference_specs(param_specs(cfg))
+    store = CheckpointStore(spec["one_rank"], shard_rows=1 << 10)
+    want = flat(store.restore(0, treedef_like=like))
+    seen = {"bitexact": {}, "shares": {}}
+    for shape in spec["meshes"]:
+        key = "x".join(map(str, shape))
+        mesh = make_mesh(tuple(shape), ("data", "model"), "cpu")
+        for how in ("restore", "elastic_reshard"):
+            tree = (store.restore(0, mesh=mesh, specs=specs,
+                                  treedef_like=like) if how == "restore"
+                    else elastic_reshard(store, 0, mesh, specs,
+                                         treedef_like=like))
+            got = flat(tree)
+            seen["bitexact"][f"{key}/{how}"] = all(
+                np.array_equal(whole(got[k]).numpy(), want[k])
+                and got[k].device_mesh == mesh for k in want)
+        seen["shares"][key] = {k: [int(local(v).numel()), int(v.numel())]
+                               for k, v in got.items()}
+        if shape == spec.get("save_from"):
+            CheckpointStore(spec["saved"], shard_rows=1 << 10).save(
+                step=1, tree=tree, meta={"cursor": 1})
+    if spec.get("back"):
+        mesh = make_mesh(tuple(spec["meshes"][0]), ("data", "model"), "cpu")
+        back = flat(elastic_reshard(CheckpointStore(spec["back"],
+                                                    shard_rows=1 << 10),
+                                    0, mesh, specs, treedef_like=like))
+        seen["back_bitexact"] = all(np.array_equal(whole(back[k]).numpy(),
+                                                   want[k]) for k in want)
+    if rank == 0:
+        with open(out + ".json", "w") as fh:
+            json.dump(seen, fh)
+
+
+def _tp_calls_case(rank, world, spec, out):
+    """One plain step of DeepSeek-V2-Lite's SMOKE config (``spec["layers"]``
+    layers, ``spec["microbatches"]``) on (data, model) = (1, world), with
+    and without remat: the model group's collective calls by kind
+    (``sharding.TP_CALLS``; remat's recompute apart), which rank 0
+    writes."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import param_specs
+    from repro_torch.sharding import (TP_CALLS, distribute, make_ctx,
+                                      zero_tp_calls)
+    from repro_torch.train import AdamW, make_train_step
+    mesh = make_mesh((1, world), ("data", "model"), "cpu")
+    seen = {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(port_cfg("deepseek_v2_lite_16b"),
+                                  n_layers=spec["layers"], remat=remat,
+                                  microbatches=spec["microbatches"])
+        model = init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                            trainable=True)
+        distribute(model, param_specs(cfg), mesh)
+        toks = np.random.default_rng(0).integers(
+            0, cfg.vocab, (4, 65)).astype(np.int32)
+        opt = AdamW()
+        zero_tp_calls()
+        make_train_step(cfg, opt, ctx=make_ctx(mesh))(
+            model, opt.init(model), {"tokens": toks[:, :-1],
+                                     "labels": toks[:, 1:]})
+        seen[str(remat)] = dict(TP_CALLS)
+    if rank == 0:
+        with open(out + ".json", "w") as fh:
+            json.dump(seen, fh)
+
+
+def _remat_thread_case(rank, world, spec, out):
+    """A DeepSeek-V2-Lite SMOKE MoE block (latent attention, routed and
+    shared experts) on (data, model) = (1, world) under remat, its forward
+    on this thread and its backward on another (as the card's autograd
+    engine runs a CUDA backward on its device thread, where the forward's
+    thread-local mesh context is not set), against the same block without
+    remat differentiated here: rank 0 writes each gradient's relative L2
+    error."""
+    import threading
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.models import transformer as T
+    from repro_torch.models.transformer import param_specs
+    from repro_torch.sharding import distribute, make_ctx, mesh_context
+    from repro_torch.train.train_step import cast_and_gather_params
+    mesh = make_mesh((1, world), ("data", "model"), "cpu")
+    ctx = make_ctx(mesh)
+    cfg = port_cfg("deepseek_v2_lite_16b")
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                        trainable=True)
+    distribute(model, param_specs(cfg), mesh)
+    work = cast_and_gather_params(model, cfg, ctx)
+    block = work.layers[0]
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 16, cfg.d_model, generator=g)
+    dy = torch.randn(2, 16, cfg.d_model, generator=g)
+    leaves = list(block.parameters())
+    grads = {}
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        xs = x.clone().requires_grad_(True)
+        with mesh_context(ctx):
+            y = T._maybe_remat(T._attn_block_apply, c)(block, xs)
+
+        def backward(y=y, xs=xs, remat=remat):
+            grads[remat] = torch.autograd.grad((y * dy).sum(), [xs, *leaves])
+        if remat:
+            worker = threading.Thread(target=backward)
+            worker.start()
+            worker.join()
+        else:
+            backward()
+    errs = [_rel_err(a, b) for a, b in zip(grads[True], grads[False])]
+    if rank == 0:
+        with open(out + ".json", "w") as fh:
+            json.dump(errs, fh)
+
+
 def run_cases(rank, world, cases):
     """Each ``(kind, spec, out)`` of ``cases`` in order on this group."""
     for kind, spec, out in cases:
         {"plain": _plain_case, "compressed": _compressed_case,
-         "launcher": _launcher_case}[kind](rank, world, spec, out)
+         "launcher": _launcher_case, "collectives": _collectives_case,
+         "exchange": _exchange_case, "refusals": _refusals_case,
+         "tp_restore": _tp_restore_case, "tp_calls": _tp_calls_case,
+         "remat_thread": _remat_thread_case}[kind](rank, world, spec, out)
 
 
 # ---------------------------------------------------------- reference ----
 def reference_main(cases_path: str, out_path: str) -> None:
     """The reference side of the cases (run in a subprocess whose
     XLA_FLAGS fake four host devices), into ``out_path``: for a "plain"
-    case its jitted step on the mesh (data, 1), the losses, grad norms and
-    parameters after the steps; for an "oracle" case, per pod, its
-    ``accumulate_grads`` on the pod's rows of the first batch and
-    ``quantize_int8`` of each leaf, and the mean of the pods' losses.  The
-    steps compile in threads (XLA compiles outside the GIL), then run in
-    turn."""
+    case its jitted step on the mesh (data, model) (model 1 unless the case
+    names it), the losses, grad norms and parameters after the steps; for
+    an "oracle" case, per pod, its ``accumulate_grads`` on the pod's rows
+    of the first batch and ``quantize_int8`` of each leaf, and the mean of
+    the pods' losses; for an "exchange" case its ``_dispatch_combine`` in
+    ``shard_map`` over a model axis of ``model`` (the tokens' rows split
+    over it, the experts' rows too), the output and, recomputed from the
+    same routing and its ``_capacity``, each rank's kept slots.  The steps
+    compile in threads (XLA compiles outside the GIL), then run in turn."""
     from concurrent.futures import ThreadPoolExecutor
 
     import jax
     import jax.numpy as jnp
     from repro import configs as RC
+    from jax.sharding import PartitionSpec as P
     from repro.launch.mesh import _make_mesh
     from repro.models import layers as RL
+    from repro.models import moe as RM
+    from repro.sharding import compat_shard_map
     from repro.models.transformer import ArchConfig, param_specs
     from repro.sharding import logical_to_sharding, make_ctx
     from repro.train import AdamW
@@ -388,7 +771,38 @@ def reference_main(cases_path: str, out_path: str) -> None:
             fn = jax.jit(lambda p, b, cfg=cfg: accumulate_grads(p, b, cfg))
             jobs[name] = (fn.lower(*args[0]), args, None)
             continue
-        mesh = _make_mesh((spec["data"], 1), ("data", "model"))
+        if spec.get("kind") == "exchange":
+            z = np.load(spec["inputs"])
+            mcfg = RM.MoEConfig(**spec["moe"])
+            mesh = _make_mesh((1, spec["model"]), ("data", "model"))
+
+            def per_rank(x, rw, wi, wg, wo, mcfg=mcfg):
+                y = RM._dispatch_combine(x, rw, wi, wg, wo, cfg=mcfg,
+                                         model_axis="model")
+                # the kept slots, from the same routing and capacity
+                t = x.shape[0]
+                logits = x.astype(jnp.float32) @ rw.astype(jnp.float32)
+                top_e = jax.lax.top_k(jax.nn.softmax(logits, -1),
+                                      mcfg.top_k)[1]
+                flat_e = top_e.reshape(-1)
+                sorted_e = flat_e[jnp.argsort(flat_e, stable=True)]
+                counts = jnp.bincount(flat_e, length=mcfg.n_experts)
+                rank = jnp.arange(t * mcfg.top_k) - (jnp.cumsum(counts)
+                                                     - counts)[sorted_e]
+                return y, rank < RM._capacity(t, mcfg)
+
+            fn = jax.jit(compat_shard_map(
+                per_rank, mesh=mesh,
+                in_specs=(P("model", None), P(None, None),
+                          P("model", None, None), P("model", None, None),
+                          P("model", None, None)),
+                out_specs=(P("model", None), P("model")), check_vma=False))
+            args = tuple(jnp.asarray(z[k]) for k in ("x", "router", "wi",
+                                                     "wg", "wo"))
+            jobs[name] = (fn.lower(*args), args, "exchange")
+            continue
+        mesh = _make_mesh((spec["data"], spec.get("model", 1)),
+                          ("data", "model"))
         opt = AdamW(lr=spec["lr"])
         params = jax.device_put(params,
                                 logical_to_sharding(param_specs(cfg), mesh))
@@ -403,6 +817,11 @@ def reference_main(cases_path: str, out_path: str) -> None:
     out = {}
     for name, (_, args, bs) in jobs.items():
         step = compiled[name]
+        if bs == "exchange":
+            y, keep = step(*args)
+            out[f"{name}/y"], out[f"{name}/keep"] = (np.asarray(y),
+                                                     np.asarray(keep))
+            continue
         if bs is None:                                   # the oracle
             losses = []
             for p, a in enumerate(args):
