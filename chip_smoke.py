@@ -249,19 +249,46 @@ Phases, each of which raises on failure:
     model ranks are held on the CPU by gloo ranks
     (``tests/test_torch_tensor_parallel.py``,
     ``tests/test_torch_expert_parallel.py``), as the reference holds its
-    own on faked host devices.
+    own on faked host devices;
+26. the model axis's second half (after phase 25, before phase 23) —
+    (b) first, each rank's part at the production model axis of 16, run
+    rank by rank on the card and combined as the collectives would: the
+    sequence-sharded attention at LLaVA-NeXT-34B's shape (56 heads, 8 kv,
+    Dh 128, B 1, S 4096; 256 query rows a rank, ≈235 MB of float32 logits
+    each) against the whole-sequence flash kernel, its backward's dQ rows
+    and summed dK/dV partials against the one-slice backward; Zamba2's
+    first SSD layer at the long prefill's shape, 80 heads in 16
+    ``ssd_scan`` launches of 5 against the whole launch's heads, and the
+    gated norm's sum of squares over the 16 slices; LLaVA's decode
+    attention at a cache of 4096 cut into 16 slices and merged against
+    the one-slice decode.  Then (a): Zamba2-2.7B whole served on one
+    device and, on the same seeded weights laid out by ``param_specs``,
+    on a one-rank NCCL ("data", "model") = (1, 1) mesh (no other backend
+    is tried): 4 × 512 seeded tokens through ``make_prefill_step``, then
+    8 ``make_serve_step`` decodes from a seeded cache of 512 positions in
+    528 slots cut by ``cache_specs`` (the mesh path decodes the
+    one-device path's tokens); the logits within
+    ``launch.serve.prefill_bound`` of the one-device serve's, the greedy
+    tokens equal where the top-2 gap is clear of it, the model group's
+    collectives as ``expected_serve_calls`` reckons, 9 flash and 54 SSD
+    launches; ms of both serves, the peaks; the group freed.  One card
+    holds one NCCL rank, so the numerics across model ranks are held on
+    the CPU by gloo ranks (``tests/test_torch_seq_parallel.py``,
+    ``tests/test_torch_ssd_parallel.py``,
+    ``tests/test_torch_mesh_serve.py``).
 
 Phases 3, 5, 6, 8, 11, 12, 14 (twice: from the tenants to the kill, and
 from the restore to the end), 15-17 and 21 (once a config), 18 (the
 uninterrupted and the interrupted run), 19 (its two steps), 20 (from
-the prompt store to the prefill), 24 (its three steps) and 25 (its two
-TP/EP steps; the one-device steps have their own window) each set every
+the prompt store to the prefill), 24 (its three steps), 25 (its two
+TP/EP steps; the one-device steps have their own window) and 26 (the
+mesh serve: its prefill and decodes) each set every
 kernel's launch count to 0 just before they drive their path and read the
 counts just after; launches made to compare or time a kernel fall outside
 those windows, and so do phase 23's.
 The kernels line's ``flash_attention`` launches are the sum over the
-model paths (phases 11, 15-18, 20, 21, 24 and 25), ``ssd_scan``'s over phases
-11 and 19, and ``gather_row_tiles``'s over phases 5, 18 and 19.
+model paths (phases 11, 15-18, 20, 21 and 24-26), ``ssd_scan``'s over
+phases 11, 19 and 26, and ``gather_row_tiles``'s over phases 5, 18 and 19.
 TF32 is off (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` False): the float32 plain versions
 compare in full float32.
@@ -4093,13 +4120,15 @@ def expected_tp_calls(cfg, steps: int) -> dict:
     the all-to-alls once each again in the backward.  Remat's recompute
     counts apart (``sharding.TP_RECOMPUTE``): where torch stops it
     differs between builds and devices."""
+    from repro_torch.sharding import TP_CALLS
     if cfg.attn_type != "mla" or not cfg.moe.n_shared:
         raise ValueError(f"{cfg.name}: the reckoning is for latent "
                          "attention and shared experts")
     n_moe = cfg.n_layers - cfg.first_dense
-    per_mb = {"copy_to_tp": 4 * cfg.first_dense + 5 * n_moe,
-              "reduce_from_tp": 2 * cfg.n_layers, "split_seq": n_moe,
-              "gather_seq": n_moe, "all_to_all": 4 * n_moe}
+    per_mb = dict.fromkeys(TP_CALLS, 0)
+    per_mb.update({"copy_to_tp": 4 * cfg.first_dense + 5 * n_moe,
+                   "reduce_from_tp": 2 * cfg.n_layers, "split_seq": n_moe,
+                   "gather_seq": n_moe, "all_to_all": 4 * n_moe})
     n = steps * max(cfg.microbatches, 1)
     return {k: n * v for k, v in per_mb.items()}
 
@@ -4255,6 +4284,403 @@ def phase_train_tp(torch, np, seed: int, gpu: str, report: dict) -> None:
           f"({1e3 * step_s[0]:.1f} ms), ctx=None step {plain_ms:.1f} ms "
           f"({1e3 * p_s[0]:.1f} ms); peak device memory {peak / 1e9:.2f} GB "
           f"(ctx=None {p_peak / 1e9:.2f} GB); {gpu}")
+
+
+MESH_SERVE_BATCH = 4              # phase 26 (a): 4 prompts of 512
+MESH_SERVE_PROMPT = 512           # tokens through the mesh prefill, then
+MESH_SERVE_DECODE = 8             # 8 decodes from a cache of 512 positions
+MESH_SERVE_SLOTS = 528            # (its slots a multiple of 16)
+MESH_MODEL_AXIS = 16              # phase 26 (b): the production model axis
+SEQ_SHARD_SHAPE = (1, 4096, 56, 8, 128)   # LLaVA-NeXT-34B: B, S, H, Hkv, Dh
+DECODE_MERGE_SHAPE = (4, 4096, 56, 8, 128)  # its decode at a 4096 cache
+PART_RTOL = 1e-5                  # float32 sums of the parts, another order
+
+
+def expected_serve_calls(cfg, decode_steps: int) -> dict:
+    """The model group's collectives of one mesh prefill and
+    ``decode_steps`` decodes of a hybrid whose kv heads split over the
+    axis, by ``sharding.TP_CALLS`` kind (nothing is differentiated, so
+    only the forwards count): a prefill's SSD layer sums its norm's
+    squares (``norm_sum``) and reduces after ``out_proj``; each
+    shared-block application reduces after attention's ``wo`` and the
+    SwiGLU's; a decode adds, in each SSD layer, the x row's gather and, in
+    each application, the q/k/v gather and the merge (one ``decode_max``,
+    two ``decode_sum``)."""
+    from repro_torch.sharding import TP_CALLS
+    n_ssd = cfg.n_layers
+    n_attn = cfg.n_layers // cfg.shared_every
+    steps = 1 + decode_steps
+    out = dict.fromkeys(TP_CALLS, 0)
+    out["reduce_from_tp"] = steps * (n_ssd + 2 * n_attn)
+    out["norm_sum"] = steps * n_ssd
+    out["gather_seq"] = decode_steps * (n_ssd + n_attn)
+    out["decode_max"] = decode_steps * n_attn
+    out["decode_sum"] = 2 * decode_steps * n_attn
+    return out
+
+
+def mesh_serve_cache(torch, cfg, seed: int) -> dict:
+    """A whole decode cache of ``MESH_SERVE_SLOTS`` positions holding a
+    prompt of ``MESH_SERVE_PROMPT`` (``len``): seeded values on the card,
+    the KV leaves normal, the SSD states normal · 0.5."""
+    from repro_torch.models.transformer import init_cache
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    cache = init_cache(cfg, MESH_SERVE_BATCH, MESH_SERVE_SLOTS,
+                       fill_len=MESH_SERVE_PROMPT, device=DEVICE)
+    for k, t in cache.items():
+        if k != "len":
+            t.copy_(torch.randn(t.shape, generator=g, device=DEVICE)
+                    * (0.5 if k in ("h", "conv") else 1.0))
+    return cache
+
+
+def serve_run(torch, step_fns, model, tokens, cache, feed=None) -> dict:
+    """The prefill on ``tokens``, then ``MESH_SERVE_DECODE`` decodes from
+    ``cache`` from the prompt's last token, each step's token the argmax
+    of the last (or, with ``feed``, that run's tokens, so that both runs
+    decode the same inputs): the logits, the argmax tokens, and the host
+    ms of the prefill and of a decode step (after the first)."""
+    prefill, step = step_fns
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pre = prefill(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    tok = tokens[:, -1:]
+    logits, toks, step_ms = [], [], []
+    for i in range(MESH_SERVE_DECODE):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = step(model, {"tokens": tok, "cache": cache})
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        logits.append(lg.float())
+        toks.append(torch.argmax(lg[:, -1:], dim=-1).to(torch.int32))
+        tok = toks[-1] if feed is None else feed[:, i:i + 1]
+    return {"prefill": pre.float(), "logits": logits,
+            "tokens": torch.cat(toks, dim=1), "prefill_ms": prefill_ms,
+            "decode_ms": float(sum(step_ms[1:]) / max(len(step_ms) - 1, 1)),
+            "cache": cache}
+
+
+def rel_l2(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def phase_mesh_serve(torch, seed: int, gpu: str, report: dict) -> None:
+    """Phase 26: the mesh's model axis, second half.  (a) Zamba2-2.7B whole
+    (54 SSD layers and 9 shared-block applications at full width, seeded
+    weights) served on one device (``ctx=None``) and then, on the same
+    weights laid out by ``param_specs``, on a one-rank NCCL ("data",
+    "model") = (1, 1) mesh: ``make_prefill_step`` on 4 × 512 seeded
+    tokens and 8 ``make_serve_step`` decodes from a seeded cache of 512
+    positions (``mesh_serve_cache``, cut by ``cache_specs`` through
+    ``shard_cache``; each path's first calls untimed), the mesh path
+    taking its SSD heads' split, the norm's
+    ``norm_sum``, the q/k/v gather and the sequence-parallel decode merge
+    on a one-rank group.  Checks: every logit finite; the mesh path's
+    prefill and decode logits within ``launch.serve.prefill_bound`` (rel
+    L2 a row) of the one-device path's: on one rank the prefill runs the
+    same products and the decode differs only in its softmax, the merge's
+    exp(l − max) / Σ against ``torch.softmax``'s kernel, whose last float32
+    bits flip a few bf16 probabilities, a difference the 54 layers carry
+    on (the same rounding gap the bound is drawn for; the phase reruns the
+    mesh decode with the one-device core in place of the merge and reports
+    that gap too); the greedy tokens
+    equal where the top-2 gap is clear of the bound; the model group's
+    collectives as ``expected_serve_calls`` reckons; 9 ``flash_attention``
+    and 54 ``ssd_scan`` launches in the mesh path's window.  (b), run
+    first on the plain weights: each rank's part at a model axis of 16,
+    rank by rank on the card, combined as the
+    collectives would: the sequence-sharded attention at LLaVA-NeXT-34B's
+    shape (``SEQ_SHARD_SHAPE``; each rank 256 query rows against the whole
+    K and V through ``layers.seq_rows_forward``) against the
+    whole-sequence flash kernel, and its backward's parts (dQ's rows, the
+    dK/dV partials summed) against the one-slice backward; Zamba2's first
+    SSD layer at the long prefill's shape, 80 heads in 16 ``ssd_scan``
+    launches of 5 against the whole launch's heads (bit-exact expected:
+    the heads are independent) and the gated norm's sum of squares over
+    the 16 slices against the whole; LLaVA's decode attention at a cache
+    of 4096 cut into 16 slices (``layers.scores``/``decode_values``,
+    merged) against the one-slice decode.  One card holds one NCCL rank,
+    so the numerics across model ranks are held on the CPU by gloo ranks
+    (``tests/test_torch_seq_parallel.py``,
+    ``tests/test_torch_ssd_parallel.py``,
+    ``tests/test_torch_mesh_serve.py``)."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_mesh, mesh_shape
+    from repro_torch.launch.serve import prefill_bound
+    from repro_torch.kernels import ref
+    from repro_torch.models import init_params
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import (cache_specs, count_params,
+                                                param_specs, shard_cache)
+    from repro_torch.serve.serve_step import make_prefill_step, make_serve_step
+    from repro_torch.sharding import (TP_CALLS, distribute, make_ctx,
+                                      zero_tp_calls)
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get(MODEL_ARCH)
+    model = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
+        seed + 26), DEVICE)
+    n_params = count_params(model)
+    tokens = torch.randint(0, cfg.vocab, (MESH_SERVE_BATCH,
+                                          MESH_SERVE_PROMPT),
+                           generator=torch.Generator(device=DEVICE)
+                           .manual_seed(seed + 27), device=DEVICE)
+    whole = mesh_serve_cache(torch, cfg, seed + 28)
+
+    def copy():
+        return {k: (v.clone() if k != "len" else v) for k, v in whole.items()}
+
+    plain = (make_prefill_step(cfg, device=DEVICE),
+             make_serve_step(cfg, device=DEVICE))
+    serve_run(torch, plain, model, tokens, copy())        # first calls
+    one = serve_run(torch, plain, model, tokens, copy())
+    del one["cache"]
+    # (b) first, on the plain weights
+    parts = mesh_rank_parts(torch, model, cfg, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    # (a) the same weights on a one-rank NCCL mesh
+    mesh = make_mesh((1, 1), ("data", "model"), DEVICE)
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    if dist.get_backend() != backend:
+        raise AssertionError(f"the mesh's group is {dist.get_backend()}, "
+                             f"not {backend}")
+    ctx = make_ctx(mesh)
+    distribute(model, param_specs(cfg), mesh)
+    on_mesh = (make_prefill_step(cfg, ctx, device=DEVICE),
+               make_serve_step(cfg, ctx, device=DEVICE))
+    # first calls (NCCL's communicator starts at the first collective)
+    serve_run(torch, on_mesh, model, tokens, shard_cache(whole, cfg, ctx),
+              feed=one["tokens"])
+    cache = shard_cache(whole, cfg, ctx)
+    specs = cache_specs(cfg, MESH_SERVE_BATCH)
+    zero_launch_counts()                      # the mesh serve's window
+    zero_tp_calls()
+    run = serve_run(torch, on_mesh, model, tokens, cache,
+                    feed=one["tokens"])
+    launches = launch_counts()                # the window closes
+    calls = dict(TP_CALLS)
+    # where the decode's gap comes from: the same mesh decode with the
+    # merge (one rank: its positions are all of them) replaced by the
+    # one-device core
+    with swap_plain(L, "merged_decode",
+                    lambda q, k, v, q_pos, k_pos0, causal, tp:
+                    ref.mha_ref(q, k, v, causal, q_pos)):
+        probe = serve_run(torch, on_mesh, model, tokens,
+                          shard_cache(whole, cfg, ctx), feed=one["tokens"])
+    del whole
+    want_calls = expected_serve_calls(cfg, MESH_SERVE_DECODE)
+    want_launches = {"flash_attention": cfg.n_layers // cfg.shared_every,
+                     "ssd_scan": cfg.n_layers}
+    bound = prefill_bound(cfg)
+    errs = {"prefill": max(rel_l2(a, b) for a, b in zip(
+        run["prefill"][:, -1], one["prefill"][:, -1]))}
+    errs["decode"] = max(rel_l2(a[:, -1][r], b[:, -1][r])
+                         for a, b in zip(run["logits"], one["logits"])
+                         for r in range(MESH_SERVE_BATCH))
+    errs["decode_first"] = max(rel_l2(run["logits"][0][r, -1],
+                                      one["logits"][0][r, -1])
+                               for r in range(MESH_SERVE_BATCH))
+    errs["decode_core_swapped"] = max(
+        rel_l2(a[:, -1][r], b[:, -1][r])
+        for a, b in zip(probe["logits"], one["logits"])
+        for r in range(MESH_SERVE_BATCH))
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 [run["prefill"], one["prefill"], *run["logits"],
+                  *one["logits"]])
+    # the greedy tokens, wherever the one-device path's top-2 gap is clear
+    # of the bound (a choice the two roundings cannot flip)
+    top = torch.stack([lg[:, -1] for lg in one["logits"]], 1).topk(2).values
+    clear = (top[..., 0] - top[..., 1]) > 2 * bound * top.abs().amax(-1)
+    agree = bool(((run["tokens"] == one["tokens"]) | ~clear).all())
+    gapped = int(clear.sum())
+    local = {k: list(t.shape) for k, t in run["cache"].items() if k != "len"}
+    if not finite or errs["prefill"] > bound or errs["decode"] > bound:
+        raise AssertionError(f"mesh serve vs one-device: {errs} (bound "
+                             f"{bound:.4f}), finite {finite}")
+    if not agree:
+        raise AssertionError("mesh serve: a greedy token differs where the "
+                             "top-2 gap is clear of the bound")
+    if calls != want_calls:
+        raise AssertionError(f"mesh serve collectives {calls}, expected "
+                             f"{want_calls}")
+    if any(launches[k] != want_launches.get(k, 0) for k in launches):
+        raise AssertionError(f"mesh serve launches {launches}, expected "
+                             f"{want_launches}")
+    peak_a = torch.cuda.max_memory_allocated()
+    del run["cache"], cache, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["mesh_serve"] = {
+        "arch": cfg.name, "params": n_params, "mesh": mesh_shape(mesh),
+        "backend": backend, "batch": MESH_SERVE_BATCH,
+        "prompt": MESH_SERVE_PROMPT, "decode_steps": MESH_SERVE_DECODE,
+        "cache_slots": MESH_SERVE_SLOTS, "cache_specs": specs,
+        "local_cache": local, "rel_l2": errs, "bound": bound,
+        "tokens_equal": bool(torch.equal(run["tokens"], one["tokens"])),
+        "gap_clear_tokens": gapped, "tp_calls": calls,
+        "launches": launches,
+        "mesh_prefill_ms": run["prefill_ms"],
+        "mesh_decode_ms": run["decode_ms"],
+        "prefill_ms": one["prefill_ms"], "decode_ms": one["decode_ms"],
+        "peak_memory_bytes": peak_a,
+        "parts_peak_memory_bytes": parts_peak,
+        "parts": parts, "seconds": time.perf_counter() - t_phase,
+        "gpu": gpu}
+    print(f"mesh serve: {cfg.name} ({n_params / 1e9:.2f} B parameters) on "
+          f"{mesh_shape(mesh)} over one {backend} rank, laid out by "
+          f"param_specs, cache by cache_specs (local {local}); "
+          f"{MESH_SERVE_BATCH} x {MESH_SERVE_PROMPT} prefill, "
+          f"{MESH_SERVE_DECODE} decodes: rel L2 vs the one-device serve "
+          f"prefill {errs['prefill']:.2e}, decode {errs['decode']:.2e} "
+          f"(first step {errs['decode_first']:.2e}; with the one-device "
+          f"core in place of the merge {errs['decode_core_swapped']:.2e}; "
+          f"bound {bound:.4f}); tokens equal "
+          f"{report['mesh_serve']['tokens_equal']}; collectives {calls} "
+          f"(as reckoned); launches {launches}")
+    print(f"mesh serve ms: prefill {run['prefill_ms']:.1f} (one device "
+          f"{one['prefill_ms']:.1f}), decode step {run['decode_ms']:.2f} "
+          f"(one device {one['decode_ms']:.2f}); peak device memory "
+          f"{peak_a / 1e9:.2f} GB; {gpu}")
+    print(f"model axis of {MESH_MODEL_AXIS}, rank by rank: "
+          + json.dumps(parts))
+
+
+def mesh_rank_parts(torch, model, cfg, seed: int) -> dict:
+    """Phase 26 (b): each rank's part at a model axis of
+    ``MESH_MODEL_AXIS``, computed rank by rank on the card and combined as
+    the collectives would, against the whole computation; ``model`` is
+    the phase's Zamba2 on one device (its first SSD layer's inputs)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssd as SSD
+    from repro_torch.models.transformer import _embed
+    m = MESH_MODEL_AXIS
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 29)
+    bf16 = torch.bfloat16
+    tol = FLASH_TOL[str(bf16)]
+    out = {}
+    # the sequence-sharded attention: 256 query rows a rank
+    b, s, h, hkv, dh = SEQ_SHARD_SHAPE
+    q = torch.randn(b, s, h, dh, generator=g, device=DEVICE).to(bf16)
+    k, v = (torch.randn(b, s, hkv, dh, generator=g, device=DEVICE).to(bf16)
+            for _ in range(2))
+    do = torch.randn(b, s, h, dh, generator=g, device=DEVICE).to(bf16)
+    rows = s // m
+    outs, dq, dk, dv = [], [], 0, 0
+    for r in range(m):
+        qr = q[:, r * rows:(r + 1) * rows]
+        o, probs = L.seq_rows_forward(qr, k, v, True, r * rows)
+        dqr, dkr, dvr = L.seq_rows_backward(qr, k, v, probs,
+                                            do[:, r * rows:(r + 1) * rows])
+        outs.append(o)
+        dq.append(dqr)
+        dk, dv = dk + dkr, dv + dvr                      # the all-reduce
+        del probs
+    got = torch.cat(outs, dim=1)                         # the gather
+    flash = ops.flash_attention(q, k, v, causal=True)
+    ok_f, err_f = _close_err(got, flash, tol)
+    o1, p1 = L.seq_rows_forward(q, k, v, True, 0)
+    dq1, dk1, dv1 = L.seq_rows_backward(q, k, v, p1, do)
+    del p1
+    out["seq_attention"] = {
+        "shape": SEQ_SHARD_SHAPE, "ranks": m, "rows": rows,
+        "logits_bytes_a_rank": 4 * h * rows * s,
+        "vs_flash_max_abs": err_f, "tol": tol, "vs_flash_ok": ok_f,
+        "vs_one_slice_max_abs": float((got.float() - o1.float()).abs()
+                                      .max()),
+        "dq_rel": rel_l2(torch.cat(dq, dim=1), dq1),
+        "dk_rel": rel_l2(dk, dk1), "dv_rel": rel_l2(dv, dv1)}
+    del q, k, v, do, outs, got, flash, o1, dq, dk, dv, dq1, dk1, dv1
+    torch.cuda.empty_cache()
+    # Zamba2's first SSD layer at the long prefill's shape, by heads
+    layer = model.layers[0]
+    toks = torch.randint(0, cfg.vocab, (LONG_BATCH, LONG_SEQ), generator=g,
+                         device=DEVICE)
+    p, sc = layer.ssd, cfg.ssd
+    with torch.inference_mode():
+        x = L.rms_norm(layer.ln, _embed(model, toks))
+        z, xbc, dt_raw = SSD._split_proj(p, x, sc)
+        xbc, _ = SSD._causal_conv(p, xbc, sc)
+        nh, di = sc.n_heads, sc.d_inner
+        xs = xbc[..., :di].reshape(LONG_BATCH, LONG_SEQ, nh, sc.headdim)
+        bm, cm = xbc[..., di:di + sc.d_state], xbc[..., di + sc.d_state:]
+        dt = torch.nn.functional.softplus(dt_raw.float() + p.dt_bias).to(
+            x.dtype)
+        a = -torch.exp(p.A_log)
+        y1, h1 = ops.ssd_scan(xs, bm, cm, dt, a, chunk=sc.chunk)
+        hh = nh // m
+        exact, worst = True, 0.0
+        for r in range(m):
+            sl = slice(r * hh, (r + 1) * hh)
+            yr, hr = ops.ssd_scan(xs[:, :, sl].contiguous(), bm, cm,
+                                  dt[..., sl].contiguous(), a[sl],
+                                  chunk=sc.chunk)
+            exact &= bool(torch.equal(yr, y1[:, :, sl])
+                          and torch.equal(hr, h1[:, sl]))
+            worst = max(worst, float((yr.float() - y1[:, :, sl].float())
+                                     .abs().max()))
+        y = (y1 + p.D.to(x.dtype)[None, None, :, None] * xs).reshape(
+            LONG_BATCH, LONG_SEQ, di) * torch.nn.functional.silu(z)
+        ss1 = L.sum_squares(y)
+        ssm = sum(L.sum_squares(y[..., r * (di // m):(r + 1) * (di // m)])
+                  for r in range(m))
+    out["ssd_heads"] = {"shape": [LONG_BATCH, LONG_SEQ, nh, sc.headdim,
+                                  sc.d_state], "ranks": m,
+                        "heads_a_rank": hh, "launches": m + 1,
+                        "bitexact": exact, "max_abs": worst,
+                        "norm_sum_rel": rel_l2(ssm, ss1)}
+    del x, z, xbc, dt_raw, xs, bm, cm, dt, y1, h1, y
+    torch.cuda.empty_cache()
+    # LLaVA's decode attention at a cache of 4096, 16 slices merged
+    b, n, h, hkv, dh = DECODE_MERGE_SHAPE
+    q = torch.randn(b, 1, h, dh, generator=g, device=DEVICE).to(bf16)
+    ck, cv = (torch.randn(b, n, hkv, dh, generator=g, device=DEVICE).to(bf16)
+              for _ in range(2))
+    pos, part = n - 1, n // m
+
+    def merged(slices):
+        size = n // slices
+        logits = [L.scores(q, ck[:, r * size:(r + 1) * size], pos,
+                                  r * size, True) for r in range(slices)]
+        top = torch.stack([lg.amax(-1, keepdim=True) for lg in logits]).amax(0)
+        e = [torch.exp(lg - top) for lg in logits]
+        total = sum(t.sum(-1, keepdim=True) for t in e)
+        return sum(L.decode_values(t / total, cv[:, r * size:(r + 1) * size],
+                                   bf16) for r, t in enumerate(e)).to(bf16)
+
+    got, one = merged(m), merged(1)
+    ok_d, err_d = _close_err(got, ref.mha_ref(q, ck, cv, True, pos), tol)
+    out["decode_merge"] = {"shape": DECODE_MERGE_SHAPE, "ranks": m,
+                           "positions_a_rank": part,
+                           "vs_one_slice_max_abs": float(
+                               (got.float() - one.float()).abs().max()),
+                           "vs_materialised_max_abs": err_d, "tol": tol,
+                           "vs_materialised_ok": ok_d}
+    a_ = out["seq_attention"]
+    if not (a_["vs_flash_ok"] and a_["vs_one_slice_max_abs"] <= tol
+            and max(a_["dq_rel"], a_["dk_rel"], a_["dv_rel"]) <= PART_RTOL):
+        raise AssertionError(f"sequence-sharded attention by rank: {a_}")
+    if out["ssd_heads"]["max_abs"] > SSD_TOL[str(bf16)]:
+        raise AssertionError(f"SSD heads by rank: {out['ssd_heads']}")
+    if out["ssd_heads"]["norm_sum_rel"] > PART_RTOL:
+        raise AssertionError(f"the norm's sum of squares by rank: "
+                             f"{out['ssd_heads']}")
+    d_ = out["decode_merge"]
+    if not (ok_d and d_["vs_one_slice_max_abs"] <= tol):
+        raise AssertionError(f"decode merge by slice: {d_}")
+    return out
 
 
 DRYRUN_WORKERS = 2
@@ -4587,6 +5013,9 @@ def main(argv=None) -> int:
         phase_train_tp(torch, np, args.seed, gpu, report)
         gc.collect()
         torch.cuda.empty_cache()
+        phase_mesh_serve(torch, args.seed, gpu, report)
+        gc.collect()
+        torch.cuda.empty_cache()
         phase_roofline_cells(torch, args.seed, report)
         phase_dryrun_grid(grid, report)
     finally:
@@ -4623,6 +5052,7 @@ def main(argv=None) -> int:
     model_paths += [r["launches"]["prefill"]
                     for r in report["dense_serve"].values()]
     model_paths.append(report["encdec_serve"]["launches"]["window"])
+    model_paths.append(report["mesh_serve"]["launches"])
     for name in ("flash_attention", "ssd_scan"):
         rows[name] = dict(
             launches=sum(r[name] for r in model_paths)

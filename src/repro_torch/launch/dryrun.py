@@ -52,8 +52,8 @@ def check_mesh(mesh_kind: str) -> None:
         raise ValueError(f"--mesh {mesh_kind}: the count runs on one card "
                          "(--mesh host); the 256- and 512-chip meshes, "
                          "whose model axis is 16, wait for ROADMAP "
-                         "A.11f-2b (the sequence-sharded attention and the "
-                         "collectives' bytes)")
+                         "A.11f-2c (their dry run and the collectives' "
+                         "bytes)")
 
 
 def active_params(cfg, abstract) -> float:

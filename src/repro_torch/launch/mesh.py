@@ -5,11 +5,11 @@ A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` made by
 ``init_device_mesh`` over the process group that is running: one rank a
 device, the ranks laid out row-major over the named axes, as
 ``jax.make_mesh`` lays out devices.  Every axis runs: the batch axes
-``"pod"`` and ``"data"``, and ``"model"`` at any size, whose tensor and
-expert parallelism the train and eval steps run (``train.train_step``);
-what a model axis above 1 cannot run yet (the reference's
-sequence-sharded attention, SSD heads, serving on a mesh: ROADMAP
-A.11f-2b) raises ``PlanError`` where it is met.
+``"pod"`` and ``"data"``, and ``"model"`` at any size, whose tensor,
+expert and sequence parallelism and SSD heads the train, eval and serve
+steps run (``train.train_step``, ``serve.serve_step``).  The launchers'
+256- and 512-rank production meshes (``--mesh single|multi``) wait for
+ROADMAP A.11f-2c.
 
 Process groups.  ``start_group(device)`` starts the group of the ranks that
 the environment names (``RANK``/``WORLD_SIZE``/``MASTER_ADDR``/

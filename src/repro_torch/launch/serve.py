@@ -21,7 +21,9 @@ bf16 (``prefill_bound``), and whether the argmax agrees wherever the top-2
 gap is clear of that bound.
 
 ``--device`` defaults to the card; ``--device cpu`` runs the kernels' plain
-versions (the CPU tests).
+versions (the CPU tests).  ``--mesh host`` (the default) is the one
+device; the reference's production meshes (``--mesh single|multi``) wait
+for ROADMAP A.11f-2c and raise.
 
 An encoder-decoder is refused, as the reference's driver refuses it (its
 serving needs frame embeddings no prompt store holds).  A vision-language
@@ -301,8 +303,16 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (the kernels' plain "
                          "versions)")
+    ap.add_argument("--mesh", default="host",
+                    choices=["host", "single", "multi"])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.mesh != "host":
+        raise ValueError(f"--mesh {args.mesh}: the production meshes (256 "
+                         "and 512 ranks, a model axis of 16) wait for "
+                         "ROADMAP A.11f-2c; this launcher serves on one "
+                         "device (--mesh host; serve.serve_step runs any "
+                         "(data, model) mesh)")
 
     cfg = configs.get(configs.canonical(args.arch))
     if args.reduced:

@@ -35,7 +35,7 @@ On the CPU:
 (NCCL, one card a rank).  ``--grad-compress`` takes effect only on a mesh
 with a "pod" axis, as the reference's does, and the host mesh has none.
 The reference's production meshes (``--mesh single|multi``, 256 and 512
-ranks with a model axis of 16) wait for ROADMAP A.11f-2b; the train step
+ranks with a model axis of 16) wait for ROADMAP A.11f-2c; the train step
 itself runs any (pod, data, model) mesh (``train.train_step``).
 """
 from __future__ import annotations
@@ -262,7 +262,7 @@ def main(argv=None) -> int:
     if args.mesh != "host":
         raise ValueError(f"--mesh {args.mesh}: the production meshes (256 "
                          "and 512 ranks, a model axis of 16) wait for "
-                         "ROADMAP A.11f-2b; the launcher trains on the data "
+                         "ROADMAP A.11f-2c; the launcher trains on the data "
                          "axis (--mesh host)")
 
     cfg = configs.get(configs.canonical(args.arch))

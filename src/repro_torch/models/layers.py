@@ -12,19 +12,44 @@ or ``init_params(..., trainable=True)`` makes them trainable.  The RMS norm
 carries the reference's hand-written backward (``_RMSNorm``); everything
 else is differentiated by autograd.
 
-Under a mesh context (``sharding.mesh_context``, as the train and eval
-steps run the forward) attention and the SwiGLU are tensor-parallel over
-"model", Megatron-style: ``wq``/``wk``/``wv``/``wi``/``wg`` are
-column-parallel on this rank's columns (``dense(..., gather="col")``,
-whose input passes ``sharding.copy_to_tp``), ``wo`` is row-parallel and
-followed by ``sharding.reduce_from_tp`` (``gather="row"``).  The weights
-are then each rank's shards as plain tensors (``train.train_step``
+Under a mesh context (``sharding.mesh_context``, as the train, eval and
+serve steps run the forward) the SwiGLU and, where the kv heads divide the
+model axis, attention are tensor-parallel over "model", Megatron-style:
+``wq``/``wk``/``wv``/``wi``/``wg`` are column-parallel on this rank's
+columns (``dense(..., gather="col")``, whose input passes
+``sharding.copy_to_tp``), ``wo`` is row-parallel and followed by
+``sharding.reduce_from_tp`` (``gather="row"``).  The weights are then each
+rank's shards as plain tensors (``train.train_step``
 ``cast_and_gather_params``), and each layer reads its local head count off
 its shard (local columns / head_dim), so one config serves every model
-axis; without a context the same code is the one-device layer.  The
-reference's sequence-sharded attention (``layers.py:191-259``, taken where
-the kv heads do not split over the axis) is ROADMAP A.11f-2b: those cases
-raise ``PlanError``.
+axis; without a context the same code is the one-device layer.
+
+Where the kv heads do not divide a model axis above 1, the heads are not
+split: the working copy holds the layer's ``wq``/``wk``/``wv``/``wo``
+whole on every rank (``train_step.working_specs``).  There, with as many
+queries as keys and a sequence that divides the axis, ``attention`` takes
+the reference's sequence-sharded attention (``_sdpa``,
+``src/repro/models/layers.py:143-170`` and ``:191-259``): each rank takes
+its S/m query rows (``split_seq``) against the whole K and V, computes
+the materialised core with the causal mask offset by its first row
+(``seq_rows``, the reference's custom VJP: dQ stays with the rank's rows,
+dK and dV are partial sums over them, all-reduced over "model" by
+``kv_grad_sum``), and ``gather_seq`` restores the sequence.  Where the
+sequence does not divide the axis either (a prefill of odd length), the
+reference leaves the layout to its partitioner; the port computes the
+same values with the heads replicated over "model", every rank the whole
+layer, no collective.
+
+Decode under a mesh context is sequence-parallel, as the reference's
+``cache_specs`` lays the cache out: each rank holds S/m of the cache's
+positions, the rank that owns position ``len`` writes the new K/V row,
+and every rank scores the query against its positions
+(``scores``), the row maxima merged by ``decode_max``, the softmax
+sums and the P·V partials (``decode_values``) by ``decode_sum``; the
+probabilities are rounded to the compute dtype after the global sum, as
+the reference rounds them.  The queries of a head-split layer are
+gathered over the heads first (``gather_seq`` on the head dim) and the
+merged output sliced back to the rank's heads before ``wo``.
 
 Attention with ``q_offset == 0`` runs the flash kernel (``kernels.ops
 .flash_attention``) when ``Sq == Sk`` (every self-attention prefill and
@@ -48,7 +73,9 @@ from torch import nn
 from ..kernels import ops, ref
 from ..kernels.build import PlanError
 from ..launch.op_count import attn_core
-from ..sharding import copy_to_tp, reduce_from_tp, tp_group
+from ..sharding import (copy_to_tp, decode_max, decode_sum, gather_seq,
+                        kv_grad_sum, norm_sum, reduce_from_tp, split_seq,
+                        tp_group)
 
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32
@@ -104,37 +131,32 @@ def dense(p: Dense, x: torch.Tensor, gather: Optional[str] = None
     return y
 
 
-def check_heads(n_heads: int, n_kv: int, s: int, what: str) -> None:
-    """Refuse, under a mesh context whose model axis is above 1, heads that
-    do not split over it: where the kv heads do not divide the axis and the
-    sequence does, the reference shards the sequence instead
-    (``_sdpa_seq_sharded``), which is ROADMAP A.11f-2b."""
-    tp = tp_group()
-    if tp is None or tp.size == 1:
-        return
-    m = tp.size
-    if n_kv % m and s > 1 and s % m == 0:
-        raise PlanError(f"{what}: {n_kv} kv heads do not split over a model "
-                        f"axis of {m} and the sequence of {s} does; the "
-                        "reference's sequence-sharded attention there is "
-                        "ROADMAP A.11f-2b, not ported yet")
-    if n_heads % m or n_kv % m:
-        raise PlanError(f"{what}: {n_heads} heads ({n_kv} kv) do not split "
-                        f"over a model axis of {m} (the reference leaves "
-                        "this layout to its partitioner; ROADMAP A.11f-2b)")
+def heads_split(n_kv: int, m: Optional[int] = None) -> bool:
+    """Whether an attention's heads split over a model axis of ``m`` (the
+    active mesh context's when not given; False without one): its
+    ``n_kv`` kv heads divide the axis.  The working copy then holds each
+    rank's heads (``train.train_step.working_specs``), else the whole
+    layer."""
+    if m is None:
+        tp = tp_group()
+        if tp is None:
+            return False
+        m = tp.size
+    return n_kv % m == 0
 
 
-def local_heads(t: torch.Tensor, n_heads: int, dh: int, what: str) -> int:
-    """The heads of this rank's shard ``t`` (local columns / ``dh``), which
-    must be its 1/m of ``n_heads`` under a mesh context, all of them
-    without one."""
+def local_heads(t: torch.Tensor, n_heads: int, dh: int, what: str,
+                split: bool) -> int:
+    """The heads of this rank's shard ``t`` (local columns / ``dh``): its
+    1/m of ``n_heads`` when the heads are ``split`` over the model axis,
+    all of them otherwise."""
     tp = tp_group()
-    m = tp.size if tp is not None else 1
+    m = tp.size if split and tp is not None else 1
     h = t.shape[-1] // dh
     if h * m != n_heads or t.shape[-1] % dh:
         raise PlanError(f"{what}: a shard of {t.shape[-1]} columns is not "
                         f"1/{m} of {n_heads} heads of {dh}; under a model "
-                        "axis the weights are each rank's shards "
+                        "axis the weights are each rank's working shards "
                         "(train.train_step.cast_and_gather_params)")
     return h
 
@@ -169,6 +191,49 @@ def rms_norm(scale: torch.Tensor, x: torch.Tensor,
     """The variance in float32; the full-size tensors in x's dtype, in the
     forward and in the hand-written backward."""
     return _RMSNorm.apply(scale, x, eps)
+
+
+class _RMSNormPart(torch.autograd.Function):
+    """``_RMSNorm`` on one rank's features, given the row's sum of squares
+    over every rank's (``ss``, float32): the backward returns the direct
+    term of dx and this rank's part of the gradient of ``ss``,
+    ``-sum(sdy · x) · inv³ / (2n)`` in float32, whose sum over the ranks
+    (``norm_sum``'s backward) reaches x through the squares as the
+    reference's ``- x · mean(sdy · x) · inv³`` term."""
+
+    @staticmethod
+    def forward(ctx, scale, x, ss, n, eps):
+        inv = torch.rsqrt(ss / n + eps)                  # (..., 1) float32
+        ctx.save_for_backward(scale, x, inv)
+        ctx.n = n
+        return x * inv.to(x.dtype) * scale.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        scale, x, inv = ctx.saved_tensors
+        sdy = dy * scale.to(dy.dtype)
+        part = (sdy.float() * x.float()).sum(dim=-1, keepdim=True)
+        dss = -part * inv ** 3 / (2 * ctx.n)
+        dx = sdy * inv.to(dy.dtype)
+        dscale = (dy * x * inv.to(dy.dtype)).float().sum(
+            dim=tuple(range(dy.ndim - 1))).to(scale.dtype)
+        return dscale, dx, dss, None, None
+
+
+def sum_squares(x: torch.Tensor) -> torch.Tensor:
+    """A rank's part of the row statistic of a norm split over "model":
+    the sum of its features' squares in float32, (..., 1)."""
+    return x.float().square().sum(dim=-1, keepdim=True)
+
+
+def rms_norm_split(scale: torch.Tensor, x: torch.Tensor, n: int, tp,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """``rms_norm`` over a feature dim of ``n`` split over the model group
+    ``tp``: ``x`` and ``scale`` are this rank's features, the sum of
+    squares is summed over the ranks (``norm_sum``) and the hand-written
+    backward's row statistic with it."""
+    ss = norm_sum(sum_squares(x), tp)
+    return _RMSNormPart.apply(scale, x, ss, n, eps)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -209,12 +274,25 @@ class Attention(nn.Module):
         self.wo = Dense(hq, cfg.d_model, False, generator, device)
 
 
-def _sdpa(q, k, v, causal: bool, q_offset: int = 0) -> torch.Tensor:
-    """q: (B, Sq, H, Dh); k/v: (B, Sk, Hkv, Dh) — GQA by head repetition,
-    on a rank's heads under a mesh context (``attention`` refuses, through
-    ``check_heads``, the layouts where the reference would shard the
-    sequence, ROADMAP A.11f-2b), so always the core."""
-    return _sdpa_core(q, k, v, causal, q_offset)
+def seq_sharded(sq: int, sk: int, n_kv: int) -> bool:
+    """The reference's test for its sequence-sharded attention
+    (``src/repro/models/layers.py:163-170``): under a context whose model
+    axis is above 1, as many queries as keys (more than one), kv heads
+    that do not divide the axis and a sequence that does."""
+    tp = tp_group()
+    if tp is None or tp.size == 1:
+        return False
+    return sq > 1 and sq == sk and n_kv % tp.size != 0 and sq % tp.size == 0
+
+
+def _sdpa(q, k, v, causal: bool, n_kv: int) -> torch.Tensor:
+    """q: (B, Sq, H, Dh); k/v: (B, Sk, Hkv, Dh) — GQA by head repetition:
+    on a rank's heads when they split over the model axis, else whole;
+    sequence-sharded where the reference shards it (``seq_sharded`` of
+    the layer's ``n_kv`` kv heads)."""
+    if seq_sharded(q.shape[1], k.shape[1], n_kv):
+        return _sdpa_seq_sharded(q, k, v, causal)
+    return _sdpa_core(q, k, v, causal, 0)
 
 
 def _sdpa_core(q, k, v, causal: bool, q_offset: int) -> torch.Tensor:
@@ -231,58 +309,231 @@ def _sdpa_core(q, k, v, causal: bool, q_offset: int) -> torch.Tensor:
         return ref.mha_ref(q, k, v, causal, q_offset)
 
 
+def scores(q, k, q_pos: int, k_pos0: int, causal: bool):
+    """The scaled float32 logits (B, Hkv, G, Sq, Sk) of q (B, Sq, H, Dh),
+    its first query at position ``q_pos``, against k (B, Sk, Hkv, Dh),
+    its first key at ``k_pos0`` (a rank's rows or cache positions),
+    masked (-1e30) past each query's position when ``causal``: the
+    reference's materialised core before its softmax."""
+    b, sq, h, dh = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, sq, hkv, h // hkv, dh)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() * dh ** -0.5
+    if causal:
+        qpos = torch.arange(sq, device=q.device) + q_pos
+        kpos = torch.arange(k.shape[1], device=q.device) + k_pos0
+        logits = torch.where((kpos[None, :] <= qpos[:, None])[None, None,
+                                                                None],
+                             logits, -1e30)
+    return logits
+
+
+def seq_rows_forward(q, k, v, causal: bool, row0: int):
+    """The rank-local forward of the sequence-sharded attention (the
+    reference's ``_sdpa_seq_fwd_impl`` on one rank's rows): q (B, Sq, H,
+    Dh) this rank's query rows, the first at position ``row0``; k, v (B,
+    Sk, Hkv, Dh) whole.  Returns (out (B, Sq, H, Dh), probs (B, Hkv, G,
+    Sq, Sk) in q's dtype)."""
+    b, sq, h, dh = q.shape
+    probs = torch.softmax(scores(q, k, row0, 0, causal), -1).to(q.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    return out.reshape(b, sq, h, dh), probs
+
+
+def seq_rows_backward(q, k, v, probs, do):
+    """The rank-local backward (the reference's ``_sdpa_seq_bwd``, float32
+    inside): (dq in q's dtype for these rows, dk and dv float32 partial
+    sums over these rows, which the ranks' all-reduce completes)."""
+    b, sq, h, dh = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    dog = do.reshape(b, sq, hkv, g, dh).float()
+    qg = q.reshape(b, sq, hkv, g, dh).float()
+    pf = probs.float()
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", pf, dog)
+    dprobs = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
+    dlogits = pf * (dprobs - (dprobs * pf).sum(-1, keepdim=True))
+    dlogits = dlogits * dh ** -0.5
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", dlogits, k.float())
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", dlogits, qg)
+    return dq.reshape(b, sq, h, dh).to(q.dtype), dk, dv
+
+
+class _SeqRows(torch.autograd.Function):
+    """``seq_rows_forward`` with ``seq_rows_backward`` as its backward; k
+    and v arrive in float32 (exact copies of q's dtype) so that their
+    partial gradients leave in float32 and are summed over the ranks
+    before they round, as the reference's psum precedes its cast."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, row0):
+        k, v = k.to(q.dtype), v.to(q.dtype)
+        out, probs = seq_rows_forward(q, k, v, causal, row0)
+        ctx.save_for_backward(q, k, v, probs)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        dq, dk, dv = seq_rows_backward(*ctx.saved_tensors, do)
+        return dq, dk, dv, None, None
+
+
+def seq_rows(q, k, v, causal: bool, row0: int) -> torch.Tensor:
+    """One rank's rows of the sequence-sharded attention, differentiable:
+    q this rank's rows (first at ``row0``), k and v whole in float32."""
+    return _SeqRows.apply(q, k, v, causal, row0)
+
+
+def _sdpa_seq_sharded(q, k, v, causal: bool) -> torch.Tensor:
+    """The sequence-sharded attention on the model group: this rank's S/m
+    query rows against the whole K and V (``seq_rows``), the K and V
+    gradients summed over "model" (``kv_grad_sum``), the rows gathered
+    back (``gather_seq``)."""
+    tp = tp_group()
+    row0 = tp.rank * (q.shape[1] // tp.size)
+    q_rows = split_seq(q, tp)
+    kf, vf = kv_grad_sum(k.float(), tp), kv_grad_sum(v.float(), tp)
+    with attn_core:
+        out = seq_rows(q_rows, kf, vf, causal, row0)
+    return gather_seq(out, tp)
+
+
+def decode_values(weights, v, dtype) -> torch.Tensor:
+    """A rank's P·V partial: the global softmax's probabilities on its
+    positions (``weights``, float32), rounded to ``dtype`` as the
+    reference rounds them, times its values v (B, Sk_r, Hkv, Dv), summed
+    in float32 -> (B, Sq, H, Dv) float32."""
+    b, hkv, g, sq, _ = weights.shape
+    p = weights.to(dtype).float()
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return out.reshape(b, sq, hkv * g, v.shape[-1])
+
+
+def merged_decode(q, k, v, q_pos: int, k_pos0: int, causal: bool, tp
+                  ) -> torch.Tensor:
+    """The sequence-parallel decode attention on the model group ``tp``:
+    this rank's logits (``scores``), the row maximum merged
+    (``decode_max``), exp and its sum merged (``decode_sum``), the P·V
+    partials (``decode_values``) merged (``decode_sum``) -> (B, Sq, H, Dv)
+    in q's dtype, the whole softmax over every rank's positions."""
+    with attn_core:
+        logits = scores(q, k, q_pos, k_pos0, causal)
+        top = decode_max(logits.amax(dim=-1, keepdim=True), tp)
+        e = torch.exp(logits - top)
+        total = decode_sum(e.sum(dim=-1, keepdim=True), tp)
+        out = decode_sum(decode_values(e / total, v, q.dtype), tp)
+    return out.to(q.dtype)
+
+
+def gather_heads(parts: list, tp) -> list:
+    """Head-split (B, S, h_i, D) tensors whole over the model group: one
+    all-gather of their concatenation on the head dim (``gather_seq``),
+    split back in rank-major head order."""
+    sizes = [t.shape[2] for t in parts]
+    both = gather_seq(torch.cat(parts, dim=2), tp, dim=2)
+    b, s, _, d = both.shape
+    both = both.reshape(b, s, tp.size, sum(sizes), d)
+    out, lo = [], 0
+    for n in sizes:
+        out.append(both[:, :, :, lo:lo + n].reshape(b, s, tp.size * n, d))
+        lo += n
+    return out
+
+
+def own_heads(t: torch.Tensor, h: int, tp) -> torch.Tensor:
+    """This rank's ``h`` heads of a (B, S, H, D) tensor whole over them."""
+    return t[:, :, tp.rank * h:(tp.rank + 1) * h]
+
+
+def write_cache(buf: torch.Tensor, rows: torch.Tensor, idx: int,
+                pos0: int) -> None:
+    """Write ``rows`` (B, s, ...) at positions ``idx``.. of a cache whose
+    local positions start at ``pos0`` (0 without a mesh): the rows this
+    rank owns go in place, the others belong to other ranks."""
+    n = buf.shape[1]
+    lo, hi = max(idx, pos0), min(idx + rows.shape[1], pos0 + n)
+    if lo < hi:
+        buf[:, lo - pos0:hi - pos0] = rows[:, lo - idx:hi - idx].to(buf.dtype)
+
+
 def attention(p: Attention, x: torch.Tensor, cfg: AttnConfig,
               positions: Optional[torch.Tensor] = None,
               kv_cache: Optional[dict] = None,
-              cross_kv: Optional[tuple] = None):
+              cross_kv: Optional[tuple] = None,
+              cross_sharded: bool = False):
     """Returns (out, new_kv_cache).  kv_cache: {"k","v": (B, Smax, Hkv,
     Dh), "len": int} for decode: the new keys and values are written into
     the cache's tensors IN PLACE at ``len`` (the reference returns new
     arrays), and the returned cache holds the same tensors and the new
     length.  cross_kv for encoder-decoder cross attention.  Under a mesh
-    context this rank's heads only: q, k and v column-parallel, ``wo``
-    row-parallel."""
+    context the heads are this rank's when they split (q, k and v
+    column-parallel, ``wo`` row-parallel), else whole; a cache holds this
+    rank's positions (``cache_specs``) and so does ``cross_kv`` with
+    ``cross_sharded`` (a decode's encoder rows), and the decode merges
+    over "model"."""
     b, s, _ = x.shape
-    check_heads(cfg.n_heads, cfg.n_kv, s, "attention")
+    tp = tp_group()
+    split = heads_split(cfg.n_kv)
+    col, row = ("col", "row") if split else (None, None)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     hd = cfg.head_dim
-    h = local_heads(p.wq.w, cfg.n_heads, hd, "attention wq")
-    q = dense(p.wq, x, gather="col").reshape(b, s, h, hd)
+    h = local_heads(p.wq.w, cfg.n_heads, hd, "attention wq", split)
+    q = dense(p.wq, x, gather=col).reshape(b, s, h, hd)
     if cross_kv is not None:
         k, v = cross_kv
-        out = _sdpa(q, k, v, causal=False)
-        return dense(p.wo, out.reshape(b, s, -1), gather="row"), kv_cache
-    hkv = local_heads(p.wk.w, cfg.n_kv, hd, "attention wk")
-    k = dense(p.wk, x, gather="col").reshape(b, s, hkv, hd)
-    v = dense(p.wv, x, gather="col").reshape(b, s, hkv, hd)
+        if cross_sharded and tp is not None:
+            if split:
+                q, = gather_heads([q], tp)
+            out = merged_decode(q, k, v, 0, 0, False, tp)
+            if split:
+                out = own_heads(out, h, tp)
+        else:
+            out = _sdpa(q, k, v, False, cfg.n_kv)
+        return dense(p.wo, out.reshape(b, s, -1), gather=row), kv_cache
+    hkv = local_heads(p.wk.w, cfg.n_kv, hd, "attention wk", split)
+    k = dense(p.wk, x, gather=col).reshape(b, s, hkv, hd)
+    v = dense(p.wv, x, gather=col).reshape(b, s, hkv, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     if kv_cache is None:
-        out = _sdpa(q, k, v, causal=cfg.causal)
+        out = _sdpa(q, k, v, cfg.causal, cfg.n_kv)
         new_cache = None
     else:
         idx = int(kv_cache["len"])
         ck, cv = kv_cache["k"], kv_cache["v"]
-        if idx + s > ck.shape[1]:
+        m = tp.size if tp is not None else 1
+        if idx + s > ck.shape[1] * m:
             raise ValueError(f"KV cache full: {idx} + {s} tokens > "
-                             f"{ck.shape[1]} slots")
-        ck[:, idx:idx + s] = k.to(ck.dtype)
-        cv[:, idx:idx + s] = v.to(cv.dtype)
+                             f"{ck.shape[1] * m} slots")
         new_cache = {"k": ck, "v": cv, "len": idx + s}
-        # mask out cache slots beyond len via causal mask w/ offset
-        out = _sdpa(q, ck.to(q.dtype), cv.to(q.dtype), causal=True,
-                    q_offset=idx)
-    return dense(p.wo, out.reshape(b, s, -1), gather="row"), new_cache
+        if tp is None:
+            ck[:, idx:idx + s] = k.to(ck.dtype)
+            cv[:, idx:idx + s] = v.to(cv.dtype)
+            # mask out cache slots beyond len via causal mask w/ offset
+            out = _sdpa_core(q, ck.to(q.dtype), cv.to(q.dtype), True, idx)
+        else:
+            if split:
+                q, k, v = gather_heads([q, k, v], tp)
+            pos0 = tp.rank * ck.shape[1]
+            write_cache(ck, k, idx, pos0)
+            write_cache(cv, v, idx, pos0)
+            out = merged_decode(q, ck.to(q.dtype), cv.to(q.dtype), idx, pos0,
+                                True, tp)
+            if split:
+                out = own_heads(out, h, tp)
+    return dense(p.wo, out.reshape(b, s, -1), gather=row), new_cache
 
 
 def cross_kv_init(p: Attention, memory: torch.Tensor, cfg: AttnConfig):
     """Precompute encoder-memory K/V once per sequence (enc-dec decode);
-    this rank's kv heads under a mesh context."""
+    this rank's kv heads under a mesh context where they split."""
     b, sm, _ = memory.shape
-    hkv = local_heads(p.wk.w, cfg.n_kv, cfg.head_dim, "cross wk")
-    k = dense(p.wk, memory, gather="col").reshape(b, sm, hkv, cfg.head_dim)
-    v = dense(p.wv, memory, gather="col").reshape(b, sm, hkv, cfg.head_dim)
+    split = heads_split(cfg.n_kv)
+    col = "col" if split else None
+    hkv = local_heads(p.wk.w, cfg.n_kv, cfg.head_dim, "cross wk", split)
+    k = dense(p.wk, memory, gather=col).reshape(b, sm, hkv, cfg.head_dim)
+    v = dense(p.wv, memory, gather=col).reshape(b, sm, hkv, cfg.head_dim)
     return k, v
 
 

@@ -33,7 +33,19 @@ whole and equal on every rank.  The train step takes each rank's shard of
 all-to-all).  Cost a step: ``wkv_a``'s all-gather and two all-to-alls of
 ``wkv_b`` (V2-Lite: 2048 × 576 and 512 × 4096 floats a layer), where the
 other choice, ``wkv_b`` row-parallel, would all-reduce a
-(B, S, H·(dn + dv)) activation twice a layer.
+(B, S, H·(dn + dv)) activation twice a layer.  Where the heads do not
+divide the model axis the working copy holds ``wq``, ``wkv_b`` and ``wo``
+whole too, and every rank computes the whole layer (the reference leaves
+that layout to its partitioner).
+
+Decode under a mesh context is sequence-parallel, as ``cache_specs`` lays
+out the latent cache (each rank S/m positions): every rank computes the
+step's latent row whole and the rank that owns position ``len`` writes
+it; each rank expands its positions' latents into every head's K and V
+(``wkv_b`` gathered whole over "model" where it is head-split, and the
+queries gathered over the heads), and the softmax merges over "model"
+(``layers.merged_decode``); the output goes back to the rank's heads
+before ``wo``.
 """
 from __future__ import annotations
 
@@ -47,7 +59,7 @@ from torch import nn
 from ..kernels import ops, ref
 from ..kernels.build import PlanError
 from ..launch.op_count import attn_core
-from ..sharding import copy_to_tp, tp_group
+from ..sharding import copy_to_tp, gather_seq, tp_group
 from . import layers as L
 
 
@@ -77,15 +89,15 @@ class MLA(nn.Module):
         self.wo = L.Dense(h * dv, cfg.d_model, False, g, dev)
 
 
-def _expand_kv(p: MLA, c_kv: torch.Tensor, k_rope: torch.Tensor,
+def _expand_kv(w: torch.Tensor, c_kv: torch.Tensor, k_rope: torch.Tensor,
                cfg: MLAConfig):
     """latent (B, S, kv_lora) + shared rope key (B, S, dr) -> per-head K
-    (B, S, H, dn + dr), V (B, S, H, dv); this rank's heads (``wkv_b``'s
-    local columns) under a mesh context."""
+    (B, S, H, dn + dr), V (B, S, H, dv), through ``wkv_b``'s weight ``w``
+    (this rank's heads' columns, or all of them)."""
     b, s, _ = c_kv.shape
     dn = cfg.qk_nope
-    h = L.local_heads(p.wkv_b.w, cfg.n_heads, dn + cfg.v_head, "mla wkv_b")
-    kv = L.dense(p.wkv_b, c_kv).reshape(b, s, h, dn + cfg.v_head)
+    h = w.shape[-1] // (dn + cfg.v_head)
+    kv = (c_kv @ w.to(c_kv.dtype)).reshape(b, s, h, dn + cfg.v_head)
     k = torch.cat([kv[..., :dn],
                    k_rope[:, :, None, :].expand(b, s, h, cfg.qk_rope)], dim=-1)
     return k, kv[..., dn:]
@@ -116,10 +128,13 @@ def mla_attention(p: MLA, x: torch.Tensor, cfg: MLAConfig,
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     dn, dr, dv = cfg.qk_nope, cfg.qk_rope, cfg.v_head
-    L.check_heads(cfg.n_heads, cfg.n_heads, s, "latent attention")
-    h = L.local_heads(p.wq.w, cfg.n_heads, dn + dr, "mla wq")
+    tp = tp_group()
+    split = L.heads_split(cfg.n_heads)
+    h = L.local_heads(p.wq.w, cfg.n_heads, dn + dr, "mla wq", split)
+    L.local_heads(p.wkv_b.w, cfg.n_heads, dn + dv, "mla wkv_b", split)
 
-    q = L.dense(p.wq, x, gather="col").reshape(b, s, h, dn + dr)
+    q = L.dense(p.wq, x, gather="col" if split else None).reshape(
+        b, s, h, dn + dr)
     q = torch.cat([q[..., :dn], L.rope(q[..., dn:], positions,
                                        cfg.rope_theta)], dim=-1)
     ckv_full = L.dense(p.wkv_a, x)                       # (B, S, kv_lora+dr)
@@ -130,27 +145,43 @@ def mla_attention(p: MLA, x: torch.Tensor, cfg: MLAConfig,
     c_kv = L.rms_norm(p.kv_norm, ckv_full[..., :cfg.kv_lora])
     k_rope = L.rope(ckv_full[..., None, cfg.kv_lora:], positions,
                     cfg.rope_theta)[..., 0, :]           # (B, S, dr)
-    tp = tp_group()
-    if tp is not None:        # each rank's heads add their part of the grad
+    if split:                 # each rank's heads add their part of the grad
         latent = copy_to_tp(torch.cat([c_kv, k_rope], dim=-1), tp)
         c_kv, k_rope = latent[..., :cfg.kv_lora], latent[..., cfg.kv_lora:]
+    row = "row" if split else None
 
     if cache is None:
-        k, v = _expand_kv(p, c_kv, k_rope, cfg)
+        k, v = _expand_kv(p.wkv_b.w, c_kv, k_rope, cfg)
         with attn_core:
             out = _prefill_core(q, k, v)
         new_cache = None
     else:
         idx = int(cache["len"])
         buf = cache["ckv"]
-        if idx + s > buf.shape[1]:
+        m = tp.size if tp is not None else 1
+        if idx + s > buf.shape[1] * m:
             raise ValueError(f"latent cache full: {idx} + {s} tokens > "
-                             f"{buf.shape[1]} slots")
-        buf[:, idx:idx + s] = torch.cat([c_kv, k_rope], dim=-1).to(buf.dtype)
+                             f"{buf.shape[1] * m} slots")
         new_cache = {"ckv": buf, "len": idx + s}
-        full = buf.to(x.dtype)
-        k, v = _expand_kv(p, full[..., :cfg.kv_lora], full[..., cfg.kv_lora:],
-                          cfg)
-        with attn_core:
-            out = ref.mha_ref(q, k, v, causal=True, q_offset=idx)
-    return L.dense(p.wo, out.reshape(b, s, h * dv), gather="row"), new_cache
+        latent = torch.cat([c_kv, k_rope], dim=-1)
+        if tp is None:
+            buf[:, idx:idx + s] = latent.to(buf.dtype)
+            full = buf.to(x.dtype)
+            k, v = _expand_kv(p.wkv_b.w, full[..., :cfg.kv_lora],
+                              full[..., cfg.kv_lora:], cfg)
+            with attn_core:
+                out = ref.mha_ref(q, k, v, causal=True, q_offset=idx)
+        else:
+            pos0 = tp.rank * buf.shape[1]
+            L.write_cache(buf, latent, idx, pos0)
+            w = p.wkv_b.w
+            if split:
+                q, = L.gather_heads([q], tp)
+                w = gather_seq(w, tp, dim=1)
+            full = buf.to(x.dtype)
+            k, v = _expand_kv(w, full[..., :cfg.kv_lora],
+                              full[..., cfg.kv_lora:], cfg)
+            out = L.merged_decode(q, k, v, idx, pos0, True, tp)
+            if split:
+                out = L.own_heads(out, h, tp)
+    return L.dense(p.wo, out.reshape(b, s, h * dv), gather=row), new_cache

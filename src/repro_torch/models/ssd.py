@@ -11,6 +11,26 @@ D skip term, the ``silu(z)`` gate, the RMS norm and ``out_proj`` stay
 outside the kernel, as in the reference.
 Decode path: the O(1) single-step state update in plain tensor code.
 
+Under a mesh context (the train, eval and serve steps) the SSD heads split
+over "model", as the reference's shard constraints on ``xs`` and ``dt``
+split them (``src/repro/models/ssd.py:119-127``, ``:170``): each rank runs
+``ssd_scan`` on its H/m heads with B and C whole.  Its working copy
+(``train.train_step.cast_and_gather_params``) holds, of ``in_proj``, the
+columns of its heads' ``z``, ``x`` and ``dt`` and the whole ``B`` and
+``C`` columns (``head_columns``; the reference stores the concatenated
+``[z | x B C | dt]`` columns split contiguously, which cuts across the
+segments), of ``conv_w``/``conv_b`` its heads' ``x`` channels and the
+whole ``B`` and ``C`` ones, and its heads' slices of ``A_log``,
+``dt_bias``, ``D``, ``norm`` and ``out_proj``'s rows.  The input passes
+``copy_to_tp`` (a column-parallel product) and so do the shared ``B``/``C``
+columns' weights, whose gradient each rank holds a part of; the gated
+norm runs over the whole ``d_inner`` through ``layers.rms_norm_split``
+(the sum of squares over "model"); ``out_proj`` is row-parallel, then
+``reduce_from_tp``.  The decode keeps each rank's heads of the state
+``h`` and the whole conv state on every rank: the new ``x`` row is
+gathered over "model" (``gather_seq``) so that every rank's copy of the
+conv state stays equal.
+
 Geometry: d_inner = 2*d_model, headdim P, nheads H = d_inner/P, state N,
 ngroups G = 1 (B/C shared across heads), conv width 4.
 """
@@ -24,8 +44,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
+from ..kernels.build import PlanError
 from ..launch.op_count import attn_core
-from .layers import Dense, dense, param, rms_norm
+from ..sharding import copy_to_tp, gather_seq, reduce_from_tp, tp_group
+from .layers import Dense, dense, param, rms_norm, rms_norm_split
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,19 +97,69 @@ def ssd_init(cfg: SSDConfig, generator: torch.Generator,
     return SSD(cfg, generator, device)
 
 
+def head_columns(cfg: SSDConfig, m: int, r: int, leaf: str) -> torch.Tensor:
+    """The columns of rank ``r`` of ``m`` in the working copy of
+    ``in_proj.w`` (``leaf="in_proj"``: its heads' z and x, the whole B and
+    C, its heads' dt) or of ``conv_w``/``conv_b`` (``leaf="conv"``: its
+    heads' x channels, the whole B and C), as indices into the stored
+    leaf's last dim, in that order."""
+    di, n, h = cfg.d_inner // m, cfg.d_state, cfg.n_heads // m
+    ar = torch.arange
+    bc = ar(2 * n) + cfg.d_inner
+    if leaf == "conv":
+        return torch.cat([ar(di) + r * di, bc])
+    return torch.cat([ar(di) + r * di, ar(di) + cfg.d_inner + r * di,
+                      bc + cfg.d_inner,
+                      ar(h) + 2 * cfg.d_inner + 2 * n + r * h])
+
+
+def _geometry(cfg: SSDConfig):
+    """(the model group or None, this rank's heads, its d_inner)."""
+    tp = tp_group()
+    m = tp.size if tp is not None else 1
+    if cfg.n_heads % m:
+        raise PlanError(f"{cfg.n_heads} SSD heads do not split over a model "
+                        f"axis of {m}")
+    return tp, cfg.n_heads // m, cfg.d_inner // m
+
+
+def _shared(t: torch.Tensor, lo: int, hi: int, tp) -> torch.Tensor:
+    """``t`` with its last-dim columns [lo, hi) (the whole B and C every
+    rank holds) through ``copy_to_tp``, their gradient summed over the
+    ranks that each use them for their own heads."""
+    return torch.cat([t[..., :lo], copy_to_tp(t[..., lo:hi], tp),
+                      t[..., hi:]], dim=-1)
+
+
 def _split_proj(p: SSD, x: torch.Tensor, cfg: SSDConfig):
-    zxbcdt = dense(p.in_proj, x)
-    di = cfg.d_inner
+    """(z, xBC, dt) of this rank's heads (all of them without a
+    context)."""
+    tp, _, di = _geometry(cfg)
+    if tp is None:
+        zxbcdt = dense(p.in_proj, x)
+    else:
+        w = _shared(p.in_proj.w, 2 * di, 2 * di + 2 * cfg.d_state, tp)
+        zxbcdt = copy_to_tp(x, tp) @ w.to(x.dtype)
+    conv_dim = di + 2 * cfg.d_state
     z = zxbcdt[..., :di]
-    xbc = zxbcdt[..., di:di + cfg.conv_dim]
-    dt = zxbcdt[..., di + cfg.conv_dim:]
+    xbc = zxbcdt[..., di:di + conv_dim]
+    dt = zxbcdt[..., di + conv_dim:]
     return z, xbc, dt
+
+
+def _conv_weights(p: SSD, cfg: SSDConfig, dtype):
+    tp, _, di = _geometry(cfg)
+    w, b = p.conv_w, p.conv_b
+    if tp is not None:
+        hi = di + 2 * cfg.d_state
+        w, b = _shared(w, di, hi, tp), _shared(b, di, hi, tp)
+    return w.to(dtype), b.to(dtype)
 
 
 def _causal_conv(p: SSD, xbc: torch.Tensor, cfg: SSDConfig,
                  conv_state: Optional[torch.Tensor] = None):
     """Depthwise causal conv; xbc (B, L, conv_dim)."""
-    w = p.conv_w.to(xbc.dtype)                  # (W, C)
+    w, bias = _conv_weights(p, cfg, xbc.dtype)          # (W, C), (C,)
     width = cfg.conv_width
     if conv_state is not None:
         buf = torch.cat([conv_state.to(xbc.dtype), xbc], dim=1)
@@ -95,8 +167,17 @@ def _causal_conv(p: SSD, xbc: torch.Tensor, cfg: SSDConfig,
         buf = F.pad(xbc, (0, 0, width - 1, 0))
     new_state = buf[:, -(width - 1):]
     out = sum(buf[:, i:i + xbc.shape[1]] * w[i] for i in range(width))
-    out = out + p.conv_b.to(xbc.dtype)
+    out = out + bias
     return F.silu(out), new_state
+
+
+def _gated_norm(p: SSD, y: torch.Tensor, cfg: SSDConfig) -> torch.Tensor:
+    """The norm over the whole ``d_inner``: split over "model" under a
+    context, whole without one."""
+    tp = tp_group()
+    if tp is None:
+        return rms_norm(p.norm, y)
+    return rms_norm_split(p.norm, y, cfg.d_inner, tp)
 
 
 def chunk_step(h_prev, xs_c, b_c, c_c, dt_c, a, out_dtype):
@@ -149,13 +230,14 @@ def ssd_forward(p: SSD, x: torch.Tensor, cfg: SSDConfig):
     ``min(chunk, L)`` (pad upstream; PlanError otherwise).  Returns
     (y, final_state) — final_state (B, H, P, N) float32."""
     b, l, _ = x.shape
-    h, pdim, n = cfg.n_heads, cfg.headdim, cfg.d_state
+    _, h, di = _geometry(cfg)
+    pdim, n = cfg.headdim, cfg.d_state
 
     z, xbc, dt_raw = _split_proj(p, x, cfg)
     xbc, _ = _causal_conv(p, xbc, cfg)
-    xs = xbc[..., :cfg.d_inner].reshape(b, l, h, pdim)
-    bmat = xbc[..., cfg.d_inner:cfg.d_inner + n]
-    cmat = xbc[..., cfg.d_inner + n:]
+    xs = xbc[..., :di].reshape(b, l, h, pdim)
+    bmat = xbc[..., di:di + n]
+    cmat = xbc[..., di + n:]
     dt = F.softplus(dt_raw.float() + p.dt_bias)                 # (B, L, H)
     a = -torch.exp(p.A_log)                                     # (H,)
     # dt reaches the scan rounded to the compute dtype, as the reference's
@@ -164,23 +246,33 @@ def ssd_forward(p: SSD, x: torch.Tensor, cfg: SSDConfig):
         y, h_final = ops.ssd_scan(xs, bmat, cmat, dt.to(x.dtype), a,
                                   chunk=cfg.chunk)
     y = y + p.D.to(x.dtype)[None, None, :, None] * xs
-    y = y.reshape(b, l, cfg.d_inner)
+    y = y.reshape(b, l, di)
     y = y * F.silu(z)
-    y = rms_norm(p.norm, y)
-    return dense(p.out_proj, y), h_final
+    return dense(p.out_proj, _gated_norm(p, y, cfg), gather="row"), h_final
 
 
 def ssd_decode_step(p: SSD, x: torch.Tensor, cfg: SSDConfig, state: dict):
     """O(1) decode.  x: (B, 1, d_model); state = {"h": (B,H,P,N) f32,
-    "conv": (B, W-1, conv_dim)}.  Returns (y, new state); the new state's
-    tensors are new (the caller stores them)."""
+    "conv": (B, W-1, conv_dim)}: under a mesh context ``h`` holds this
+    rank's heads and ``conv`` every channel (the new x row is gathered over
+    "model", so every rank's copy stays equal).  Returns (y, new state);
+    the new state's tensors are new (the caller stores them)."""
     b = x.shape[0]
-    h, pdim, n = cfg.n_heads, cfg.headdim, cfg.d_state
+    tp, h, di = _geometry(cfg)
+    pdim, n = cfg.headdim, cfg.d_state
     z, xbc, dt_raw = _split_proj(p, x, cfg)
-    xbc, conv_state = _causal_conv(p, xbc, cfg, conv_state=state["conv"])
-    xs = xbc[:, 0, :cfg.d_inner].reshape(b, h, pdim)
-    bvec = xbc[:, 0, cfg.d_inner:cfg.d_inner + n]
-    cvec = xbc[:, 0, cfg.d_inner + n:]
+    if tp is None:
+        xbc, conv_state = _causal_conv(p, xbc, cfg, conv_state=state["conv"])
+    else:
+        whole = torch.cat([gather_seq(xbc[..., :di], tp, dim=-1),
+                           xbc[..., di:]], dim=-1)
+        cols = head_columns(cfg, tp.size, tp.rank, "conv").to(x.device)
+        conv_state = _conv_state(state["conv"], whole, cfg)
+        xbc, _ = _causal_conv(p, xbc, cfg,
+                              conv_state=state["conv"][..., cols])
+    xs = xbc[:, 0, :di].reshape(b, h, pdim)
+    bvec = xbc[:, 0, di:di + n]
+    cvec = xbc[:, 0, di + n:]
     dt = F.softplus(dt_raw[:, 0].float() + p.dt_bias)          # (B, H)
     a = -torch.exp(p.A_log)
     da = torch.exp(dt * a)                                      # (B, H)
@@ -188,7 +280,15 @@ def ssd_decode_step(p: SSD, x: torch.Tensor, cfg: SSDConfig, state: dict):
         "bh,bn,bhp->bhpn", dt, bvec.float(), xs.float())
     y = torch.einsum("bn,bhpn->bhp", cvec.float(), hs)
     y = y + p.D[None, :, None] * xs.float()
-    y = y.reshape(b, 1, cfg.d_inner).to(x.dtype)
+    y = y.reshape(b, 1, di).to(x.dtype)
     y = y * F.silu(z)
-    y = rms_norm(p.norm, y)
-    return dense(p.out_proj, y), {"h": hs, "conv": conv_state}
+    return (dense(p.out_proj, _gated_norm(p, y, cfg), gather="row"),
+            {"h": hs, "conv": conv_state})
+
+
+def _conv_state(conv_state: torch.Tensor, xbc: torch.Tensor,
+                cfg: SSDConfig) -> torch.Tensor:
+    """The conv state ``_causal_conv`` leaves, on every channel, without
+    the convolution."""
+    buf = torch.cat([conv_state.to(xbc.dtype), xbc], dim=1)
+    return buf[:, -(cfg.conv_width - 1):]

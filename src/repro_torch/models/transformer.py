@@ -40,23 +40,35 @@ so its activations are recomputed in the backward.  ``init_params(...,
 trainable=True)`` (or ``model.requires_grad_(True)``) makes the parameters
 trainable; serving keeps them frozen.
 
-Under a mesh context (``sharding.mesh_context``; the train and eval steps
-run the forward under one) attention, latent attention, the SwiGLU and the
-experts are tensor- and expert-parallel over "model" on each rank's
-shards (``models.layers``, ``models.mla``, ``models.moe``).  The residual
-stream stays replicated over "model" (the reference shards its sequence,
-``residual_spec``: ROADMAP A.11f-2b), and so do the embedding and the LM
-head: the step's working copy gathers them whole over "model" once a step
-(``train.train_step.working_specs``), so the logits and the loss are whole
-on every rank, where the reference's logits are vocab-sharded
-(``transformer.py:402``; a vocab-parallel cross-entropy is later work).
-The ``ssm`` and ``hybrid`` families on a model axis above 1 raise
-``PlanError``: their SSD heads over "model" are ROADMAP A.11f-2b.
+Under a mesh context (``sharding.mesh_context``; the train, eval and serve
+steps run the forward under one) attention, latent attention, the
+SwiGLU, the experts and the SSD heads are tensor- and expert-parallel
+over "model" on each rank's working shards (``models.layers``,
+``models.mla``, ``models.moe``, ``models.ssd``); attention whose kv heads
+do not divide the axis runs sequence-sharded or replicated
+(``models.layers``).  The residual stream stays replicated over "model"
+(the reference shards its sequence, ``residual_spec``; ROADMAP C.3), and
+so do the embedding and the LM head: the step's working copy gathers them
+whole over "model" once a step (``train.train_step.working_specs``), so
+the logits and the loss are whole on every rank, where the reference's
+logits are vocab-sharded (``transformer.py:402``; a vocab-parallel
+cross-entropy is later work).
+
+The decode cache on a mesh is laid out by ``cache_specs`` (the
+reference's ``:482-505``): the batch over the batch axes when it has
+more than one row, the KV and latent caches' sequence over "model", the
+SSD state ``h`` by heads over "model", the conv state whole on every
+rank.  ``init_cache(..., ctx=)`` makes a rank's local cache and
+``shard_cache`` cuts a whole one; ``decode_step`` under the context then
+runs the sequence-parallel decode (``models.layers``).  A dimension that
+does not divide its axes raises ``PlanError``, as the reference's
+``device_put`` refuses it.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -66,7 +78,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.build import PlanError
 from ..kernels.ops import resolve_device
-from ..sharding import current_ctx, mesh_context, tp_group
+from ..sharding import MeshContext, current_ctx, mesh_context
 from . import layers as L
 from . import mla as MLA
 from . import moe as MOE
@@ -134,16 +146,6 @@ def check_supported(cfg: ArchConfig) -> None:
                          f"into groups of {cfg.shared_every}")
 
 
-def check_mesh(cfg: ArchConfig) -> None:
-    """Refuse, under a mesh context with a model axis above 1, the families
-    whose layers this half of the model axis does not split."""
-    tp = tp_group()
-    if tp is not None and tp.size > 1 and cfg.family in ("ssm", "hybrid"):
-        raise PlanError(f"{cfg.name}: the {cfg.family} family on a model "
-                        f"axis of {tp.size}: the SSD heads over \"model\" "
-                        "are ROADMAP A.11f-2b, not ported yet")
-
-
 # =============================================================== blocks ====
 class AttnBlock(nn.Module):
     """Attention (GQA, or latent with ``attn_type="mla"``) and a SwiGLU
@@ -192,8 +194,10 @@ def _attn_block_apply(p: AttnBlock, x, cfg: ArchConfig, positions=None,
     x = x + a
     if hasattr(p, "xattn") and cross_kv is not None:
         h = L.rms_norm(p.lnx, x)
+        # a decode's encoder K/V come from its cache: on a mesh, this
+        # rank's positions
         a, _ = L.attention(p.xattn, h, cfg.attn_cfg(causal=False),
-                           cross_kv=cross_kv)
+                           cross_kv=cross_kv, cross_sharded=cache is not None)
         x = x + a
     h = L.rms_norm(p.ln2, x)
     if isinstance(p, MoEBlock):
@@ -376,7 +380,6 @@ def forward(params: Model, batch: dict, cfg: ArchConfig,
     positions' embeddings, ``encdec`` batch["enc_embeds"] (B, S_enc,
     d_model) as the encoder's input."""
     check_supported(cfg)
-    check_mesh(cfg)
     attn = _maybe_remat(_attn_block_apply, cfg)
     ssd = _maybe_remat(_ssd_block_apply, cfg)
     x = _embed(params, batch["tokens"])
@@ -460,14 +463,86 @@ def init_cache_abstract(cfg: ArchConfig, batch: int, max_len: int) -> dict:
     return out
 
 
+def cache_specs(cfg: ArchConfig, batch: int) -> dict:
+    """The cache's specs by leaf (``sharding``'s tuples; the reference's
+    ``:482-505``): the batch over ("pod", "data") when it has more than
+    one row, the KV-like leaves' sequence over "model" (sequence-parallel
+    decode attention), the SSD state ``h``'s heads over "model", ``conv``
+    replicated over it, ``len`` a scalar."""
+    dp = ("pod", "data") if batch > 1 else None
+    out = {}
+    for name, leaf in init_cache_abstract(cfg, batch, 8).items():
+        if leaf.ndim == 0:
+            out[name] = ()
+        elif name == "h":
+            out[name] = (None, dp, "model", None, None)
+        elif name == "conv":
+            out[name] = (None, dp, None, None)
+        else:
+            out[name] = (None, dp, "model", *([None] * (leaf.ndim - 3)))
+    return out
+
+
+def _local_part(spec: tuple, ctx: MeshContext):
+    """Per dim of a leaf laid out by ``spec``: (the number of parts, this
+    rank's index) over the axes the spec names (1, 0 where it names
+    none)."""
+    out = []
+    for entry in spec:
+        axes = (entry,) if isinstance(entry, str) else (entry or ())
+        axes = tuple(a for a in axes if a in ctx.mesh.mesh_dim_names)
+        out.append((math.prod(ctx.size(a) for a in axes),
+                    ctx.rank_along(axes)))
+    return out
+
+
+def _check_split(name: str, shape, parts) -> None:
+    for dim, (n, (k, _)) in enumerate(zip(shape, parts)):
+        if n % k:
+            raise PlanError(f"cache leaf {name!r}: dim {dim} of "
+                            f"{tuple(shape)} does not split into {k} parts "
+                            "on the mesh "
+                            "(the reference's device_put refuses it too)")
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, fill_len: int = 0,
-               device=None) -> dict:
+               device=None, ctx: Optional[MeshContext] = None) -> dict:
     """A zeroed cache on ``device`` (the card unless the caller names the
-    CPU), ``len`` = ``fill_len``."""
+    CPU), ``len`` = ``fill_len``; with ``ctx`` this rank's part of it, laid
+    out by ``cache_specs``."""
     dev = resolve_device(device)
-    return {k: (int(fill_len) if k == "len"
-                else torch.zeros(t.shape, dtype=t.dtype, device=dev))
-            for k, t in init_cache_abstract(cfg, batch, max_len).items()}
+    specs = cache_specs(cfg, batch) if ctx is not None else None
+    out = {}
+    for k, t in init_cache_abstract(cfg, batch, max_len).items():
+        if k == "len":
+            out[k] = int(fill_len)
+            continue
+        shape = tuple(t.shape)
+        if specs is not None:
+            parts = _local_part(specs[k], ctx)
+            _check_split(k, shape, parts)
+            shape = tuple(n // p for n, (p, _) in zip(shape, parts))
+        out[k] = torch.zeros(shape, dtype=t.dtype, device=dev)
+    return out
+
+
+def shard_cache(cache: dict, cfg: ArchConfig, ctx: MeshContext) -> dict:
+    """This rank's part of a whole cache, laid out by ``cache_specs``
+    (copies; ``len`` as it is)."""
+    b = next(t.shape[1] for k, t in cache.items() if k != "len")
+    specs = cache_specs(cfg, b)
+    out = {}
+    for k, t in cache.items():
+        if k == "len":
+            out[k] = int(t)
+            continue
+        parts = _local_part(specs[k], ctx)
+        _check_split(k, t.shape, parts)
+        for dim, (p, r) in enumerate(parts):
+            n = t.shape[dim] // p
+            t = t.narrow(dim, r * n, n)
+        out[k] = t.contiguous().clone()
+    return out
 
 
 def decode_step(params: Model, batch: dict, cache: dict, cfg: ArchConfig):
@@ -476,9 +551,10 @@ def decode_step(params: Model, batch: dict, cache: dict, cfg: ArchConfig):
     returned dict holds them and the new length.  An ``encdec`` decoder
     block attends (non-causally) to its ``enc_k``/``enc_v`` row, which the
     caller fills (``cross_kv_init`` of the encoder's output) before the
-    first step."""
+    first step.  Under a mesh context ``cache`` is this rank's part
+    (``init_cache(..., ctx=)``, ``shard_cache``), the tokens its rows, and
+    the attention sequence-parallel over "model"."""
     check_supported(cfg)
-    check_mesh(cfg)
     tokens = batch["tokens"]
     b = tokens.shape[0]
     x = _embed(params, tokens)

@@ -20,7 +20,9 @@ Where the reference's scatter would fall outside its arrays (the pool has
 no free page, or a request has used all ``max_pages_per_seq`` of its
 pages) and drop the write silently, the port raises ``PlanError`` before
 it changes anything.  No TPU kernel serves this module: it is plain torch
-on the state's device.
+on the state's device.  The cache stays meshless, as the reference's
+reads no mesh: on a (data, model) mesh the dense cache of
+``models.transformer.cache_specs`` serves, not this one.
 """
 from __future__ import annotations
 

@@ -4,8 +4,9 @@
 Axis roles (as the reference's):
   pod    — data parallelism across pods (multi-pod mesh only)
   data   — data parallelism + FSDP parameter sharding within a pod
-  model  — tensor and expert parallelism (this half of the port; the
-           reference's sequence parallelism on it is ROADMAP A.11f-2b)
+  model  — tensor and expert parallelism, the sequence-sharded attention
+           where the kv heads do not split over it, SSD heads, and the
+           serving cache's sequence (``models.transformer.cache_specs``)
 
 A spec is a tuple whose entries are ``None``, an axis name, or a tuple of
 names, one entry a tensor dim: the counterpart of ``PartitionSpec``.
@@ -14,36 +15,47 @@ mesh dim named in the spec shards that tensor dim; names the mesh lacks
 are dropped), and ``distribute`` lays a tree or a model out by it, each
 rank keeping its own shard.
 
-The models never see a DTensor: the train step (``train.train_step``)
-gathers each weight over the batch axes into a plain tensor, each rank
-keeping its shard over "model", and runs the forward on a rank's own
-rows.  The tensor- and expert-parallel layers read ``current_ctx()`` for
-the model group, as the reference's ``moe_ffn`` and ``_sdpa`` read theirs,
-and cross it with the differentiable collectives below, each a
-``torch.autograd.Function`` over plain ``torch.distributed`` calls on that
-group (a group of one rank still runs them):
+The models never see a DTensor: the train, eval and serve steps gather
+each weight over the batch axes into a plain tensor, each rank keeping
+its working shard over "model", and run the forward on a rank's own
+rows.  The layers read ``current_ctx()`` for the model group, as the
+reference's ``moe_ffn`` and ``_sdpa`` read theirs, and cross it with the
+collectives below, each a ``torch.autograd.Function`` over plain
+``torch.distributed`` calls on that group (a group of one rank still runs
+them):
 
   copy_to_tp      identity forward, all-reduce backward (before a
                   column-parallel product: the input's gradient is the sum
                   of every rank's columns' part);
+  kv_grad_sum     the same, for the whole K and V of the sequence-sharded
+                  attention, whose backward gives each rank the partial
+                  dK/dV sums over its query rows;
   reduce_from_tp  all-reduce forward, identity backward (after a
                   row-parallel product);
+  norm_sum        all-reduce forward and backward (the SSD norm's sum of
+                  squares over a rank's heads: each rank uses the sum for
+                  its own features, so each holds a part of its gradient);
   split_seq       this rank's slice of a dim forward, all-gather backward;
   gather_seq      all-gather of a dim forward, this rank's slice backward;
   expert_exchange the MoE ``all_to_all`` (split E, concat C) forward, the
                   reverse exchange backward, and ``expert_return`` the
-                  other way round.
+                  other way round;
+  decode_max, decode_sum
+                  the sequence-parallel decode's merge (an all-reduce
+                  MAX of the logits' row maxima, an all-reduce SUM of the
+                  softmax sums and of the P·V partials); serving only, so
+                  their backward refuses.
 
 ``TP_CALLS`` counts the collectives these issue, by function (``copy_to_tp``
-counts its backward's all-reduces, ``split_seq`` its backward's
-all-gathers), once for each forward and each backward; a forward rerun
-inside the backward (remat's recompute, which ``torch.utils.checkpoint``
-stops once the tensors the backward needs are rebuilt, at a point that
-differs between torch builds and devices) counts in ``TP_RECOMPUTE``
-instead.  ``zero_tp_calls`` resets both.  ``shard`` is the identity
-without a context or on a plain tensor, and redistributes a DTensor.  The
-reference's ``compat_shard_map`` papers over jax versions' ``shard_map``
-signatures; it has no counterpart here.
+and ``kv_grad_sum`` count their backward's all-reduces, ``split_seq`` its
+backward's all-gathers, ``norm_sum`` both), once for each forward and each
+backward; a forward rerun inside the backward (remat's recompute, which
+``torch.utils.checkpoint`` stops once the tensors the backward needs are
+rebuilt, at a point that differs between torch builds and devices) counts
+in ``TP_RECOMPUTE`` instead.  ``zero_tp_calls`` resets both.  ``shard`` is
+the identity without a context or on a plain tensor, and redistributes a
+DTensor.  The reference's ``compat_shard_map`` papers over jax versions'
+``shard_map`` signatures; it has no counterpart here.
 """
 from __future__ import annotations
 
@@ -254,7 +266,8 @@ def residual_spec(x) -> tuple:
 
 # ------------------------------------------ collectives over "model" --
 TP_CALLS = {"copy_to_tp": 0, "reduce_from_tp": 0, "split_seq": 0,
-            "gather_seq": 0, "all_to_all": 0}
+            "gather_seq": 0, "all_to_all": 0, "kv_grad_sum": 0,
+            "norm_sum": 0, "decode_max": 0, "decode_sum": 0}
 TP_RECOMPUTE = dict(TP_CALLS)
 
 
@@ -307,16 +320,16 @@ def _slice(x: torch.Tensor, dim: int, tp: TPGroup) -> torch.Tensor:
 
 class _CopyToTP(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, tp):
-        ctx.tp = tp
+    def forward(ctx, x, tp, kind):
+        ctx.tp, ctx.kind = tp, kind
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        _count("copy_to_tp", False)
+        _count(ctx.kind, False)
         dist.all_reduce(g, group=ctx.tp.group)
-        return g, None
+        return g, None, None
 
 
 class _ReduceFromTP(torch.autograd.Function):
@@ -330,6 +343,38 @@ class _ReduceFromTP(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _NormSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        y = x.contiguous().clone()
+        _count("norm_sum", True)
+        dist.all_reduce(y, group=tp.group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        _count("norm_sum", False)
+        dist.all_reduce(g, group=ctx.tp.group)
+        return g, None
+
+
+class _DecodeMerge(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, kind):
+        y = x.contiguous().clone()
+        _count(kind, True)
+        op = dist.ReduceOp.MAX if kind == "decode_max" else dist.ReduceOp.SUM
+        dist.all_reduce(y, op=op, group=tp.group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        raise RuntimeError("the sequence-parallel decode's merge serves; "
+                           "it is not differentiated")
 
 
 class _SplitSeq(torch.autograd.Function):
@@ -401,7 +446,34 @@ class _ScaleGrad(torch.autograd.Function):
 
 def copy_to_tp(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
     """Identity forward; the gradient all-reduced over the model group."""
-    return _CopyToTP.apply(x, tp)
+    return _CopyToTP.apply(x, tp, "copy_to_tp")
+
+
+def kv_grad_sum(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
+    """``copy_to_tp`` for the sequence-sharded attention's whole K and V:
+    identity forward; the ranks' partial dK/dV sums all-reduced backward
+    (counted apart, as ``kv_grad_sum``)."""
+    return _CopyToTP.apply(x, tp, "kv_grad_sum")
+
+
+def norm_sum(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
+    """All-reduce (sum) over the model group forward and backward: a sum
+    every rank then uses for its own part of a tensor (the SSD norm's sum
+    of squares over its heads' features), so that the gradient of each
+    rank's addend is the sum of every rank's use."""
+    return _NormSum.apply(x, tp)
+
+
+def decode_max(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
+    """All-reduce MAX over the model group (the decode merge's row
+    maxima); serving only."""
+    return _DecodeMerge.apply(x, tp, "decode_max")
+
+
+def decode_sum(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
+    """All-reduce SUM over the model group (the decode merge's softmax
+    sums and P·V partials); serving only."""
+    return _DecodeMerge.apply(x, tp, "decode_sum")
 
 
 def reduce_from_tp(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:

@@ -29,14 +29,16 @@ own rows, as the reference shards the batch over ("pod", "data"):
   the FSDP2 alternative, ``fully_shard``, is not used) into a model of
   plain tensors, each rank keeping its "model" shard as the layers want it
   (``working_specs``), and the forward runs under ``mesh_context(ctx)``,
-  so the attention, SwiGLU, latent-attention and expert layers run
-  tensor- and expert-parallel over "model" (``models.layers``,
-  ``models.mla``, ``models.moe``) at every model-axis size, 1 included,
-  while the flash, SSD and RMS-norm Functions and the kernels see plain
-  local tensors, never DTensors.  Each working shard's gradient is whole
-  for that shard (the layers' collectives sum what the model ranks share,
-  such as the router's); it is all-reduced over the batch axes and laid
-  back out as the parameter's shard for AdamW;
+  so the attention, SwiGLU, latent-attention, expert and SSD layers run
+  tensor-, expert- and sequence-parallel over "model" (``models.layers``,
+  ``models.mla``, ``models.moe``, ``models.ssd``) at every model-axis
+  size, 1 included, while the flash, SSD and RMS-norm Functions and the
+  kernels see plain local tensors, never DTensors.  Each working shard's
+  gradient is whole for that shard (the layers' collectives sum what the
+  model ranks share, such as the router's and the SSD's B/C columns');
+  it is all-reduced over the batch axes and laid back out as the
+  parameter's shard for AdamW (an SSD leaf's regrouped columns through
+  the whole gradient, ``_ungroup``);
 * ``grad_compress=True`` on a mesh with a "pod" axis: the reference's
   compressed step (``:140-184``).  Gradients are averaged within the pod
   at full precision; then per leaf ``target = g + e``, ``q, scale =
@@ -66,9 +68,12 @@ from torch.profiler import record_function
 
 from ..kernels.build import PlanError
 from ..models.convert import reference_path
+from ..models.layers import heads_split
+from ..models.ssd import head_columns
 from ..models.transformer import (FRONTEND_INPUTS, ArchConfig, Model,
                                   loss_fn, param_specs)
-from ..sharding import MeshContext, local, mesh_context, sharding, tree_map
+from ..sharding import (MeshContext, local, mesh_context, sharding,
+                        tree_map, whole)
 from .optimizer import AdamW, AdamWState
 
 
@@ -184,32 +189,82 @@ def _drop_fsdp(spec: tuple) -> tuple:
     return tuple(fix(e) for e in spec)
 
 
+REGROUPED = "ssd_heads"      # a working leaf no spec describes
+
+
 @functools.lru_cache(maxsize=None)
-def working_specs(cfg: ArchConfig) -> dict:
-    """The layout of each leaf in the forward's working copy, by parameter
-    name: ``_drop_fsdp`` of its ``param_specs`` entry (gathered over
-    "data", each rank keeping its "model" shard, as the reference's
-    ``cast_and_gather_params``), but
+def working_specs(cfg: ArchConfig, m: int) -> dict:
+    """The layout of each leaf in the forward's working copy on a model
+    axis of ``m``, by parameter name: ``_drop_fsdp`` of its
+    ``param_specs`` entry (gathered over "data", each rank keeping its
+    "model" shard, as the reference's ``cast_and_gather_params``), but
       * the embedding and the LM head whole: gathered over "model" once a
         step (the reference's logits are vocab-sharded);
       * latent attention's ``wkv_a`` whole and ``wkv_b``'s columns (its
         heads) over "model" (``models.mla``'s docstring);
+      * an attention whose heads do not divide ``m`` (above 1) whole: its
+        ``wq``/``wk``/``wv``/``wo`` (and ``wkv_b``), for the
+        sequence-sharded or replicated attention (``models.layers``);
+      * an SSD layer's ``in_proj.w``, ``conv_w`` and ``conv_b``
+        ``REGROUPED`` (each rank its heads' columns and the whole B and C,
+        ``models.ssd.head_columns``), and its ``A_log``, ``D``,
+        ``dt_bias`` and ``norm`` split by heads;
       * a column-parallel product's bias over "model" with its columns
         (the reference stores it replicated).
-    Made once a config (the step reads it every step); not to be
+    Made once a config and axis (the step reads it every step); not to be
     changed."""
     specs = param_specs(cfg)
+    heads = cfg.mla.n_heads if cfg.attn_type == "mla" else cfg.n_kv
+    whole_attn = not heads_split(heads, m)
     out = {}
     for name, spec in specs.items():
-        leaf = name.rpartition(".")[2]
-        if name in ("embed", "lm_head") or name.endswith(".wkv_a.w"):
+        parts = name.split(".")
+        leaf = parts[-1]
+        attn = ("attn" in parts or "xattn" in parts) and parts[-2] in (
+            "wq", "wk", "wv", "wo", "wkv_b")
+        if name in ("embed", "lm_head") or name.endswith(".wkv_a.w") or (
+                attn and whole_attn):
             out[name] = (None,) * len(spec)
         elif name.endswith(".wkv_b.w"):
             out[name] = (None, "model")
+        elif "ssd" in parts and leaf in ("w", "conv_w", "conv_b") and (
+                parts[-2] == "in_proj" or leaf != "w"):
+            out[name] = REGROUPED
+        elif "ssd" in parts and leaf in ("A_log", "D", "dt_bias", "norm"):
+            out[name] = ("model",)
         elif leaf == "b" and specs.get(name[:-1] + "w", ())[-1:] == ("model",):
             out[name] = ("model",)
         else:
             out[name] = _drop_fsdp(spec)
+    return out
+
+
+def _regroup(whole: torch.Tensor, cfg: ArchConfig, ctx: MeshContext,
+             name: str) -> torch.Tensor:
+    """This rank's working columns of a ``REGROUPED`` leaf held whole."""
+    m = ctx.tp_size
+    if m == 1:                          # one rank's columns are the leaf's
+        return whole
+    cols = head_columns(cfg.ssd, m, ctx.mesh.get_local_rank(ctx.tp),
+                        "in_proj" if name.endswith("in_proj.w") else "conv")
+    return whole.index_select(-1, cols.to(whole.device))
+
+
+def _ungroup(g: torch.Tensor, cfg: ArchConfig, ctx: MeshContext,
+             name: str) -> torch.Tensor:
+    """The whole gradient of a ``REGROUPED`` leaf from each rank's working
+    columns' (all-gathered over "model"; the B and C columns, whose
+    gradient ``copy_to_tp`` summed, are equal on every rank)."""
+    m = ctx.tp_size
+    if m == 1:
+        return g
+    parts = [torch.empty_like(g) for _ in range(m)]
+    dist.all_gather(parts, g.contiguous(), group=ctx.group(ctx.tp))
+    leaf = "in_proj" if name.endswith("in_proj.w") else "conv"
+    n = cfg.ssd.d_in_proj if leaf == "in_proj" else cfg.ssd.conv_dim
+    out = g.new_empty((*g.shape[:-1], n))
+    for r, part in enumerate(parts):
+        out[..., head_columns(cfg.ssd, m, r, leaf).to(g.device)] = part
     return out
 
 
@@ -224,14 +279,18 @@ def cast_and_gather_params(params: Model, cfg: ArchConfig,
     the port's forward casts at each use, as its one-device step does, so
     the copy stays float32."""
     work = Model(cfg, None, torch.device("meta"))
-    specs = working_specs(cfg)
+    specs = working_specs(cfg, ctx.tp_size)
     for name, p in params.named_parameters():
         if _is_dtensor(p):
-            want = sharding(specs[name], ctx.mesh).placements
-            # a dim of one rank holds the whole leaf either way
-            same = all(a == b or n == 1 for a, b, n in
-                       zip(p.placements, want, ctx.mesh.shape))
-            p = (p if same else p.redistribute(ctx.mesh, want)).to_local()
+            if specs[name] == REGROUPED:
+                p = _regroup(whole(p), cfg, ctx, name)
+            else:
+                want = sharding(specs[name], ctx.mesh).placements
+                # a dim of one rank holds the whole leaf either way
+                same = all(a == b or n == 1 for a, b, n in
+                           zip(p.placements, want, ctx.mesh.shape))
+                p = (p if same else p.redistribute(ctx.mesh, want)
+                     ).to_local()
         owner, _, leaf = name.rpartition(".")
         work.get_submodule(owner)._parameters[leaf] = nn.Parameter(
             p.detach(), requires_grad=True)
@@ -306,16 +365,22 @@ def _all_reduce(t: torch.Tensor, ctx: MeshContext, axes, op=None):
     return t
 
 
-def _shard_of(g: torch.Tensor, p, spec: tuple) -> torch.Tensor:
+def _shard_of(g: torch.Tensor, p, spec, cfg: ArchConfig, ctx: MeshContext,
+              name: str) -> torch.Tensor:
     """A rank's shard, laid out as ``p``, of the gradient ``g`` of its
     working shard (laid out by ``spec`` over "model", whole over the batch
-    axes): a local slice, or an all-to-all where both shard "model"
-    (latent attention's ``wkv_b``)."""
-    from torch.distributed.tensor import DTensor
+    axes): a local slice, an all-to-all where both shard "model" (latent
+    attention's ``wkv_b``), or for a ``REGROUPED`` leaf the whole gradient
+    (``_ungroup``) sliced."""
+    from torch.distributed.tensor import DTensor, Replicate
     if not isinstance(p, DTensor):
         return g
     mesh = p.device_mesh
-    have = sharding(spec, mesh).placements
+    if spec == REGROUPED:
+        g = _ungroup(g, cfg, ctx, name)
+        have = (Replicate(),) * mesh.ndim
+    else:
+        have = sharding(spec, mesh).placements
     if all(a == b or n == 1 for a, b, n in zip(have, p.placements,
                                                  mesh.shape)):
         return g
@@ -375,7 +440,7 @@ def make_train_step(cfg: ArchConfig, opt: Optional[AdamW] = None,
     # microbatch over all the batch axes
     outer = (ctx.rank_along(("pod",)), npods) if compressed else (0, 1)
 
-    work_specs = working_specs(cfg)
+    work_specs = working_specs(cfg, ctx.tp_size)
 
     def grads_on_rows(params, batch):
         named = _trainable(params)
@@ -410,8 +475,8 @@ def make_train_step(cfg: ArchConfig, opt: Optional[AdamW] = None,
         def train_step_dp(params: Model, opt_state: AdamWState, batch: dict):
             named, loss, grads = grads_on_rows(params, batch)
             specs = _specs_of(named, ctx)
-            shards = {k: _shard_of(grads.pop(k), p, work_specs[k])
-                      for k, p in named.items()}
+            shards = {k: _shard_of(grads.pop(k), p, work_specs[k], cfg,
+                                   ctx, k) for k, p in named.items()}
             gnorm, state = update(named, opt_state, shards, specs)
             metrics = {"loss": loss, "grad_norm": gnorm.float(),
                        "step": state.step}
@@ -429,8 +494,8 @@ def make_train_step(cfg: ArchConfig, opt: Optional[AdamW] = None,
         with torch.no_grad(), record_function("train.compress"):
             _all_reduce(loss, ctx, ("pod",))
             loss.div_(npods)                              # pod mean
-            grads = {k: _shard_of(grads.pop(k), p, work_specs[k])
-                     for k, p in named.items()}
+            grads = {k: _shard_of(grads.pop(k), p, work_specs[k], cfg,
+                                  ctx, k) for k, p in named.items()}
             # the pod's row: a DTensor's shard holds only its own
             res = {k: local(e)[0] if _is_dtensor(e) else e[pod]
                    for k, e in ef.items()}

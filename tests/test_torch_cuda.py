@@ -17,6 +17,7 @@ on a machine with a GPU and no jax:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Every test needs the card and skips without one."""
+import json
 import sys
 from pathlib import Path
 
@@ -985,6 +986,61 @@ def test_cuda_nccl_tensor_expert_parallel_step_matches_cpu_gloo(
     for k, v in got.items():
         assert _rel(torch.from_numpy(v), torch.from_numpy(want["p/" + k])) \
             <= 2 ** 0.5 * bound, k
+
+
+def test_cuda_nccl_mesh_serve_matches_cpu_gloo(cuda_device, tmp_path):
+    """Zamba2's SMOKE config (SSD layers and the shared attention block)
+    served on a one-rank NCCL (data, model) = (1, 1) mesh in float32:
+    ``make_prefill_step`` on 4 × 64 prompts, then 4 ``make_serve_step``
+    decodes from a seeded cache laid out by ``cache_specs``, against the
+    same serve on a one-rank gloo mesh on the CPU (a spawned process,
+    ``tests/torch_ranks.py``'s ``serve`` case) from the same weights,
+    prompts and cache: the logits within 1e-3 relative L2 (the float32
+    kernels against their plain versions, ``FLASH_TOL``/``SSD_TOL``), the
+    greedy tokens equal, the flash and SSD kernels launched and the
+    model group's collectives run."""
+    import torch.distributed as dist
+    import torch_ranks as R
+    from repro_torch.models import to_reference
+    from repro_torch.models.transformer import init_cache_abstract
+    arch = "zamba2_2_7b"
+    cfg = R.port_cfg(arch)
+    tree = to_reference(init_params(cfg, torch.Generator().manual_seed(0),
+                                    "cpu"))
+    rng = np.random.default_rng(5)
+    arrays = {"w/" + k: v for k, v in R.flat(tree).items()}
+    arrays["prompt"] = rng.integers(0, cfg.vocab, (4, 64)).astype(np.int32)
+    for name, leaf in init_cache_abstract(cfg, 4, 16).items():
+        arrays["cache/" + name] = (np.asarray(5, np.int32) if name == "len"
+                                   else (0.5 * rng.standard_normal(
+                                       tuple(leaf.shape))).astype(np.float32))
+    np.savez(tmp_path / "in.npz", **arrays)
+    spec = dict(arch=arch, inputs=str(tmp_path / "in.npz"), mesh=(1, 1),
+                steps=4, max_len=16)
+    R.spawn(R.run_cases, 1, tmp_path, [("serve", spec,
+                                        str(tmp_path / "cpu"))])
+    want = dict(np.load(tmp_path / "cpu.rank0.npz"))
+    assert not dist.is_initialized()
+    launched = {"flash": fa.LAUNCHES, "ssd": ss.LAUNCHES}
+    try:        # the case's make_mesh starts a one-rank NCCL group
+        R.run_cases(0, 1, [("serve", dict(spec, device="cuda"),
+                            str(tmp_path / "gpu"))])
+        assert dist.get_backend() == "nccl"
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    launched = {"flash": fa.LAUNCHES - launched["flash"],
+                "ssd": ss.LAUNCHES - launched["ssd"]}
+    got = dict(np.load(tmp_path / "gpu.rank0.npz"))
+    seen = json.loads((tmp_path / "gpu.rank0.json").read_text())
+    for k in ["prefill"] + [f"logits{i}" for i in range(4)]:
+        assert _rel(torch.from_numpy(got[k]), torch.from_numpy(want[k])) \
+            <= 1e-3, k
+    np.testing.assert_array_equal(got["tokens"], want["tokens"])
+    np.testing.assert_array_equal(got["greedy"], want["tokens"])
+    assert launched["flash"] > 0 and launched["ssd"] > 0
+    assert seen["calls"]["decode"]["decode_max"] > 0
+    assert seen["calls"]["prefill"]["norm_sum"] == cfg.n_layers
 
 
 def _durable_workload(seed):

@@ -18,11 +18,20 @@ The model axis's cases (``tests/test_torch_tensor_parallel.py`` and
 model) puts ranks on "model"; ``collectives`` holds the differentiable
 collectives and a SwiGLU and MoE block at tp m against the one-device
 computation; ``exchange`` runs the port's ``_dispatch_combine`` on a
-model axis; ``refusals`` records the ``PlanError``s of what the model axis
-does not run yet; ``tp_restore`` restores and saves checkpoints across
+model axis; ``refusals`` records whether a step runs or raises
+``PlanError``; ``tp_restore`` restores and saves checkpoints across
 (data, model) meshes; ``tp_calls`` counts the model group's collectives
-a step; ``remat_thread`` differentiates a remat'd block on another thread.  The reference's "exchange" case runs its
-``_dispatch_combine`` in ``shard_map`` over "model".
+a step; ``remat_thread`` differentiates a remat'd block on another thread.
+The reference's "exchange" case runs its ``_dispatch_combine`` in
+``shard_map`` over "model".
+
+The model axis's second half (``tests/test_torch_seq_parallel.py``,
+``tests/test_torch_ssd_parallel.py``, ``tests/test_torch_mesh_serve.py``):
+``seq_attention`` holds the sequence-sharded attention and the decode
+merge at tp m against the whole computation, ``ssd_layer`` an SSD layer's
+heads split over "model" against the one-device layer, ``serve`` the
+prefill and decode steps on a (data, model) mesh; the reference's
+"serve" kind serves the same on its mesh.
 """
 from __future__ import annotations
 
@@ -118,11 +127,16 @@ def flat(tree, prefix=()) -> dict:
 
 def load_inputs(path):
     """(weights, batches) from the test's ``.npz``: ``w/<path>`` leaves and
-    ``tokens<i>``/``labels<i>`` batches."""
+    ``tokens<i>``/``labels<i>`` batches (with ``patch_embeds<i>`` where the
+    file has them)."""
     z = np.load(path)
     weights = nest({k[2:]: z[k] for k in z.files if k.startswith("w/")})
-    batches = [{"tokens": z[f"tokens{i}"], "labels": z[f"labels{i}"]}
-               for i in range(sum(k.startswith("tokens") for k in z.files))]
+    batches = []
+    for i in range(sum(k.startswith("tokens") for k in z.files)):
+        b = {"tokens": z[f"tokens{i}"], "labels": z[f"labels{i}"]}
+        if f"patch_embeds{i}" in z.files:
+            b["patch_embeds"] = z[f"patch_embeds{i}"]
+        batches.append(b)
     return weights, batches
 
 
@@ -338,7 +352,7 @@ def _launcher_case(rank, world, spec, out):
 
 def _rel_err(got, want) -> float:
     import torch
-    got, want = got.double(), want.double()
+    got, want = got.detach().double(), want.detach().double()
     return float((got - want).norm() / want.norm().clamp_min(1e-30))
 
 
@@ -702,6 +716,233 @@ def _remat_thread_case(rank, world, spec, out):
             json.dump(errs, fh)
 
 
+def _seq_attention_case(rank, world, spec, out):
+    """The sequence-sharded attention on (data, model) = (1, world), float32,
+    against the whole computation of the same seeded inputs (every rank
+    draws them all): ``layers._sdpa`` with kv heads that do not divide the
+    axis (so it takes ``_sdpa_seq_sharded``), its forward and the q, k and
+    v gradients through a weighted loss, causal and not; and the decode
+    merge (``merged_decode`` on this rank's slice of a cache) against the
+    whole materialised decode.  Rank 0 writes each check's relative L2
+    error and the model group's collectives."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers as L
+    from repro_torch.sharding import (TP_CALLS, mesh_context, zero_tp_calls)
+    ctx, tp = _tp_ctx(world)
+    g = torch.Generator().manual_seed(spec["seed"])
+    b, s, h, hkv, dh = 2, 8 * world, 6, 3, 16
+    errs = {}
+    for causal in (True, False):
+        q, k, v, w = (torch.randn(b, s, n, dh, generator=g)
+                      for n in (h, hkv, hkv, h))
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        want = L._sdpa_core(*leaves, causal, 0)
+        want_g = torch.autograd.grad((want * w).sum(), leaves)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        zero_tp_calls()
+        with mesh_context(ctx):
+            taken = L.seq_sharded(s, s, hkv)
+            got = L._sdpa(*leaves, causal, hkv)
+        got_g = torch.autograd.grad((got * w).sum(), leaves)
+        tag = "causal" if causal else "full"
+        errs[f"{tag}_fwd"] = _rel_err(got, want)
+        for name, a, c in zip("qkv", got_g, want_g):
+            errs[f"{tag}_d{name}"] = _rel_err(a, c)
+        errs[f"{tag}_taken"] = float(not taken)
+        errs[f"{tag}_calls"] = dict(TP_CALLS)
+    # the decode merge: one query at position ``pos`` against a cache of
+    # ``n`` positions, this rank's slice of them
+    n, pos = 4 * world, 4 * world - 3
+    q = torch.randn(b, 1, h, dh, generator=g)
+    ck, cv = (torch.randn(b, n, hkv, dh, generator=g) for _ in range(2))
+    want = ref.mha_ref(q, ck, cv, True, pos)
+    part = n // world
+    with mesh_context(ctx):
+        got = L.merged_decode(q, ck[:, rank * part:(rank + 1) * part],
+                              cv[:, rank * part:(rank + 1) * part], pos,
+                              rank * part, True, tp)
+    errs["decode_fwd"] = _rel_err(got, want)
+    if rank == 0:
+        with open(out + ".json", "w") as fh:
+            json.dump(errs, fh)
+
+
+def _ssd_layer_case(rank, world, spec, out):
+    """An SSD layer (``spec["arch"]``'s SMOKE geometry, float32) on (data,
+    model) = (1, world), each rank its heads' working columns
+    (``models.ssd.head_columns``) and slices, against the whole layer on
+    one device: the forward, dx and every leaf's gradient (the whole
+    gradient's columns for the regrouped leaves, B and C whole on every
+    rank), then one decode step from seeded states (y, this rank's heads
+    of ``h``, the whole conv state).  Rank 0 writes each check's relative
+    L2 error."""
+    import torch
+    from repro_torch.models import ssd as SSD
+    from repro_torch.sharding import mesh_context
+    ctx, tp = _tp_ctx(world)
+    cfg = port_cfg(spec["arch"]).ssd
+    g = torch.Generator().manual_seed(spec["seed"])
+    errs = {}
+    with _f32(True):
+        whole = SSD.SSD(cfg, g, "cpu").requires_grad_(True)
+        for name in ("A_log", "dt_bias", "conv_b", "norm"):
+            whole.get_parameter(name).data.normal_(0.0, 0.3, generator=g)
+        heads, di = cfg.n_heads // world, cfg.d_inner // world
+        cols = {"in_proj.w": SSD.head_columns(cfg, world, rank, "in_proj"),
+                "conv_w": SSD.head_columns(cfg, world, rank, "conv"),
+                "conv_b": SSD.head_columns(cfg, world, rank, "conv")}
+        sl = {"A_log": slice(rank * heads, (rank + 1) * heads),
+              "D": slice(rank * heads, (rank + 1) * heads),
+              "dt_bias": slice(rank * heads, (rank + 1) * heads),
+              "norm": slice(rank * di, (rank + 1) * di)}
+
+        def mine(name, t):
+            if name in cols:
+                return t.index_select(-1, cols[name])
+            if name in sl:
+                return t[sl[name]]
+            if name == "out_proj.w":
+                return t[rank * di:(rank + 1) * di]
+            return t
+
+        part = SSD.SSD(cfg, None, "cpu")
+        for name, prm in whole.named_parameters():
+            owner, _, leaf = name.rpartition(".")
+            mod = part.get_submodule(owner) if owner else part
+            mod._parameters[leaf] = torch.nn.Parameter(
+                mine(name, prm.detach()).clone(), requires_grad=True)
+        x = torch.randn(2, 2 * cfg.chunk, cfg.d_model, generator=g)
+        dy = torch.randn(2, 2 * cfg.chunk, cfg.d_model, generator=g)
+        xs = x.clone().requires_grad_(True)
+        y1, h1 = SSD.ssd_forward(whole, xs, cfg)
+        names = [n for n, _ in whole.named_parameters()]
+        g1 = torch.autograd.grad((y1 * dy).sum(), [xs, *whole.parameters()])
+        xt = x.clone().requires_grad_(True)
+        with mesh_context(ctx):
+            ym, hm = SSD.ssd_forward(part, xt, cfg)
+        gm = torch.autograd.grad((ym * dy).sum(), [xt, *part.parameters()])
+        errs["fwd"] = _rel_err(ym, y1)
+        errs["state"] = _rel_err(hm, h1[:, rank * heads:(rank + 1) * heads])
+        errs["dx"] = _rel_err(gm[0], g1[0])
+        for i, n in enumerate(names):
+            errs[f"d{n}"] = _rel_err(gm[i + 1], mine(n, g1[i + 1]))
+        # one decode step from seeded states
+        st = {"h": torch.randn(2, cfg.n_heads, cfg.headdim, cfg.d_state,
+                               generator=g) * 0.5,
+              "conv": torch.randn(2, cfg.conv_width - 1, cfg.conv_dim,
+                                  generator=g) * 0.5}
+        x1 = torch.randn(2, 1, cfg.d_model, generator=g)
+        with torch.no_grad():
+            yd, sd = SSD.ssd_decode_step(whole, x1, cfg, st)
+            with mesh_context(ctx):
+                ydm, sdm = SSD.ssd_decode_step(part, x1, cfg, {
+                    "h": st["h"][:, rank * heads:(rank + 1) * heads],
+                    "conv": st["conv"]})
+        errs["decode_y"] = _rel_err(ydm, yd)
+        mine_h = sd["h"][:, rank * heads:(rank + 1) * heads]
+        errs["decode_h"] = _rel_err(sdm["h"], mine_h)
+        errs["decode_conv"] = _rel_err(sdm["conv"], sd["conv"])
+    if rank == 0:
+        with open(out + ".json", "w") as fh:
+            json.dump(errs, fh)
+
+
+def _all_rows(t, ctx):
+    """The global batch from each (pod, data) line's rows (an all-gather
+    over the batch axes, in rank order)."""
+    import torch
+    import torch.distributed as dist
+    for a in reversed(ctx.dp):
+        if a in ctx.mesh.mesh_dim_names and ctx.size(a) > 1:
+            parts = [torch.empty_like(t) for _ in range(ctx.size(a))]
+            dist.all_gather(parts, t.contiguous(), group=ctx.group(a))
+            t = torch.cat(parts)
+    return t
+
+
+def _serve_case(rank, world, spec, out):
+    """Serving on (data, model) = ``spec["mesh"]``: the parameters laid out
+    by ``param_specs``, ``make_prefill_step`` on the global prompts, then
+    ``spec["steps"]`` ``make_serve_step`` decodes from the test's seeded
+    cache (``shard_cache``), each step's tokens the argmax of the last
+    (gathered over the batch axes), and ``greedy_decode`` from the same
+    cache.  Every rank writes its rows' prefill logits, each step's
+    logits, its cache after the last step and its local shapes."""
+    import torch
+    from repro_torch.kernels.build import PlanError
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import from_reference
+    from repro_torch.models.transformer import (cache_specs, init_cache,
+                                                param_specs, shard_cache)
+    from repro_torch.serve.serve_step import (greedy_decode,
+                                              make_prefill_step,
+                                              make_serve_step)
+    from repro_torch.sharding import (TP_CALLS, distribute, make_ctx,
+                                      zero_tp_calls)
+    cfg = port_cfg(spec["arch"])
+    z = np.load(spec["inputs"])
+    weights = nest({k[2:]: z[k] for k in z.files if k.startswith("w/")})
+    dev = spec.get("device", "cpu")
+    mesh = make_mesh(tuple(spec["mesh"]), ("data", "model"), dev)
+    ctx = make_ctx(mesh)
+    with _f32(True):
+        dtype = torch.float32
+        model = from_reference(cfg, weights, device=dev)
+        distribute(model, param_specs(cfg), mesh)
+        prompt = torch.from_numpy(z["prompt"])
+        whole = {k[6:]: (int(z[k]) if k == "cache/len" else
+                         torch.from_numpy(z[k]).to(dev, dtype))
+                 for k in z.files if k.startswith("cache/")}
+        inputs = {k: torch.from_numpy(z[k]) for k in
+                  ("tokens", "enc_embeds", "patch_embeds") if k in z.files}
+        inputs["tokens"] = prompt
+        zero_tp_calls()
+        pre = make_prefill_step(cfg, ctx, device=dev)(model, inputs)
+        calls = {"prefill": dict(TP_CALLS)}
+        step = make_serve_step(cfg, ctx, device=dev)
+        cache = shard_cache(whole, cfg, ctx)
+        shapes = {k: list(t.shape) for k, t in cache.items() if k != "len"}
+        b, max_len = prompt.shape[0], spec["max_len"]
+        fresh = {k: list(t.shape) for k, t in init_cache(
+            cfg, b, max_len, device=dev, ctx=ctx).items() if k != "len"}
+        try:
+            init_cache(cfg, b, max_len + 2, device=dev, ctx=ctx)
+            uneven = "ran"
+        except PlanError as exc:
+            uneven = "PlanError: " + str(exc)
+        tok = prompt[:, -1:].to(dev)
+        logits, toks, convs = [], [], []
+        zero_tp_calls()
+        for _ in range(spec["steps"]):
+            lg, cache = step(model, {"tokens": tok, "cache": cache})
+            logits.append(lg.cpu().numpy())
+            mine = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
+            toks.append(mine.cpu().numpy())
+            if "conv" in cache:
+                convs.append(cache["conv"].cpu().numpy())
+            tok = _all_rows(mine, ctx)
+        calls["decode"] = dict(TP_CALLS)
+        greedy, _ = greedy_decode(model, cfg, ctx, prompt, spec["steps"],
+                                  shard_cache(whole, cfg, ctx), device=dev)
+    arrays = {"prefill": pre.cpu().numpy(), "greedy": greedy.cpu().numpy(),
+              "tokens": np.concatenate(toks, axis=1),
+              **{f"logits{i}": a for i, a in enumerate(logits)},
+              **{f"conv{i}": a for i, a in enumerate(convs)},
+              **{"cache/" + k: t.cpu().numpy() for k, t in cache.items()
+                 if k != "len"}}
+    np.savez(f"{out}.rank{rank}.npz", **arrays)
+    with open(f"{out}.rank{rank}.json", "w") as fh:
+        json.dump({"shapes": shapes, "fresh": fresh, "uneven": uneven,
+                   "len": int(cache.get("len", -1)),
+                   "dp_rank": ctx.dp_rank, "tp_rank":
+                   mesh.get_local_rank("model"), "calls": calls,
+                   "specs": {k: [list(e) if isinstance(e, tuple) else e
+                                 for e in v]
+                             for k, v in cache_specs(cfg, prompt.shape[0])
+                             .items()}}, fh)
+
+
 def run_cases(rank, world, cases):
     """Each ``(kind, spec, out)`` of ``cases`` in order on this group."""
     for kind, spec, out in cases:
@@ -709,7 +950,9 @@ def run_cases(rank, world, cases):
          "launcher": _launcher_case, "collectives": _collectives_case,
          "exchange": _exchange_case, "refusals": _refusals_case,
          "tp_restore": _tp_restore_case, "tp_calls": _tp_calls_case,
-         "remat_thread": _remat_thread_case}[kind](rank, world, spec, out)
+         "remat_thread": _remat_thread_case,
+         "seq_attention": _seq_attention_case, "ssd_layer": _ssd_layer_case,
+         "serve": _serve_case}[kind](rank, world, spec, out)
 
 
 # ---------------------------------------------------------- reference ----
@@ -771,6 +1014,9 @@ def reference_main(cases_path: str, out_path: str) -> None:
             fn = jax.jit(lambda p, b, cfg=cfg: accumulate_grads(p, b, cfg))
             jobs[name] = (fn.lower(*args[0]), args, None)
             continue
+        if spec.get("kind") == "serve":
+            jobs[name] = (None, (cfg, spec), "serve")
+            continue
         if spec.get("kind") == "exchange":
             z = np.load(spec["inputs"])
             mcfg = RM.MoEConfig(**spec["moe"])
@@ -811,12 +1057,24 @@ def reference_main(cases_path: str, out_path: str) -> None:
               for b in batches[:spec["steps"]]]
         fn = jax.jit(make_train_step(cfg, make_ctx(mesh), opt))
         jobs[name] = (fn.lower(params, state, bs[0]), (params, state), bs)
+    def prepare(job):
+        lowered, args, kind = job
+        if kind == "serve":                 # compiles and runs here
+            return _reference_serve(*args)
+        return lowered.compile()
+
+    if any(kind == "serve" for _, _, kind in jobs.values()):
+        assert all(spec["f32"] for spec in cases.values()
+                   if spec.get("kind") == "serve")
+        RL.COMPUTE_DTYPE = jnp.float32  # the serve cases trace in the pool
     with ThreadPoolExecutor(len(jobs)) as pool:
-        compiled = dict(zip(jobs, pool.map(lambda j: j[0].compile(),
-                                           jobs.values())))
+        compiled = dict(zip(jobs, pool.map(prepare, jobs.values())))
     out = {}
     for name, (_, args, bs) in jobs.items():
         step = compiled[name]
+        if bs == "serve":
+            out.update({f"{name}/{k}": v for k, v in step.items()})
+            continue
         if bs == "exchange":
             y, keep = step(*args)
             out[f"{name}/y"], out[f"{name}/keep"] = (np.asarray(y),
@@ -846,6 +1104,50 @@ def reference_main(cases_path: str, out_path: str) -> None:
             out[f"{name}/p/{k}"] = v
     np.savez(out_path, **out)
     print("REFERENCE_OK", jax.device_count())
+
+
+def _reference_serve(cfg, spec) -> dict:
+    """The reference's serving on (data, model) = (spec["data"],
+    spec["model"]): ``make_prefill_step`` on the prompts, then
+    ``spec["steps"]`` ``make_serve_step`` decodes from the test's cache laid
+    out by ``cache_specs``, each step's tokens the argmax of the last.
+    Returns the prefill's and each step's logits, the tokens and the cache
+    after the last step (whole)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.launch.mesh import _make_mesh
+    from repro.models.transformer import cache_specs, param_specs
+    from repro.serve.serve_step import make_prefill_step, make_serve_step
+    from repro.sharding import logical_to_sharding, make_ctx
+    z = np.load(spec["inputs"])
+    weights = nest({k[2:]: z[k] for k in z.files if k.startswith("w/")})
+    mesh = _make_mesh((spec["data"], spec["model"]), ("data", "model"))
+    ctx = make_ctx(mesh)
+    params = jax.device_put(jax.tree.map(jnp.asarray, weights),
+                            logical_to_sharding(param_specs(cfg), mesh))
+    prompt = jnp.asarray(z["prompt"])
+    cache = {k[6:]: (jnp.asarray(z[k], jnp.int32) if k == "cache/len"
+                     else jnp.asarray(z[k], jnp.float32))
+             for k in z.files if k.startswith("cache/")}
+    cache = jax.device_put(cache, logical_to_sharding(
+        cache_specs(cfg, prompt.shape[0]), mesh))
+    batch = {k: jnp.asarray(z[k]) for k in ("enc_embeds", "patch_embeds")
+             if k in z.files}
+    batch["tokens"] = prompt
+    out = {"prefill": np.asarray(jax.jit(make_prefill_step(cfg, ctx))(
+        params, batch))}
+    step = jax.jit(make_serve_step(cfg, ctx))
+    tok = prompt[:, -1:]
+    toks = []
+    for i in range(spec["steps"]):
+        logits, cache = step(params, {"tokens": tok, "cache": cache})
+        out[f"logits{i}"] = np.asarray(logits)
+        tok = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
+        toks.append(np.asarray(tok))
+    out["tokens"] = np.concatenate(toks, axis=1)
+    out.update({f"cache/{k}": np.asarray(v) for k, v in cache.items()
+                if k != "len"})
+    return out
 
 
 if __name__ == "__main__":
