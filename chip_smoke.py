@@ -201,11 +201,14 @@ Phases, each of which raises on failure:
     peak device memory beside the count's estimate, which the plain run
     (the same program, freed at the same points) must meet within
     ``PEAK_RTOL``; flash timed at InternLM2's training shape; then (a)
-    ``launch.dryrun.main`` over all 10 configs × 4 shapes on ``meta``, run
-    since the build in ``DRYRUN_WORKERS`` background processes at the
-    lowest priority and collected here: 32 ``ok`` and 8 ``skipped``
-    (``long_500k`` on the full-attention configs) or the phase fails; the
-    records in ``chiprun_out/dryrun/``, ``launch.report``'s tables in
+    ``launch.dryrun.main`` over all 10 configs × 4 shapes on ``meta`` on
+    each of the three meshes (one card, and rank 0 of the 256- and
+    512-rank production meshes under a fake group, its collectives
+    counted), run since the build in ``DRYRUN_WORKERS`` background
+    processes at the lowest priority and collected here: 96 ``ok`` and 24
+    ``skipped`` (``long_500k`` on the full-attention configs) or the phase
+    fails; the 120 records in ``chiprun_out/dryrun/``,
+    ``launch.report``'s tables (one a mesh) in
     ``chiprun_out/dryrun_report.md``;
 24. the mesh (after phase 19, before phase 23) — a one-rank NCCL group
     and a (pod, data, model) = (1, 1, 1) ``DeviceMesh`` through
@@ -276,19 +279,37 @@ Phases, each of which raises on failure:
     the CPU by gloo ranks (``tests/test_torch_seq_parallel.py``,
     ``tests/test_torch_ssd_parallel.py``,
     ``tests/test_torch_mesh_serve.py``).
+27. one production rank (after phase 26, before phase 23) — in a
+    subprocess (this process holds phases 24-26's NCCL group; a process
+    holds one): rank 0 of the 256-rank (data 16, model 16) mesh on a
+    group of the ``"fake"`` backend (``launch.mesh.counting_group``), the
+    first of ``RANK_STEP_CELLS`` whose counted peak (``launch.dryrun``)
+    is under ``RANK_PEAK_LIMIT``: Zamba2-2.7B ``train_4k`` at full width
+    and depth, B 16 × 4096 a rank in 4 microbatches, 2 of 32 attention
+    heads and 5 of 80 SSD heads.  Rank 0's shards of the parameters are
+    made on the card from a seeded generator per leaf and rank (no whole
+    model is made), and its step runs ``RANK_STEP_STEPS`` times after one
+    untimed step: ms a step against the count's bound for rank 0, max
+    (compute, memory on the kernel path) with the collectives free (a
+    fake group moves no bytes and leaves a gather's output unwritten, so
+    only memory and time are measured, never values), the peak device
+    memory against the count's estimate within ``PEAK_RTOL`` or the phase
+    fails, the flash and ``ssd_scan`` launches; then one launch of each at
+    its first call's shape on seeded inputs against its plain version
+    within ``FLASH_TOL`` and ``SSD_TOL``;
 
 Phases 3, 5, 6, 8, 11, 12, 14 (twice: from the tenants to the kill, and
 from the restore to the end), 15-17 and 21 (once a config), 18 (the
 uninterrupted and the interrupted run), 19 (its two steps), 20 (from
 the prompt store to the prefill), 24 (its three steps), 25 (its two
-TP/EP steps; the one-device steps have their own window) and 26 (the
-mesh serve: its prefill and decodes) each set every
+TP/EP steps; the one-device steps have their own window), 26 (the
+mesh serve: its prefill and decodes) and 27 (its timed steps) each set every
 kernel's launch count to 0 just before they drive their path and read the
 counts just after; launches made to compare or time a kernel fall outside
 those windows, and so do phase 23's.
 The kernels line's ``flash_attention`` launches are the sum over the
-model paths (phases 11, 15-18, 20, 21 and 24-26), ``ssd_scan``'s over
-phases 11, 19 and 26, and ``gather_row_tiles``'s over phases 5, 18 and 19.
+model paths (phases 11, 15-18, 20, 21 and 24-27), ``ssd_scan``'s over
+phases 11, 19, 26 and 27, and ``gather_row_tiles``'s over phases 5, 18 and 19.
 TF32 is off (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` False): the float32 plain versions
 compare in full float32.
@@ -4683,7 +4704,8 @@ def mesh_rank_parts(torch, model, cfg, seed: int) -> dict:
     return out
 
 
-DRYRUN_WORKERS = 2
+DRYRUN_WORKERS = 3
+DRYRUN_MESHES = ("host", "single", "multi")
 ROOFLINE_CELLS = (("zamba2_2_7b", "prefill", LONG_BATCH, LONG_SEQ),
                   ("olmoe_1b_7b", "prefill", SERVE_REQUESTS, SERVE_PROMPT),
                   ("internlm2_1_8b", "train", TRAIN_BATCH, TRAIN_SEQ))
@@ -4712,8 +4734,9 @@ def dryrun_worker_init() -> None:
 
 def start_dryrun_grid() -> tuple:
     """Phase 23 (a) started: ``launch.dryrun.main`` over every
-    (architecture, shape) cell on ``meta`` (the train cells first), one
-    call a cell in a pool of ``DRYRUN_WORKERS`` spawned processes; returns
+    (architecture, shape, mesh) cell on ``meta`` (the train cells first),
+    one call a cell in a pool of ``DRYRUN_WORKERS`` spawned processes (a
+    production cell starts and ends its fake group in its worker); returns
     (the pool, the pending results, the wall clock at the start)."""
     import multiprocessing
     import shutil
@@ -4724,7 +4747,8 @@ def start_dryrun_grid() -> tuple:
     cells = sorted(((a, s) for a in configs.ARCH_IDS for s in configs.SHAPES),
                    key=lambda c: (order[configs.SHAPES[c[1]]["kind"]]
                                   + (c[1] == "long_500k")))
-    argvs = [["--arch", a, "--shape", s, "--out", str(out)] for a, s in cells]
+    argvs = [["--arch", a, "--shape", s, "--mesh", m, "--out", str(out)]
+             for a, s in cells for m in DRYRUN_MESHES]
     pool = multiprocessing.get_context("spawn").Pool(
         DRYRUN_WORKERS, initializer=dryrun_worker_init)
     return pool, pool.map_async(dryrun_cell, argvs, chunksize=1), time.time()
@@ -4734,8 +4758,8 @@ def phase_dryrun_grid(grid: tuple, report: dict) -> None:
     """Phase 23 (a): the grid's records (under ``chiprun_out/dryrun/``)
     collected from ``start_dryrun_grid``'s pool, which is then closed, and
     ``launch.report.main``'s tables in ``chiprun_out/dryrun_report.md``.
-    Fails unless 32 cells are ok, 8 skipped (``long_500k`` on the eight
-    full-attention configs) and none is an error."""
+    Fails unless, on each mesh, 32 cells are ok, 8 skipped (``long_500k``
+    on the eight full-attention configs) and none is an error."""
     import io
     from repro_torch.launch import report as R
     pool, pending, t0 = grid
@@ -4750,34 +4774,43 @@ def phase_dryrun_grid(grid: tuple, report: dict) -> None:
     with contextlib.redirect_stdout(io.StringIO()):
         text = R.main([str(out)])
     (ROOT / "chiprun_out" / "dryrun_report.md").write_text(text + "\n")
-    records.sort(key=lambda r: (r["arch"], r["shape"]))
+    records.sort(key=lambda r: (r["arch"], r["shape"],
+                                DRYRUN_MESHES.index(r["mesh"])))
     status = {k: sum(r["status"] == k for r in records)
               for k in ("ok", "skipped", "error")}
     for r in records:
         if r["status"] != "ok":
-            print(f"dryrun {r['arch']:22s} {r['shape']:12s} {r['status']}"
-                  f" {r.get('error', r.get('reason', ''))[:100]}")
+            print(f"dryrun {r['arch']:22s} {r['shape']:12s} {r['mesh']:6s} "
+                  f"{r['status']} "
+                  f"{r.get('error', r.get('reason', ''))[:100]}")
             continue
         rf, m = r["roofline"], r["memory"]
-        print(f"dryrun {r['arch']:22s} {r['shape']:12s} {rf['dominant']:7s} "
-              f"compute {rf['compute_s']:.3e} s, memory (kernels) "
-              f"{rf['memory_s_flash']:.3e} s, peak "
+        print(f"dryrun {r['arch']:22s} {r['shape']:12s} {r['mesh']:6s} "
+              f"{rf['dominant']:10s} compute {rf['compute_s']:.3e} s, "
+              f"memory (kernels) {rf['memory_s_flash']:.3e} s, collective "
+              f"{rf['collective_s']:.3e} s, peak "
               f"{m['peak_estimate_bytes'] / 1e9:.1f} GB, fits 80 GB "
               f"{m['fits_card']} ({r['trace_s']} s traced)")
+    by_mesh = {mesh: {k: sum(r["status"] == k for r in records
+                             if r["mesh"] == mesh)
+                      for k in ("ok", "skipped", "error")}
+               for mesh in DRYRUN_MESHES}
     report["dryrun_grid"] = {
         "seconds": seconds, "waited_s": waited, "workers": DRYRUN_WORKERS,
-        "status": status,
-        "cells": {f"{r['arch']}/{r['shape']}": {
-            k: r[k] for k in ("status", "trace_s", "n_ops", "memory",
-                              "roofline", "model_flops", "cast_bytes")
+        "status": status, "by_mesh": by_mesh,
+        "cells": {f"{r['arch']}/{r['shape']}/{r['mesh']}": {
+            k: r[k] for k in ("status", "chips", "trace_s", "n_ops",
+                              "memory", "roofline", "collectives_by_axis",
+                              "model_flops", "cast_bytes")
             if k in r} for r in records}}
     print(f"dryrun grid: {len(records)} cells in {seconds:.1f} s on "
           f"{DRYRUN_WORKERS} background processes (phase 23 waited "
           f"{waited:.1f} s for them): {status}; tables in "
           "chiprun_out/dryrun_report.md")
-    if status != {"ok": 32, "skipped": 8, "error": 0}:
-        raise AssertionError(f"dry-run grid: {status}, expected 32 ok, 8 "
-                             f"skipped, 0 errors")
+    want = {"ok": 32, "skipped": 8, "error": 0}
+    if any(n != want for n in by_mesh.values()):
+        raise AssertionError(f"dry-run grid: {by_mesh}, expected on each "
+                             "mesh 32 ok, 8 skipped, 0 errors")
 
 
 def roofline_cell(torch, arch: str, kind: str, batch: int, seq: int,
@@ -4918,6 +4951,262 @@ def phase_roofline_cells(torch, seed: int, report: dict) -> None:
     report["train_shape_flash"] = train_flash
 
 
+RANK_STEP_CELLS = (("zamba2_2_7b", "train_4k"), ("zamba2_2_7b", "prefill_32k"),
+                   ("zamba2_2_7b", "decode_32k"))
+RANK_STEP_MESH = "single"         # rank 0 of (data 16, model 16)
+RANK_PEAK_LIMIT = 72e9            # the counted peak a cell may have
+RANK_STEP_STEPS = 2               # timed steps, after one untimed
+
+
+def seeded_shards(torch, device: str, seed: int, rank: int = 0):
+    """``launch.dryrun.rank_model``'s ``make``: a leaf's shard on
+    ``device`` from a generator seeded by the leaf's name and the rank,
+    normal · 0.02 (no whole leaf is made)."""
+    import zlib
+
+    def make(name: str, shape: tuple, dtype):
+        gen = torch.Generator(device=device).manual_seed(
+            seed * 1_000_003 + zlib.crc32(f"{name}@{rank}".encode()))
+        return (0.02 * torch.randn(shape, generator=gen, device=device)
+                ).to(dtype)
+    return make
+
+
+def seeded_batch(torch, cfg, shape: str, seed: int) -> dict:
+    """The cell's global batch on ``DEVICE`` (``configs.input_specs``'
+    shapes): seeded tokens and labels, seeded bf16 frontend embeddings;
+    a decode's cache is the step's own (``launch.dryrun.cell_step``)."""
+    from repro_torch import configs
+    specs, _ = configs.input_specs(cfg, shape)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 11)
+    out = {}
+    for name, t in specs.items():
+        if name == "cache":
+            continue
+        out[name] = (torch.randint(0, cfg.vocab, t.shape, generator=gen,
+                                   dtype=t.dtype, device=DEVICE)
+                     if t.dtype == torch.int32 else
+                     torch.randn(t.shape, generator=gen, device=DEVICE
+                                 ).to(t.dtype))
+    return out
+
+
+def capture_first_calls(torch, seen: dict):
+    """Stand-ins for the two model kernels' counted launches that keep the
+    first call's operand shapes and dtypes (and flash's ``causal``, the
+    SSD's chunk) and launch as the real ones do; returns a function that
+    puts the real ones back."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    real_fa, real_ss = fa._launch, ss._launch
+
+    def spec(*ts):
+        return [(tuple(t.shape), str(t.dtype)) for t in ts]
+
+    def flash(q, k, v, causal):
+        seen.setdefault("flash_attention", {"operands": spec(q, k, v),
+                                            "causal": bool(causal)})
+        return real_fa(q, k, v, causal)
+
+    def ssd(xs, bmat, cmat, dt, a, chunk):
+        seen.setdefault("ssd_scan", {"operands": spec(xs, bmat, cmat, dt, a),
+                                     "chunk": int(chunk)})
+        return real_ss(xs, bmat, cmat, dt, a, chunk)
+
+    fa._launch, ss._launch = flash, ssd
+
+    def restore():
+        fa._launch, ss._launch = real_fa, real_ss
+    return restore
+
+
+def first_call_checks(torch, seen: dict, seed: int) -> dict:
+    """Each model kernel once at its first call's shapes on seeded inputs
+    against its plain version (``FLASH_TOL``, ``SSD_TOL``, as phases 10
+    and 26 hold them)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 23)
+    dtypes = {"torch.float32": torch.float32,
+              "torch.bfloat16": torch.bfloat16}
+
+    def randn(shape, dtype, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=DEVICE)
+                ).to(dtype)
+
+    out = {}
+    if "flash_attention" in seen:
+        f = seen["flash_attention"]
+        (qs, dt), (ks, _), (vs, _) = f["operands"]
+        q, k, v = (randn(sh, dtypes[dt]) for sh in (qs, ks, vs))
+        got = fa.flash_attention(q, k, v, f["causal"])
+        want = fa.flash_attention_plain(q, k, v, f["causal"])
+        ok, err = _close_err(got, want, FLASH_TOL[dt])
+        out["flash_attention"] = {"shape": [qs, ks], "dtype": dt,
+                                  "causal": f["causal"], "ok": ok,
+                                  "max_abs_err": err,
+                                  "instance": fa.instance(q, k, v)}
+        del q, k, v, got, want
+    if "ssd_scan" in seen:
+        f = seen["ssd_scan"]
+        (xs_s, dt_x), (b_s, dt_b), _, (d_s, dt_d), (a_s, _) = f["operands"]
+        xs = randn(xs_s, dtypes[dt_x])
+        bm, cm = randn(b_s, dtypes[dt_b], 0.3), randn(b_s, dtypes[dt_b], 0.3)
+        dt = torch.nn.functional.softplus(randn(d_s, torch.float32)).to(
+            dtypes[dt_d])
+        a = -torch.exp(randn(a_s, torch.float32, 0.2))
+        y, st = ss.ssd_scan(xs, bm, cm, dt, a, f["chunk"])
+        y_want, st_want = ss.ssd_scan_plain(xs, bm, cm, dt, a, f["chunk"])
+        tol = SSD_TOL[dt_x]
+        (ok_y, err_y), (ok_s, err_s) = (_close_err(y, y_want, tol),
+                                        _close_err(st, st_want, tol))
+        out["ssd_scan"] = {"shape": xs_s, "chunk": f["chunk"], "dtype": dt_x,
+                           "ok": ok_y and ok_s, "max_abs_err": err_y,
+                           "state_max_abs_err": err_s}
+    torch.cuda.synchronize()
+    return out
+
+
+def rank_step_child(out_path: str, seed: int) -> None:
+    """Phase 27's subprocess: count the candidate cells of
+    ``RANK_STEP_CELLS`` on ``meta`` until one's peak is under
+    ``RANK_PEAK_LIMIT``, then run that cell's rank-0 step on the card
+    under a fake group of the production mesh's ranks, and write what it
+    measured to ``out_path`` (JSON)."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import counting_group
+    from repro_torch.sharding import make_ctx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tried = []
+    for arch, shape in RANK_STEP_CELLS:
+        cfg = configs.get(arch)
+        t0 = time.perf_counter()
+        cost, chips, _ = dryrun.count_cell(cfg, shape, RANK_STEP_MESH)
+        tried.append({"arch": arch, "shape": shape,
+                      "peak_estimate_bytes": cost.peak_estimate_bytes,
+                      "count_s": time.perf_counter() - t0})
+        if cost.peak_estimate_bytes <= RANK_PEAK_LIMIT:
+            break
+    else:
+        raise AssertionError(f"no cell of {RANK_STEP_CELLS} has a rank "
+                             f"peak under {RANK_PEAK_LIMIT / 1e9} GB: {tried}")
+    info = configs.SHAPES[shape]
+    roof = roofline.roofline_from_cost(
+        cost, chips, roofline.flash_attention_io_bytes(
+            cfg, info["seq"], info["batch"], info["kind"], chips))
+    bound_s = max(roof.compute_s, roof.memory_s_flash)
+    seen: dict = {}
+    with counting_group(RANK_STEP_MESH, DEVICE) as mesh:
+        ctx = make_ctx(mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        model = dryrun.rank_model(cfg, mesh, make=seeded_shards(
+            torch, DEVICE, seed))
+        kind, step, args = dryrun.cell_step(
+            cfg, shape, model, ctx, device=DEVICE,
+            batch=seeded_batch(torch, cfg, shape, seed))
+        restore = capture_first_calls(torch, seen)
+        try:
+            step(*args)                     # untimed: the allocator warms
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fa.LAUNCHES = ss.LAUNCHES = 0
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(RANK_STEP_STEPS):
+                step(*args)
+            end.record()
+            end.synchronize()
+            launches = {"flash_attention": fa.LAUNCHES,
+                        "ssd_scan": ss.LAUNCHES}
+            peak = torch.cuda.max_memory_allocated() - base
+        finally:
+            restore()
+        ms = start.elapsed_time(end) / RANK_STEP_STEPS
+        del model, step, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = first_call_checks(torch, seen, seed)
+    est = cost.peak_estimate_bytes
+    out = {"arch": arch, "shape": shape, "mesh": RANK_STEP_MESH,
+           "chips": chips, "kind": kind, "tried": tried,
+           "steps": RANK_STEP_STEPS, "ms_per_step": ms,
+           "bound_ms": 1e3 * bound_s, "ms_over_bound": ms / (1e3 * bound_s),
+           "compute_ms": 1e3 * roof.compute_s,
+           "memory_flash_ms": 1e3 * roof.memory_s_flash,
+           "collective_ms": 1e3 * roof.collective_s,
+           "flops": cost.flops, "bytes": cost.bytes, "n_ops": cost.n_ops,
+           "collective_bytes": roof.coll.total_bytes,
+           "peak_estimate_bytes": est, "argument_bytes": cost.argument_bytes,
+           "peak_bytes": peak, "peak_rel": (peak - est) / est,
+           "allocated_before_bytes": base, "launches": launches,
+           "first_calls": seen, "checks": checks}
+    Path(out_path).write_text(json.dumps(out))
+
+
+def phase_rank_step(torch, seed: int, gpu: str, report: dict) -> None:
+    """Phase 27: ``rank_step_child`` in a subprocess; its lines printed,
+    its launches kept for the kernels line.  Fails if the step raised, a
+    kernel disagreed with its plain version, or the peak is off the
+    count's estimate by more than ``PEAK_RTOL``."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = ROOT / "chiprun_out" / "rank_step.json"
+    out.parent.mkdir(exist_ok=True)
+    out.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+         f"chip_smoke.rank_step_child({str(out)!r}, {seed})"],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 27's rank step failed (rc "
+                             f"{proc.returncode}): {proc.stderr[-3000:]}")
+    r = json.loads(out.read_text())
+    r["wall_s"] = wall
+    print(f"production rank ({gpu}): {r['arch']} {r['shape']} rank 0 of "
+          f"{r['chips']} ({r['mesh']}), {r['steps']} steps after one "
+          f"untimed: {r['ms_per_step']:.1f} ms a step against the count's "
+          f"bound {r['bound_ms']:.1f} ms (compute {r['compute_ms']:.1f}, "
+          f"memory on the kernel path {r['memory_flash_ms']:.1f}; "
+          f"collectives free: the fake group moves none of the count's "
+          f"{r['collective_bytes'] / 1e9:.2f} GB, {r['collective_ms']:.1f} "
+          f"ms at one link, and leaves gathers unwritten, so only memory "
+          f"and time are measured, not values), "
+          f"{r['ms_over_bound']:.2f}x the bound; {r['n_ops']:,} ops counted "
+          f"a step, {1e3 * r['ms_per_step'] / r['n_ops']:.2f} us an op")
+    print(f"  peak {r['peak_bytes'] / 1e9:.3f} GB against the estimate "
+          f"{r['peak_estimate_bytes'] / 1e9:.3f} GB "
+          f"({100 * r['peak_rel']:+.2f}%; arguments "
+          f"{r['argument_bytes'] / 1e9:.3f} GB); launches {r['launches']}; "
+          f"cells counted {[(t['arch'], t['shape'], round(t['peak_estimate_bytes'] / 1e9, 2)) for t in r['tried']]}; "
+          f"{wall:.1f} s in all")
+    for name, c in r["checks"].items():
+        print(f"  {name} at its first call's shape {c['shape']} "
+              f"({c['dtype']}): max abs err {c['max_abs_err']:.3e} against "
+              f"the plain version, ok {c['ok']}")
+    report["rank_step"] = r
+    bad = [n for n, c in r["checks"].items() if not c["ok"]]
+    if bad or set(r["checks"]) != {"flash_attention", "ssd_scan"}:
+        raise AssertionError(f"phase 27: kernel checks {r['checks']}")
+    if any(n <= 0 for n in r["launches"].values()):
+        raise AssertionError(f"phase 27: launches {r['launches']}")
+    if abs(r["peak_rel"]) > PEAK_RTOL:
+        raise AssertionError(f"phase 27: the peak {r['peak_bytes']} is not "
+                             f"within {PEAK_RTOL:.0%} of the count's "
+                             f"estimate {r['peak_estimate_bytes']}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5016,6 +5305,7 @@ def main(argv=None) -> int:
         phase_mesh_serve(torch, args.seed, gpu, report)
         gc.collect()
         torch.cuda.empty_cache()
+        phase_rank_step(torch, args.seed, gpu, report)
         phase_roofline_cells(torch, args.seed, report)
         phase_dryrun_grid(grid, report)
     finally:
@@ -5053,6 +5343,7 @@ def main(argv=None) -> int:
                     for r in report["dense_serve"].values()]
     model_paths.append(report["encdec_serve"]["launches"]["window"])
     model_paths.append(report["mesh_serve"]["launches"])
+    model_paths.append(report["rank_step"]["launches"])
     for name in ("flash_attention", "ssd_scan"):
         rows[name] = dict(
             launches=sum(r[name] for r in model_paths)

@@ -7,9 +7,10 @@ device, the ranks laid out row-major over the named axes, as
 ``jax.make_mesh`` lays out devices.  Every axis runs: the batch axes
 ``"pod"`` and ``"data"``, and ``"model"`` at any size, whose tensor,
 expert and sequence parallelism and SSD heads the train, eval and serve
-steps run (``train.train_step``, ``serve.serve_step``).  The launchers'
-256- and 512-rank production meshes (``--mesh single|multi``) wait for
-ROADMAP A.11f-2c.
+steps run (``train.train_step``, ``serve.serve_step``).  The production
+meshes (``PRODUCTION``: 256 ranks over ("data", "model"), 512 over ("pod",
+"data", "model")) are what ``--mesh single|multi`` builds in the launchers,
+over a group of exactly that many real ranks.
 
 Process groups.  ``start_group(device)`` starts the group of the ranks that
 the environment names (``RANK``/``WORLD_SIZE``/``MASTER_ADDR``/
@@ -19,9 +20,18 @@ NCCL on the card, gloo on the CPU, and nothing else (a failed NCCL start
 raises).  ``make_mesh``, ``make_host_mesh`` and ``make_production_mesh``
 call it when no group is running, and only they do: importing this module,
 a serve run and ``host_mesh_shape`` start nothing.
+
+Counting.  ``counting_group(kind)`` starts a group of a production mesh's
+ranks on torch's ``"fake"`` backend, as rank 0 (the counterpart of the
+reference's 512 faked host devices, ``src/repro/launch/dryrun.py:1-4``):
+its collectives return at once, move no bytes and leave their outputs
+unwritten, so only shapes, memory and time mean anything on it.  Only the
+dry run (``launch.dryrun``, ``launch.op_breakdown --mesh``) and the card's
+one-rank step call it; ``start_group`` and the launchers never start it.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 
@@ -32,6 +42,10 @@ from ..kernels.build import PlanError
 from ..kernels.ops import resolve_device
 
 AXES = ("pod", "data", "model")
+# the reference's production meshes (``src/repro/launch/mesh.py:24-28``):
+# one pod of 16 × 16 ranks, or two pods; ``--mesh single|multi``
+PRODUCTION = {"single": ((16, 16), ("data", "model")),
+              "multi": ((2, 16, 16), ("pod", "data", "model"))}
 
 
 def _backend(dev: torch.device) -> str:
@@ -86,13 +100,14 @@ def make_mesh(shape, names, device=None):
 
 def make_production_mesh(*, multi_pod: bool = False, device=None):
     """16 × 16 = 256 ranks a pod; 2 pods = 512 ranks multi-pod (the
-    reference's ``:24``).  Raises unless the group has that many ranks."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    names = ("pod", "data", "model") if multi_pod else ("data", "model")
-    if world_size() != math.prod(shape):
+    reference's ``:24``; ``PRODUCTION``).  Raises unless the running group
+    (or, when none runs, the environment's ranks) has that many ranks."""
+    shape, names = PRODUCTION["multi" if multi_pod else "single"]
+    have = world_size() if dist.is_initialized() else env_world_size()
+    if have != math.prod(shape):
         raise PlanError(f"the production mesh {dict(zip(names, shape))} "
                         f"needs {math.prod(shape)} ranks; the group has "
-                        f"{world_size()}")
+                        f"{have}")
     return make_mesh(shape, names, device)
 
 
@@ -111,3 +126,24 @@ def mesh_shape(mesh) -> dict:
 def host_mesh_shape() -> dict:
     """``make_host_mesh``'s shape, without starting a group."""
     return {"data": world_size(), "model": 1}
+
+
+@contextlib.contextmanager
+def counting_group(kind: str, device_type: str = "cpu"):
+    """A ``"fake"`` group of the ``PRODUCTION[kind]`` mesh's ranks, this
+    process rank 0, for counting only; yields that mesh (on
+    ``device_type``: ``"cpu"`` for ``meta`` tensors, ``"cuda"`` for a
+    rank's step on the card) and destroys the group on exit.  Refuses to
+    start while another group is running (a process holds one)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise PlanError("a process group is running; the counting group "
+                        "needs a process of its own")
+    shape, names = PRODUCTION[kind]
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape))
+    try:
+        from torch.distributed.device_mesh import init_device_mesh
+        yield init_device_mesh(device_type, shape, mesh_dim_names=names)
+    finally:
+        dist.destroy_process_group()

@@ -2,14 +2,17 @@
 ``src/repro/launch/hlo_breakdown.py``.
 
 The dry run gives one ``memory_s`` a cell; this runs the same counted step
-(``launch.dryrun.cell_step`` on ``meta``) and adds each op's bytes and FLOPs
-up by ``"<aten op> <result shape>"``, the keys ``launch.op_count.analyze``
-hands its ``attribute``, so that every hypothesis about where a step's
-bytes go starts from the count.
+(``launch.dryrun.count_cell`` on ``meta``) and adds each op's bytes and
+FLOPs up by ``"<aten op> <result shape>"``, the keys
+``launch.op_count.analyze`` hands its ``attribute``, so that every
+hypothesis about where a step's bytes go starts from the count.  On a
+production mesh (``--mesh single|multi``: rank 0's step under the counting
+group) it also lists the rank's collectives by kind: calls and result
+bytes, apart from the HBM bytes.
 
 Usage (no card needed):
     PYTHONPATH=src python -m repro_torch.launch.op_breakdown \\
-        --arch phi3_medium_14b --shape train_4k --top 25
+        --arch phi3_medium_14b --shape train_4k --mesh single --top 25
 """
 from __future__ import annotations
 
@@ -19,9 +22,8 @@ import collections
 from .op_count import analyze
 
 
-def breakdown(fn, *args) -> tuple[collections.Counter, collections.Counter]:
-    """(bytes_by_key, flops_by_key) of ``fn(*args)``; the keys and sums are
-    ``op_count.analyze``'s, op for op."""
+def attribution() -> tuple:
+    """(bytes_by_key, flops_by_key, the ``attribute`` that fills them)."""
     by_bytes: collections.Counter = collections.Counter()
     by_flops: collections.Counter = collections.Counter()
 
@@ -30,8 +32,25 @@ def breakdown(fn, *args) -> tuple[collections.Counter, collections.Counter]:
         if f:
             by_flops[key] += int(f)
 
+    return by_bytes, by_flops, attribute
+
+
+def breakdown(fn, *args) -> tuple[collections.Counter, collections.Counter]:
+    """(bytes_by_key, flops_by_key) of ``fn(*args)``; the keys and sums are
+    ``op_count.analyze``'s, op for op."""
+    by_bytes, by_flops, attribute = attribution()
     analyze(fn, *args, attribute=attribute)
     return by_bytes, by_flops
+
+
+def collectives(by_kind: dict, calls: dict) -> str:
+    """The collectives by kind: result bytes, their share and calls."""
+    tot = sum(by_kind.values())
+    out = ["\n-- collectives by kind (result bytes) --"]
+    for kind, b in sorted(by_kind.items(), key=lambda kv: -kv[1]):
+        out.append(f"{b:12.3e}  ({b / max(tot, 1) * 100:5.1f}%)  {kind} "
+                   f"x {calls[kind]}")
+    return "\n".join(out)
 
 
 def report(by_bytes, by_flops, title: str, top: int) -> str:
@@ -52,22 +71,28 @@ def report(by_bytes, by_flops, title: str, top: int) -> str:
     return "\n".join(out)
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> str:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", required=True)
+    ap.add_argument("--mesh", default="host",
+                    choices=["host", "single", "multi"])
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args(argv)
 
     from .. import configs
-    from ..models.transformer import abstract_params
-    from .dryrun import cell_step
+    from .dryrun import count_cell
 
     arch = configs.canonical(args.arch)
-    cfg = configs.get(arch)
-    _, step, step_args = cell_step(cfg, args.shape, abstract_params(cfg))
-    by_bytes, by_flops = breakdown(step, *step_args)
-    print(report(by_bytes, by_flops, f"{arch} {args.shape} host", args.top))
+    by_bytes, by_flops, attribute = attribution()
+    cost, _, _ = count_cell(configs.get(arch), args.shape, args.mesh,
+                            attribute=attribute)
+    text = report(by_bytes, by_flops, f"{arch} {args.shape} {args.mesh}",
+                  args.top)
+    if args.mesh != "host":
+        text += "\n" + collectives(cost.coll_bytes, cost.coll_counts)
+    print(text)
+    return text
 
 
 if __name__ == "__main__":

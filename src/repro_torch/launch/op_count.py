@@ -32,9 +32,26 @@ is computed), under a ``TorchDispatchMode`` that sees every aten op:
              that are not the arguments') and ``peak_estimate_bytes``; the
              counterpart of ``compiled.memory_analysis()``.
 
+  * collectives — every ``torch.distributed`` call (``c10d.*``: the
+             layers' and the train step's own) and every DTensor
+             redistribution (``_c10d_functional.*``), under the
+             reference's five kinds by its rule (``hlo_analysis.py:60-86``):
+             the bytes of the result (an all-gather the gathered tensor,
+             an all-reduce the tensor, a reduce-scatter or all-to-all what
+             lands), counted apart from the HBM bytes (``coll_bytes``,
+             ``coll_counts``) and by process group (``coll_groups``).
+             ``wait_tensor`` and ``_wrap_tensor_autograd`` are none; a
+             c10d op of none of the five kinds raises, so none is dropped.
+             "collective-permute" has no spelling in the port: it stays 0.
+  * DTensors — an op on DTensor operands, and a DTensor argument, is
+             charged at this rank's local shards (a ``TorchDispatchMode``
+             sees the op at the global shape): the count is one rank's.
+
 Eager PyTorch unrolls every layer and microbatch loop, so the reference's
 while-loop trip counts (``_trip_count``) have no counterpart: each op is
-counted each time it runs.  One device: there are no collectives.
+counted each time it runs.  On a one-rank step there are no collectives;
+on a production mesh the step runs on ``launch.mesh.counting_group``'s
+ranks, whose collectives move nothing, and the count is rank 0's.
 """
 from __future__ import annotations
 
@@ -59,6 +76,34 @@ _FREE = {"view", "_unsafe_view", "reshape", "expand", "permute", "transpose",
 _ALIASES = {"_unsafe_view", "detach", "alias", "lift_fresh"}
 # in-place ops that write their target without reading it
 _WRITE_ONLY = {"copy_", "fill_", "zero_"}
+
+# the reference's collective kinds (``hlo_analysis._COLLECTIVES``)
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter",
+                    "all-to-all", "collective-permute")
+_COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional",
+                          "_c10d_functional_autograd")
+# c10d ops (their result is their first argument) and functional ops
+# (their result is returned), by the kind each is
+_KIND = {
+    "allreduce_": "all-reduce", "allreduce_coalesced_": "all-reduce",
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_reduce_coalesced_": "all-reduce",
+    "allgather_": "all-gather", "_allgather_base_": "all-gather",
+    "allgather_coalesced_": "all-gather",
+    "allgather_into_tensor_coalesced_": "all-gather",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_out": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_": "reduce-scatter",
+    "_reduce_scatter_base_": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced_": "reduce-scatter",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
+    "all_to_all_single": "all-to-all",
+}
+_NOT_COLLECTIVES = {"wait_tensor", "_wrap_tensor_autograd"}
 
 
 class _AttnCore:
@@ -129,7 +174,8 @@ class OpCost:
     """What ``analyze`` counted: FLOPs (in all and by dtype name), bytes,
     the bytes inside ``attn_core`` and of casts, the memory terms (the
     result's storages that are the arguments' are ``alias_bytes``, the
-    others ``output_bytes``), and the ops seen."""
+    others ``output_bytes``), the ops seen, and the collectives' result
+    bytes and calls by kind and by process group."""
     flops: float = 0.0
     flops_by_dtype: dict = dataclasses.field(default_factory=dict)
     bytes: float = 0.0
@@ -141,6 +187,12 @@ class OpCost:
     temp_bytes: int = 0
     peak_estimate_bytes: int = 0
     n_ops: int = 0
+    coll_bytes: dict = dataclasses.field(
+        default_factory=lambda: dict.fromkeys(COLLECTIVE_KINDS, 0))
+    coll_counts: dict = dataclasses.field(
+        default_factory=lambda: dict.fromkeys(COLLECTIVE_KINDS, 0))
+    # process group name -> kind -> [calls, result bytes]
+    coll_groups: dict = dataclasses.field(default_factory=dict)
 
 
 def _tensors(tree, out: list) -> list:
@@ -148,7 +200,7 @@ def _tensors(tree, out: list) -> list:
     fields too) and dicts, and a module's parameters and buffers), in
     order, appended to ``out``."""
     if isinstance(tree, torch.Tensor):
-        out.append(tree)
+        out.append(_local(tree))
     elif isinstance(tree, (list, tuple)):
         for x in tree:
             _tensors(x, out)
@@ -156,9 +208,47 @@ def _tensors(tree, out: list) -> list:
         for x in tree.values():
             _tensors(x, out)
     elif isinstance(tree, torch.nn.Module):
-        out.extend(tree.parameters())
-        out.extend(tree.buffers())
+        out.extend(_local(t) for t in tree.parameters())
+        out.extend(_local(t) for t in tree.buffers())
     return out
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (no op: its ``_local_tensor``), a plain
+    tensor itself."""
+    return t._local_tensor if _is_dtensor(t) else t
+
+
+def _locals(tree):
+    """``tree`` with every DTensor replaced by its local shard."""
+    if isinstance(tree, torch.Tensor):
+        return _local(tree)
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_locals(x) for x in tree)
+    if isinstance(tree, dict):
+        return {k: _locals(x) for k, x in tree.items()}
+    return tree
+
+
+def _group_name(func, args) -> str:
+    """The process group a collective runs on: a c10d op's
+    ``ProcessGroup`` argument, a functional op's group name (its last
+    string argument)."""
+    if func.namespace == "c10d":
+        for a in args:
+            if isinstance(a, torch.ScriptObject):
+                try:
+                    return torch.distributed.ProcessGroup.unbox(a).group_name
+                except RuntimeError:        # a ReduceOp, not the group
+                    continue
+        return "?"
+    names = [a for a in args if isinstance(a, str)]
+    return names[-1] if names else "?"
 
 
 def _span_bytes(t: torch.Tensor) -> int:
@@ -209,7 +299,8 @@ def _key(x):
     """A hashable key of an op's argument for the meta memo (None where
     there is none: a tensor off ``meta``, an unhashable value)."""
     if isinstance(x, torch.Tensor):
-        return (x.shape, x.stride(), x.dtype) if x.is_meta else None
+        return (x.shape, x.stride(), x.dtype) if (
+            x.is_meta and not _is_dtensor(x)) else None
     t = type(x)
     if t is tuple or t is list:
         parts = []
@@ -367,6 +458,54 @@ class _Counter:
             self.attribute(*e)
         return outs[0] if single else tuple(outs)
 
+    def collective(self, func, args, kwargs):
+        """Run one collective, count its result's bytes under its kind and
+        group (no HBM bytes) and return its result."""
+        name = func.overloadpacket.__name__
+        out = func(*args, **kwargs)
+        if name in _NOT_COLLECTIVES:
+            return out
+        kind = _KIND.get(name)
+        if kind is None:
+            raise NotImplementedError(
+                f"collective {func} is none of the reference's kinds "
+                f"{COLLECTIVE_KINDS}: the count cannot place it")
+        result = args[0] if func.namespace == "c10d" else out
+        ins = {t.untyped_storage()._cdata for t in _tensors((args, kwargs),
+                                                             [])}
+        for t in _tensors(out, []):
+            if t.untyped_storage()._cdata not in ins:
+                self.track(t.untyped_storage())
+        b = sum(t.numel() * t.element_size() for t in _tensors(result, []))
+        cost = self.cost
+        cost.n_ops += 1
+        cost.coll_bytes[kind] += b
+        cost.coll_counts[kind] += 1
+        by_kind = cost.coll_groups.setdefault(_group_name(func, args), {})
+        entry = by_kind.setdefault(kind, [0, 0])
+        entry[0] += 1
+        entry[1] += b
+        return out
+
+    def run_dtensor(self, func, info: _OpInfo, args, kwargs):
+        """Run one op on DTensor operands (DTensor computes on the local
+        shards, unseen by the mode) and count it at the local shards: its
+        operands' and results' ``_local_tensor``s."""
+        out = func(*args, **kwargs)
+        if info.free or info.alias:
+            self.cost.n_ops += 1
+            return out
+        ins = _tensors((args, kwargs), [])
+        in_keys = {t.untyped_storage()._cdata for t in ins}
+        for t in _tensors(out, []):
+            st = t.untyped_storage()
+            if st._cdata not in in_keys:
+                self.track(st)
+        b, f, first, cast = self.measure(info, _locals(args),
+                                         _locals(kwargs), ins, _locals(out))
+        self.add(info, b, f, first, cast, _locals(out))
+        return out
+
     def run(self, func, info: _OpInfo, args, kwargs):
         """Run one leaf op, count it and return its result."""
         if info.alias:                  # no bytes, no new storage
@@ -412,6 +551,8 @@ class _Mode(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if func.namespace in _COLLECTIVE_NAMESPACES:
+            return self.counter.collective(func, args, kwargs)
         # a composite op (``matmul``, ``einsum``, ``softmax``: under
         # ``inference_mode`` they reach the mode whole) counts as the ops
         # it runs, as it does with autograd on
@@ -421,6 +562,8 @@ class _Mode(TorchDispatchMode):
                 r = func.decompose(*args, **kwargs)
             if r is not NotImplemented:
                 return r
+        if any(_is_dtensor(t) for t in tree_flatten((args, kwargs))[0]):
+            return self.counter.run_dtensor(func, info, args, kwargs)
         return self.counter.run(func, info, args, kwargs)
 
 

@@ -1,6 +1,9 @@
 """The dry run's roofline and detail tables from its per-cell JSON records:
-the port of ``src/repro/launch/report.py``, for one card (the ``host``
-mesh; there is no multi-pod table).
+the port of ``src/repro/launch/report.py``.  One roofline table for each
+mesh the records hold (``host``: one card; ``single``: 256 ranks;
+``multi``: 512), as the reference's ``main`` prints one a mesh, each rank's
+terms against one card's data-sheet peaks and its collectives over one
+link (``launch.roofline``).
 
 Usage: PYTHONPATH=src python -m repro_torch.launch.report build/dryrun
 """
@@ -11,7 +14,14 @@ import json
 import os
 import sys
 
-from .roofline import CARD, PEAK_FLOPS
+from .roofline import CARD, LINK_BW, PEAK_FLOPS
+
+# the tables' titles, in the order they are printed
+MESH_TITLES = {
+    "host": f"one card: {CARD}",
+    "single": "single pod, (data 16, model 16) = 256 ranks, each one card",
+    "multi": "two pods, (pod 2, data 16, model 16) = 512 ranks, each one "
+             "card"}
 
 
 def load(dirname: str) -> list[dict]:
@@ -51,7 +61,22 @@ def bottleneck_note(r: dict) -> str:
         return ("unfused elementwise work and weight casts — fused "
                 "norm/residual kernels to move it")
     if dom == "collective":
-        return "no collectives on one card"
+        bd = rf["collective_breakdown"]
+        top = max(bd, key=bd.get)
+        lever = {
+            "all-gather": ("the weights gathered over the batch axes each "
+                           "step; prefetch and overlap to move it"
+                           if kind == "train" else
+                           "the working copy gathered on every call; keep "
+                           "it across calls to move it"),
+            "all-reduce": ("the whole gradient all-reduced over the batch "
+                           "axes and the model group's partial sums; "
+                           "reduce-scatter into the shards to move it"
+                           if kind == "train" else
+                           "the model group's partial sums; a "
+                           "sequence-parallel reduce-scatter to move it"),
+        }.get(top, "the MoE exchange; overlap it with the experts")
+        return f"{top} dominates — {lever}"
     if kind == "train":
         return ("float32 products of the flash backward — a backward "
                 "kernel on the tensor cores to move it")
@@ -92,31 +117,47 @@ def roofline_table(rows: list[dict], mesh: str = "host") -> str:
 
 
 def dryrun_table(rows: list[dict]) -> str:
+    """One line a record: status, trace s, a rank's argument, temp and
+    cast GB, whether it fits one card, and its collectives' calls."""
     out = ["| arch | shape | mesh | status | trace_s | args GB | temp GB | "
-           "casts GB | fits 80 GB |",
-           "|---|---|---|---|---|---|---|---|---|"]
+           "casts GB | fits 80 GB | collectives (counts) |",
+           "|---|---|---|---|---|---|---|---|---|---|"]
     for r in rows:
         if r["status"] != "ok":
             out.append(f"| {r['arch']} | {r['shape']} | {r['mesh']} | "
-                       f"{r['status']} | — | — | — | — | — |")
+                       f"{r['status']} | — | — | — | — | — | — |")
             continue
         m = r["memory"]
+        cc = {k: int(v) for k, v in r["roofline"]["collective_counts"].items()
+              if v}
         out.append(
             f"| {r['arch']} | {r['shape']} | {r['mesh']} | ok | "
             f"{r['trace_s']} | {m['argument_bytes'] / 1e9:.2f} | "
             f"{m['temp_bytes'] / 1e9:.2f} | {r['cast_bytes'] / 1e9:.2f} | "
-            f"{m['fits_card']} |")
+            f"{m['fits_card']} | {cc} |")
     return "\n".join(out)
 
 
+def meshes_of(rows: list[dict]) -> list[str]:
+    """The meshes the records hold, in ``MESH_TITLES``' order."""
+    have = {r.get("mesh") for r in rows}
+    return [m for m in MESH_TITLES if m in have]
+
+
 def summary_stats(rows: list[dict]) -> str:
-    ok = [r for r in rows if r["status"] == "ok"
-          and r["kind"] in ("train", "prefill")]
-    fr = sum(cell_fraction(r) for r in ok) / max(len(ok), 1)
-    fits = sum(1 for r in rows if r["status"] == "ok"
-               and r["memory"]["fits_card"])
-    return (f"Mean roofline fraction over train/prefill cells: {fr:.3f}; "
-            f"{fits} cells fit one 80 GB card.")
+    """The mean roofline fraction over the train and prefill cells and the
+    cells whose rank fits one 80 GB card, a mesh at a time."""
+    parts = []
+    for mesh in meshes_of(rows) or ["host"]:
+        cells = [r for r in rows if r["status"] == "ok"
+                 and r.get("mesh") == mesh]
+        fr = [cell_fraction(r) for r in cells
+              if r["kind"] in ("train", "prefill")]
+        fits = sum(1 for r in cells if r["memory"]["fits_card"])
+        parts.append(f"{mesh} {sum(fr) / max(len(fr), 1):.3f} ({fits} "
+                     "cells fit one 80 GB card)")
+    return ("Mean roofline fraction over train/prefill cells: "
+            + "; ".join(parts) + ".")
 
 
 def main(argv=None) -> str:
@@ -126,15 +167,17 @@ def main(argv=None) -> str:
     ok = sum(1 for r in rows if r["status"] == "ok")
     sk = sum(1 for r in rows if r["status"] == "skipped")
     er = len(rows) - ok - sk
-    text = "\n".join([
-        f"## Dry-run summary: {ok} ok / {sk} skipped / {er} errors "
-        f"({len(rows)} cell records)\n",
-        summary_stats(rows) + "\n",
-        f"### Roofline (one card: {CARD}; counts against data-sheet peaks, "
-        "not measurements)\n",
-        roofline_table(rows, "host"),
-        "\n### Dry-run detail\n",
-        dryrun_table(rows)])
+    parts = [f"## Dry-run summary: {ok} ok / {sk} skipped / {er} errors "
+             f"({len(rows)} cell records)\n",
+             summary_stats(rows) + "\n"]
+    for mesh in meshes_of(rows):
+        link = (f"; collectives over one {LINK_BW / 1e9:.0f} GB/s link a "
+                "rank" if mesh != "host" else "")
+        parts += [f"### Roofline ({MESH_TITLES[mesh]}; counts against "
+                  f"data-sheet peaks{link}, not measurements)\n",
+                  roofline_table(rows, mesh), ""]
+    parts += ["### Dry-run detail\n", dryrun_table(rows)]
+    text = "\n".join(parts)
     print(text)
     return text
 

@@ -2,31 +2,39 @@
 ``src/repro/launch/hlo_analysis.py``.
 
 Hardware model: one NVIDIA H100 SXM5 at its 700 W power limit, from
-NVIDIA's data sheet (peaks, not measurements):
+NVIDIA's data sheet (peaks, not measurements), per rank:
     compute_s    = bf16 FLOPs / 989e12 + float32 FLOPs / 67e12
                    (dense tensor-core bf16; float32 outside the tensor
                    cores, TF32 off as ``chip_smoke.py`` sets it)
     memory_s     = bytes / 3.35e12        (HBM3)
-    collective_s = 0                      (one card: no collectives)
-The port does run float32 products (the MoE router, the flash backward's
-logits), so ``compute_s`` adds the two dtypes' times.  The counts come from
-``launch.op_count.analyze`` (the reference parses compiled HLO).
+    collective_s = collective bytes / 50e9
+The collective term is the rank's collectives' result bytes (the
+reference's rule, ``op_count``) over one H100's link to other nodes: one
+400 Gb/s NDR InfiniBand port a GPU, as in a DGX H100 (50e9 B/s a
+direction).  Ranks are laid out row-major, eight to an NVLink node, so a
+model group of 16 spans two nodes and the data and pod groups span nodes
+too: no production axis stays within NVLink's 450e9 B/s a direction, and
+every byte is charged the slower link.  One card (``--mesh host``) has no
+collectives (``no_collectives``).  The port does run float32 products (the
+MoE router, the flash backward's logits), so ``compute_s`` adds the two
+dtypes' times.  The counts come from ``launch.op_count.analyze`` (the
+reference parses compiled HLO).
 """
 from __future__ import annotations
 
 import dataclasses
 
 from ..models.transformer import count_params  # noqa: F401  (re-exported)
+from .op_count import COLLECTIVE_KINDS as _COLLECTIVES
 
 # NVIDIA H100 SXM5, 700 W: data-sheet peaks
 PEAK_FLOPS = 989e12          # bf16 / fp16 on the tensor cores, dense
 PEAK_FLOPS_F32 = 67e12       # float32, no TF32
 HBM_BW = 3.35e12             # bytes/s
 HBM_BYTES = 80e9             # device memory
+LINK_BW = 50e9               # bytes/s: one 400 Gb/s NDR port a GPU
 CARD = "NVIDIA H100 SXM5 80GB, 700 W (data sheet)"
 
-_COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
-                "collective-permute")
 _TENSOR_CORE_DTYPES = ("bfloat16", "float16")
 
 
@@ -83,7 +91,7 @@ class Roofline:
 
     @property
     def collective_s(self) -> float:
-        return 0.0
+        return self.coll.total_bytes / LINK_BW
 
     @property
     def dominant(self) -> str:
@@ -117,9 +125,11 @@ class Roofline:
 def roofline_from_cost(cost, chips: int = 1,
                        flash_io_bytes: float = 0.0) -> Roofline:
     """The roofline of an ``op_count.OpCost`` (the reference's
-    ``roofline_from_compiled``)."""
+    ``roofline_from_compiled``), its collectives the count's."""
     return Roofline(flops=cost.flops, hbm_bytes=cost.bytes,
-                    coll=no_collectives(), chips=chips,
+                    coll=CollectiveStats(dict(cost.coll_bytes),
+                                         dict(cost.coll_counts)),
+                    chips=chips,
                     attn_bytes=cost.attn_bytes,
                     flash_io_bytes=flash_io_bytes,
                     flops_by_dtype=dict(cost.flops_by_dtype))

@@ -22,8 +22,16 @@ gap is clear of that bound.
 
 ``--device`` defaults to the card; ``--device cpu`` runs the kernels' plain
 versions (the CPU tests).  ``--mesh host`` (the default) is the one
-device; the reference's production meshes (``--mesh single|multi``) wait
-for ROADMAP A.11f-2c and raise.
+device.  ``--mesh single|multi`` serves on the reference's production
+meshes (``launch.mesh.PRODUCTION``, 256 or 512 ranks started by
+``torchrun``; with fewer it raises ``PlanError``): every rank checks out
+the same prompts, lays the seeded weights out by ``param_specs``, fills
+its part of a cache laid out by ``cache_specs`` through
+``make_serve_step`` on the mesh (each step's greedy tokens gathered over
+the batch axes into the next step's global batch) and runs
+``make_prefill_step`` once; each rank holds its rows' prefill against its
+token path, the ranks' verdicts and errors are reduced over the group, and
+rank 0 prints the JSON line, its throughput the whole batch's.
 
 An encoder-decoder is refused, as the reference's driver refuses it (its
 serving needs frame embeddings no prompt store holds).  A vision-language
@@ -45,6 +53,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import configs
 from ..core import generate, lyresplit_for_budget, to_tree
@@ -56,11 +65,12 @@ from ..kernels.ops import resolve_device
 from ..models import layers as L
 from ..models import moe as MOE
 from ..models.transformer import (ArchConfig, _embed, check_supported,
-                                  init_cache, init_params)
+                                  init_cache, init_params, param_specs)
 from ..serve.checkout import BatchedCheckoutServer
 from ..serve.serve_step import make_prefill_step, make_serve_step
-from .mesh import host_mesh_shape
-from .train import reduced_config
+from ..sharding import distribute, make_ctx, whole
+from .mesh import host_mesh_shape, make_production_mesh, mesh_shape
+from .train import _quiet, reduced_config
 
 ROUNDINGS_PER_BLOCK = 6   # norm, projections, conv or probabilities, gate, out
 # an MoE block rounds where a dense one does outside its MLP (the dense
@@ -121,11 +131,13 @@ def prefill_bound(cfg: ArchConfig) -> float:
 
 def prompt_store(vocab: int, *, requests: int, prompt_len: int,
                  prompt_version: str = "-1", wave_size=None, seed: int = 0,
-                 device=None, log=print) -> np.ndarray:
+                 device=None, mesh: dict | None = None,
+                 log=print) -> np.ndarray:
     """The reference driver's prompts: a CUR workload of 8 versions whose
     records are ``prompt_len`` tokens (mod ``vocab``), partitioned by
     LyreSplit at 2|R|, checked out in ONE fused wave of the requested
-    versions, cycled to ``requests`` rows.  (requests, prompt_len) int32."""
+    versions, cycled to ``requests`` rows (``mesh``, the shape logged,
+    defaults to the host mesh's).  (requests, prompt_len) int32."""
     w = generate("CUR", n_versions=8, inserts=400, n_branches=2,
                  n_attrs=prompt_len, seed=seed)
     tree, _ = to_tree(w.graph, w.vgraph)
@@ -147,7 +159,7 @@ def prompt_store(vocab: int, *, requests: int, prompt_len: int,
     reps = -(-requests // len(pool))               # cycle to fill the batch
     rows = np.tile(pool, (reps, 1))[:requests]
     rows = rows[:, :prompt_len] % vocab
-    log(f"mesh={host_mesh_shape()} serving {len(rows)} "
+    log(f"mesh={mesh or host_mesh_shape()} serving {len(rows)} "
         f"requests from prompt CVD versions {vids} "
         f"({server.stats.waves} checkout wave)")
     return rows.astype(np.int32)
@@ -156,6 +168,20 @@ def prompt_store(vocab: int, *, requests: int, prompt_len: int,
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def _all_rows(t: torch.Tensor, ctx) -> torch.Tensor:
+    """The global batch from every (pod, data) line's rows of ``t``
+    (all-gathered over the batch axes, the first axis major); ``t`` itself
+    without a context."""
+    if ctx is None:
+        return t
+    for a in reversed(ctx.dp):
+        if ctx.size(a) > 1:
+            parts = [torch.empty_like(t) for _ in range(ctx.size(a))]
+            dist.all_gather(parts, t.contiguous(), group=ctx.group(a))
+            t = torch.cat(parts)
+    return t
 
 
 def _launches() -> dict:
@@ -201,12 +227,18 @@ def refuse(cfg: ArchConfig, prompt_len: int) -> None:
 def serve(cfg: ArchConfig, *, requests: int = 16, prompt_len: int = 64,
           decode_steps: int = 32, prompt_version: str = "-1",
           wave_size=None, seed: int = 0, device=None, params=None,
-          log=print) -> dict:
+          ctx=None, log=print) -> dict:
     """Serve ``requests`` prompts from the versioned prompt store: fill the
     cache token by token, decode ``decode_steps`` tokens greedily, then run
     the serving prefill once on the same prompts and hold its next-token
     logits against the token-by-token path's.  ``params`` defaults to
     ``init_params`` from a generator seeded with ``seed`` on the device.
+    With a mesh context ``ctx`` every rank of the mesh calls this: the
+    parameters are laid out by ``param_specs``, the cache is the rank's
+    part (its length rounded up to a multiple of the model axis, over
+    which its sequence splits; the slots past the last token are never
+    read), the logits, the tokens and the check are its rows', and the
+    check's verdict and worst error are the group's.
 
     Returns {"result": the reference's JSON fields and the prefill's,
     "prompts", "tokens" (numpy), "fill_logits", "prefill_logits",
@@ -220,17 +252,22 @@ def serve(cfg: ArchConfig, *, requests: int = 16, prompt_len: int = 64,
     dev = resolve_device(device)
     rows = prompt_store(cfg.vocab, requests=requests, prompt_len=prompt_len,
                         prompt_version=prompt_version, wave_size=wave_size,
-                        seed=seed, device=dev, log=log)
+                        seed=seed, device=dev,
+                        mesh=mesh_shape(ctx.mesh) if ctx else None, log=log)
     if params is None:
         params = init_params(
             cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    if ctx is not None:
+        distribute(params, param_specs(cfg), ctx.mesh)
     prompts = torch.from_numpy(rows).to(dev)
     b = prompts.shape[0]
     max_len = prompt_len + decode_steps
-    step = make_serve_step(cfg, None, device=dev)
+    if ctx is not None:     # the cache's sequence splits over "model"
+        max_len = -(-max_len // ctx.tp_size) * ctx.tp_size
+    step = make_serve_step(cfg, ctx, device=dev)
 
     before = _launches()
-    cache = init_cache(cfg, b, max_len, device=dev)
+    cache = init_cache(cfg, b, max_len, device=dev, ctx=ctx)
     _sync(dev)
     t0 = time.perf_counter()
     with MOE.counting_drops() as fill_drops:
@@ -244,7 +281,8 @@ def serve(cfg: ArchConfig, *, requests: int = 16, prompt_len: int = 64,
         out = [tok]
         t1 = time.perf_counter()
         for _ in range(decode_steps - 1):
-            logits, cache = step(params, {"tokens": tok, "cache": cache})
+            logits, cache = step(params, {"tokens": _all_rows(tok, ctx)
+                                          if b > 1 else tok, "cache": cache})
             tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
             out.append(tok)
         _sync(dev)
@@ -252,10 +290,12 @@ def serve(cfg: ArchConfig, *, requests: int = 16, prompt_len: int = 64,
     launches = {"fill_decode": _since(before)}
     dropped = {"fill_decode": sum(MOE.drop_counts(fill_drops))}
 
-    prefill = make_prefill_step(cfg, None, device=dev)
+    prefill = make_prefill_step(cfg, ctx, device=dev)
     batch = {"tokens": prompts}
     if cfg.family == "vlm":
-        batch["patch_embeds"] = _embed(params, prompts[:, :cfg.n_patches])
+        batch["patch_embeds"] = whole(params.embed)[
+            prompts[:, :cfg.n_patches].long()].to(L.COMPUTE_DTYPE) \
+            if ctx is not None else _embed(params, prompts[:, :cfg.n_patches])
     before = _launches()
     t2 = time.perf_counter()
     with MOE.counting_drops() as prefill_drops:
@@ -266,6 +306,12 @@ def serve(cfg: ArchConfig, *, requests: int = 16, prompt_len: int = 64,
     dropped["prefill"] = MOE.drop_counts(prefill_drops)
     pre_logits = pre_logits[:, -1, :cfg.vocab].float()
     check = prefill_check(pre_logits, fill_logits, prefill_bound(cfg))
+    if ctx is not None:                 # the group's verdict and worst error
+        agreed = torch.tensor([float(check["ok"]), -max(check["rel_l2"])],
+                              device=dev)
+        dist.all_reduce(agreed, op=dist.ReduceOp.MIN)
+        check["ok"] = bool(agreed[0])
+        check["group_rel_l2_max"] = float(-agreed[1])
 
     gen = torch.cat(out, dim=1).cpu().numpy()
     tps = b * decode_steps / max(t_decode, 1e-9)
@@ -277,10 +323,12 @@ def serve(cfg: ArchConfig, *, requests: int = 16, prompt_len: int = 64,
               "device": str(dev), "compute_dtype": str(L.COMPUTE_DTYPE),
               "prefill_step_s": t_prefill,
               "ms_per_decode_step": 1e3 * t_decode / max(decode_steps - 1, 1),
-              "prefill_rel_l2_max": max(check["rel_l2"]),
+              "prefill_rel_l2_max": check.get("group_rel_l2_max",
+                                              max(check["rel_l2"])),
               "prefill_bound": check["bound"],
               "prefill_ok": check["ok"], "launches": launches,
-              "dropped": dropped}
+              "dropped": dropped,
+              "mesh": mesh_shape(ctx.mesh) if ctx else host_mesh_shape()}
     return {"result": result, "prompts": rows, "tokens": gen,
             "fill_logits": fill_logits, "prefill_logits": pre_logits,
             "cache": cache, "launches": launches, "dropped": dropped,
@@ -307,23 +355,27 @@ def main(argv=None) -> int:
                     choices=["host", "single", "multi"])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.mesh != "host":
-        raise ValueError(f"--mesh {args.mesh}: the production meshes (256 "
-                         "and 512 ranks, a model axis of 16) wait for "
-                         "ROADMAP A.11f-2c; this launcher serves on one "
-                         "device (--mesh host; serve.serve_step runs any "
-                         "(data, model) mesh)")
 
     cfg = configs.get(configs.canonical(args.arch))
     if args.reduced:
         cfg = reduced_config(cfg)
     if cfg.family == "encdec":
         raise SystemExit(ENCDEC_REFUSED)
+    ctx, log, started = None, print, not dist.is_initialized()
+    if args.mesh != "host":
+        ctx = make_ctx(make_production_mesh(
+            multi_pod=args.mesh == "multi",
+            device=resolve_device(args.device)))
+        if dist.get_rank() != 0:
+            log = _quiet
     run = serve(cfg, requests=args.requests, prompt_len=args.prompt_len,
                 decode_steps=args.decode_steps,
                 prompt_version=args.prompt_version,
-                wave_size=args.wave_size, seed=args.seed, device=args.device)
-    print(json.dumps(run["result"]))
+                wave_size=args.wave_size, seed=args.seed, device=args.device,
+                ctx=ctx, log=log)
+    log(json.dumps(run["result"]))
+    if ctx is not None and started:
+        dist.destroy_process_group()
     return 0 if run["check"]["ok"] else 1
 
 

@@ -25,18 +25,21 @@ starts, as ``torchrun`` sets ``RANK``/``WORLD_SIZE``; one rank is the
 default and trains with no process group.  Several ranks each check out
 the same deterministic global batch and train on their own rows of it
 (``train.train_step``), the parameters, AdamW moments and checkpoints
-FSDP-sharded over the ranks; only rank 0 prints and writes checkpoints.
-On the CPU:
+sharded over the ranks by ``param_specs``; only rank 0 prints and writes
+checkpoints.  On the CPU:
 
     torchrun --nproc-per-node 2 -m repro_torch.launch.train \
         --arch internlm2_1_8b --reduced --device cpu --steps 4 --batch 4
 
 (gloo); on the card each rank takes the device of its ``LOCAL_RANK``
-(NCCL, one card a rank).  ``--grad-compress`` takes effect only on a mesh
-with a "pod" axis, as the reference's does, and the host mesh has none.
-The reference's production meshes (``--mesh single|multi``, 256 and 512
-ranks with a model axis of 16) wait for ROADMAP A.11f-2c; the train step
-itself runs any (pod, data, model) mesh (``train.train_step``).
+(NCCL, one card a rank).  ``--mesh single|multi`` trains on the
+reference's production meshes (``launch.mesh.PRODUCTION``: (data 16,
+model 16) and (pod 2, data 16, model 16)), every family tensor-, expert-
+and sequence-parallel over "model", and needs exactly 256 or 512 ranks
+(``torchrun --nnodes 32 --nproc-per-node 8 ...``); with fewer it raises
+``PlanError``, and it never falls back to fewer ranks.  ``--grad-compress``
+takes effect only on a mesh with a "pod" axis (``multi``), as the
+reference's does: the int8 error-feedback step (``ef_init``).
 """
 from __future__ import annotations
 
@@ -60,11 +63,11 @@ from ..kernels.ops import resolve_device
 from ..models import init_params, load_reference, reference_like, to_reference
 from ..models.transformer import ArchConfig, check_supported, param_specs
 from ..train import (AdamW, CheckpointStore, HeartbeatMonitor,
-                     StragglerPolicy, cosine_schedule, make_train_step,
-                     resume_latest)
+                     StragglerPolicy, cosine_schedule, ef_init,
+                     make_train_step, resume_latest)
 from ..sharding import distribute, make_ctx, whole
 from .mesh import (env_world_size, host_mesh_shape, make_host_mesh,
-                   mesh_shape, world_size)
+                   make_production_mesh, mesh_shape, world_size)
 
 # checkpoints go under the checkout's git-ignored build directory
 DEFAULT_CKPT_DIR = Path(__file__).resolve().parents[3] / "build" / "train_ckpt"
@@ -167,6 +170,9 @@ def train(cfg: ArchConfig, model, ds: VersionedDataset, data_vid: int, *,
     opt = AdamW(lr=cosine_schedule(lr, warmup=10, total=steps))
     state = opt.init(model)
     step_fn = make_train_step(cfg, opt, grad_compress=grad_compress, ctx=ctx)
+    # the compressed step carries the pods' residuals (a "pod" axis only)
+    ef = (ef_init(model, ctx.size("pod"), ctx) if grad_compress
+          and ctx is not None and "pod" in ctx.mesh.mesh_dim_names else None)
     lead = ctx is None or torch.distributed.get_rank() == 0
     if not lead:
         log = _quiet
@@ -183,7 +189,10 @@ def train(cfg: ArchConfig, model, ds: VersionedDataset, data_vid: int, *,
                         if straggler_p else None,
                         n_hosts=4 if straggler_p else 1):
         ts = time.perf_counter()
-        model, state, m = step_fn(model, state, b)
+        if ef is None:
+            model, state, m = step_fn(model, state, b)
+        else:
+            model, state, ef, m = step_fn(model, state, ef, b)
         loss = float(m["loss"])                    # waits for the step
         dt = time.perf_counter() - ts
         for h in range(4):
@@ -259,11 +268,6 @@ def main(argv=None) -> int:
                     help="stop after this many steps of this run, as a "
                          "preempted job would (0 = run to --steps)")
     args = ap.parse_args(argv)
-    if args.mesh != "host":
-        raise ValueError(f"--mesh {args.mesh}: the production meshes (256 "
-                         "and 512 ranks, a model axis of 16) wait for "
-                         "ROADMAP A.11f-2c; the launcher trains on the data "
-                         "axis (--mesh host)")
 
     cfg = configs.get(configs.canonical(args.arch))
     if args.reduced:
@@ -273,10 +277,14 @@ def main(argv=None) -> int:
     check_supported(cfg)
     dev = resolve_device(args.device)
 
-    # several ranks (torchrun's environment): their data mesh; one rank
-    # needs no process group
+    # several ranks (torchrun's environment): their data mesh, or the
+    # production mesh asked for; one rank on the host mesh needs no group
     started = not torch.distributed.is_initialized()
-    ctx = make_ctx(make_host_mesh(dev)) if env_world_size() > 1 else None
+    if args.mesh != "host":
+        ctx = make_ctx(make_production_mesh(multi_pod=args.mesh == "multi",
+                                            device=dev))
+    else:
+        ctx = make_ctx(make_host_mesh(dev)) if env_world_size() > 1 else None
     lead = ctx is None or torch.distributed.get_rank() == 0
     log = print if lead else _quiet
     ds, data_vid = corpus(cfg, seq=args.seq, seed=args.seed, device=dev,

@@ -508,9 +508,11 @@ def _check_split(name: str, shape, parts) -> None:
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, fill_len: int = 0,
                device=None, ctx: Optional[MeshContext] = None) -> dict:
     """A zeroed cache on ``device`` (the card unless the caller names the
-    CPU), ``len`` = ``fill_len``; with ``ctx`` this rank's part of it, laid
-    out by ``cache_specs``."""
-    dev = resolve_device(device)
+    CPU; ``"meta"`` gives shapes alone, for the dry run), ``len`` =
+    ``fill_len``; with ``ctx`` this rank's part of it, laid out by
+    ``cache_specs``."""
+    meta = device is not None and torch.device(device).type == "meta"
+    dev = torch.device("meta") if meta else resolve_device(device)
     specs = cache_specs(cfg, batch) if ctx is not None else None
     out = {}
     for k, t in init_cache_abstract(cfg, batch, max_len).items():

@@ -1,7 +1,7 @@
 """The port's compile analysis on its own (no JAX): ``launch.op_count`` on
 ``meta`` tensors counts what the same step counts on the CPU, single ops
 count as worked out by hand, the breakdown sums to the totals, and the dry
-run's records and tables."""
+run's records and tables, on one card and on the production meshes."""
 import json
 
 import pytest
@@ -215,12 +215,31 @@ def test_decode_keeps_its_attention_bytes_on_the_kernel_path(smoke_shapes):
 
 
 @pytest.mark.parametrize("mesh", ["single", "multi", "both"])
-def test_only_the_host_mesh(mesh):
-    with pytest.raises(ValueError, match="A.11f"):
-        dryrun.main(["--mesh", mesh, "--all"])
-    if mesh != "both":
-        with pytest.raises(ValueError, match="A.11f"):
-            dryrun.run_cell("internlm2_1_8b", "decode_32k", mesh)
+def test_only_the_host_mesh(mesh, tmp_path):
+    """Not the host mesh only any more: ``--mesh single|multi|both`` writes
+    rank 0's record on each production mesh, with its ranks and its
+    collectives by the reference's five kinds; a mesh of no such name is
+    refused."""
+    out = str(tmp_path / "dry")
+    recs = dryrun.main(["--mesh", mesh, "--arch", "internlm2_1_8b",
+                        "--shape", "decode_32k", "--out", out])
+    meshes = ["single", "multi"] if mesh == "both" else [mesh]
+    assert [r["mesh"] for r in recs] == meshes
+    assert sorted(f.name for f in (tmp_path / "dry").iterdir()) == sorted(
+        f"internlm2_1_8b__decode_32k__{m}.json" for m in meshes)
+    for r in recs:
+        assert r["status"] == "ok", r.get("error")
+        assert r["chips"] == {"single": 256, "multi": 512}[r["mesh"]]
+        rf = r["roofline"]
+        assert rf["collective_bytes"] == sum(
+            rf["collective_breakdown"].values()) > 0
+        assert set(rf["collective_counts"]) == set(R.no_collectives()
+                                                  .count_by_kind)
+        assert rf["collective_s"] == rf["collective_bytes"] / R.LINK_BW
+        assert set(r["collectives_by_axis"]) <= {"pod", "data", "model"}
+        assert r["memory"]["fits_card"]
+    with pytest.raises(ValueError, match="one of"):
+        dryrun.run_cell("internlm2_1_8b", "decode_32k", "pods")
 
 
 def test_main_writes_records_and_the_report_reads_them(tmp_path, capsys):

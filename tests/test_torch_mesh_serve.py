@@ -31,8 +31,9 @@ ranks are held here.
 * The model group's collectives on the decode, by kind (the first five).
 * ``cache_specs`` equals the reference's, spec for spec, for every config
   at B 1 and B 4.
-* The serve launcher's production meshes (``--mesh single|multi``) raise,
-  naming ROADMAP A.11f-2c.
+* The serve launcher's production meshes (``--mesh single|multi``) refuse
+  a group of the wrong size and serve on one of theirs (patched to one
+  rank here; ``tests/test_torch_production_mesh.py`` runs four).
 """
 import json
 import os
@@ -255,6 +256,36 @@ def test_cache_specs_equal_the_reference(arch, batch):
 
 
 @pytest.mark.parametrize("mesh", ["single", "multi"])
-def test_serve_launcher_refuses_the_production_meshes(mesh):
-    with pytest.raises(ValueError, match="A.11f-2c"):
-        tserve.main(["--mesh", mesh, "--reduced", "--device", "cpu"])
+def test_serve_launcher_refuses_the_production_meshes(mesh, monkeypatch):
+    """The production mesh needs its 256 or 512 ranks: on one it raises
+    ``PlanError`` and starts no group; with its shape patched to one rank
+    the launcher serves on it (the parameters as DTensors, the cache laid
+    out by ``cache_specs``, the steps under the mesh context), its prefill
+    logits within ``SERVE_F32`` of the one-device serve's in float32."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.build import PlanError
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import layers as TL
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    argv = ["--mesh", mesh, "--reduced", "--device", "cpu", "--requests",
+            "2", "--prompt-len", "16", "--decode-steps", "2"]
+    ranks = {"single": 256, "multi": 512}[mesh]
+    with pytest.raises(PlanError, match=f"needs {ranks} ranks"):
+        tserve.main(argv)
+    assert not dist.is_initialized()
+    shape, names = M.PRODUCTION[mesh]
+    monkeypatch.setitem(M.PRODUCTION, mesh, ((1,) * len(shape), names))
+    monkeypatch.setattr(TL, "COMPUTE_DTYPE", torch.float32)
+    runs = []
+    real = tserve.serve
+    monkeypatch.setattr(tserve, "serve",
+                        lambda *a, **k: runs.append(real(*a, **k)) or runs[-1])
+    assert tserve.main(argv) == 0
+    assert not dist.is_initialized()
+    cfg = tserve.reduced_config(TC.get("internlm2_1_8b"))
+    alone = real(cfg, requests=2, prompt_len=16, decode_steps=2,
+                 device="cpu", log=lambda *a: None)
+    got, want = runs[0]["prefill_logits"], alone["prefill_logits"]
+    assert runs[0]["result"]["mesh"] == dict(zip(names, (1,) * len(names)))
+    assert float((got - want).norm() / want.norm()) <= SERVE_F32

@@ -621,10 +621,48 @@ def test_launcher_trains_and_resumes_end_to_end(tmp_path, capsys):
                                   "flash_attention": 0, "ssd_scan": 0}
 
 
-def test_launcher_refuses_a_multi_card_mesh(tmp_path):
-    with pytest.raises(ValueError, match="A.11f"):
-        ttrain.main(["--reduced", "--device", "cpu", "--mesh", "multi",
-                     "--ckpt-dir", str(tmp_path)])
+def test_launcher_refuses_a_multi_card_mesh(tmp_path, monkeypatch, capsys):
+    """The multi-pod mesh needs its 512 ranks: on one it raises
+    ``PlanError`` and starts no group; with its shape patched to one rank
+    (1, 1, 1) ``--mesh multi --grad-compress`` trains on it through the
+    compressed step, its losses ``make_train_step``'s on that mesh."""
+    from repro_torch.kernels.build import PlanError
+    from repro_torch.launch import mesh as M
+    from repro_torch.models.transformer import param_specs
+    from repro_torch.sharding import distribute, make_ctx
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    argv = ["--reduced", "--device", "cpu", "--mesh", "multi",
+            "--grad-compress", "--steps", "2", "--batch", "2", "--seq", "32",
+            "--ckpt-every", "0", "--ckpt-dir", str(tmp_path)]
+    with pytest.raises(PlanError, match="needs 512 ranks"):
+        ttrain.main(argv)
+    assert not torch.distributed.is_initialized()
+    monkeypatch.setitem(M.PRODUCTION, "multi",
+                        ((1, 1, 1), ("pod", "data", "model")))
+    capsys.readouterr()
+    ttrain.main(argv)
+    losses = json.loads(capsys.readouterr().out.strip().splitlines()[-1])[
+        "losses"]
+    assert not torch.distributed.is_initialized()
+    cfg = ttrain.reduced_config(TC.get("internlm2_1_8b"))
+    ds, vid = ttrain.corpus(cfg, seq=32, seed=0, device="cpu",
+                            log=ttrain._quiet)
+    ctx = make_ctx(M.make_production_mesh(multi_pod=True, device="cpu"))
+    try:
+        model = init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                            trainable=True)
+        distribute(model, param_specs(cfg), ctx.mesh)
+        opt = AdamW(lr=cosine_schedule(3e-4, warmup=10, total=2))
+        state, ef = opt.init(model), ef_init(model, 1, ctx)
+        step = make_train_step(cfg, opt, grad_compress=True, ctx=ctx)
+        want = []
+        for b in ds.batches(vid=vid, global_batch=2, seed=1, start_step=0,
+                            n_steps=2):
+            model, state, ef, m = step(model, state, ef, b)
+            want.append(float(m["loss"]))
+    finally:
+        torch.distributed.destroy_process_group()
+    assert losses == want
 
 
 def test_reduced_config_lives_in_the_train_launcher():

@@ -943,6 +943,129 @@ def _serve_case(rank, world, spec, out):
                              .items()}}, fh)
 
 
+def patched_production(shapes: dict):
+    """``launch.mesh.PRODUCTION`` with each kind's shape replaced by
+    ``shapes[kind]`` (the axes kept); returns the original."""
+    from repro_torch.launch import mesh as M
+    kept = dict(M.PRODUCTION)
+    for kind, shape in shapes.items():
+        M.PRODUCTION[kind] = (tuple(shape), kept[kind][1])
+    return kept
+
+
+def _direct_losses(spec, argv_kw, mesh_kind, compress):
+    """``make_train_step`` called directly on the production mesh with the
+    train launcher's model, optimizer and batches: the losses."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import param_specs
+    from repro_torch.sharding import distribute, make_ctx
+    from repro_torch.train import (AdamW, cosine_schedule, ef_init,
+                                   make_train_step)
+    cfg = T.reduced_config(configs.get(spec["arch"]))
+    ctx = make_ctx(make_production_mesh(multi_pod=mesh_kind == "multi",
+                                        device="cpu"))
+    ds, vid = T.corpus(cfg, seq=argv_kw["seq"], seed=0, device="cpu",
+                       log=T._quiet)
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                        trainable=True)
+    distribute(model, param_specs(cfg), ctx.mesh)
+    opt = AdamW(lr=cosine_schedule(3e-4, warmup=10,
+                                   total=argv_kw["steps"]))
+    state = opt.init(model)
+    step = make_train_step(cfg, opt, grad_compress=compress, ctx=ctx)
+    ef = ef_init(model, ctx.size("pod"), ctx) if compress else None
+    losses = []
+    for b in ds.batches(vid=vid, global_batch=argv_kw["batch"], seed=1,
+                        start_step=0, n_steps=argv_kw["steps"]):
+        if ef is None:
+            model, state, m = step(model, state, b)
+        else:
+            model, state, ef, m = step(model, state, ef, b)
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def _production_launchers_case(rank, world, spec, out):
+    """The launchers on the production meshes, their shapes patched to
+    ``spec["shapes"]`` (this group's ranks): ``launch.train --mesh
+    single``, ``--mesh multi`` and ``--mesh multi --grad-compress``, each
+    beside ``make_train_step`` called directly on that mesh, then
+    ``launch.serve --mesh single`` in float32 beside the one-device serve
+    of this rank's rows; and the unpatched meshes refused on this group.
+    Each rank writes what it saw."""
+    import contextlib
+    import io
+    from repro_torch.kernels.build import PlanError
+    from repro_torch.launch import serve as S
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_production_mesh
+    os.environ["WORLD_SIZE"] = str(world)
+    seen = {"refused": []}
+    for multi in (False, True):
+        try:
+            make_production_mesh(multi_pod=multi, device="cpu")
+            seen["refused"].append("ran")
+        except PlanError as exc:
+            seen["refused"].append(str(exc))
+    kept = patched_production(spec["shapes"])
+    try:
+        kw = spec["train"]
+        for mesh_kind, compress in (("single", False), ("multi", False),
+                                    ("multi", True)):
+            argv = ["--arch", spec["arch"], "--reduced", "--device", "cpu",
+                    "--mesh", mesh_kind, "--steps", str(kw["steps"]),
+                    "--batch", str(kw["batch"]), "--seq", str(kw["seq"]),
+                    "--ckpt-every", "0", "--ckpt-dir",
+                    f"{out}.ckpt{rank}-{mesh_kind}{int(compress)}"]
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                T.main(argv + (["--grad-compress"] if compress else []))
+            lines = buf.getvalue().strip().splitlines()
+            name = mesh_kind + ("_compressed" if compress else "")
+            seen[name] = {
+                "launcher": json.loads(lines[-1])["losses"] if lines else None,
+                "printed": len(lines),
+                "direct": _direct_losses(spec, kw, mesh_kind, compress)}
+        kept_serve, runs = S.serve, []
+
+        def recording(*a, **k):
+            runs.append(kept_serve(*a, **k))
+            return runs[-1]
+
+        sv = spec["serve"]
+        argv = ["--arch", sv["arch"], "--reduced", "--device", "cpu",
+                "--mesh", "single", "--requests", str(sv["requests"]),
+                "--prompt-len", str(sv["prompt_len"]), "--decode-steps",
+                str(sv["decode_steps"])]
+        S.serve = recording
+        try:
+            with _f32(True), contextlib.redirect_stdout(io.StringIO()) as buf:
+                rc = S.main(argv)
+                from repro_torch import configs
+                cfg = T.reduced_config(configs.get(sv["arch"]))
+                alone = kept_serve(cfg, requests=sv["requests"],
+                                   prompt_len=sv["prompt_len"],
+                                   decode_steps=sv["decode_steps"],
+                                   device="cpu", log=T._quiet)
+        finally:
+            S.serve = kept_serve
+        data, model = spec["shapes"]["single"]
+        seen["serve"] = {"rc": rc, "dp_rank": rank // model, "dp": data,
+                         "printed": len(buf.getvalue().strip().splitlines())}
+        np.savez(f"{out}.serve{rank}.npz",
+                 mesh=runs[0]["prefill_logits"].numpy(),
+                 alone=alone["prefill_logits"].numpy())
+    finally:
+        from repro_torch.launch import mesh as M
+        M.PRODUCTION.update(kept)
+    with open(f"{out}.rank{rank}.json", "w") as fh:
+        json.dump(seen, fh)
+
+
 def run_cases(rank, world, cases):
     """Each ``(kind, spec, out)`` of ``cases`` in order on this group."""
     for kind, spec, out in cases:
@@ -952,7 +1075,9 @@ def run_cases(rank, world, cases):
          "tp_restore": _tp_restore_case, "tp_calls": _tp_calls_case,
          "remat_thread": _remat_thread_case,
          "seq_attention": _seq_attention_case, "ssd_layer": _ssd_layer_case,
-         "serve": _serve_case}[kind](rank, world, spec, out)
+         "serve": _serve_case,
+         "production_launchers": _production_launchers_case}[kind](
+             rank, world, spec, out)
 
 
 # ---------------------------------------------------------- reference ----
