@@ -60,9 +60,10 @@ Phases, each of which raises on failure:
    and ``segment_move`` at the real migration's, kernel against plain
    version, ``torch.index_select`` and the bandwidth bound;
 10. model kernels vs plain (run after phase 2) — ``flash_attention`` (GQA
-    groups 1-4 and MQA, Dh 16-256 with latent attention's padded 192, S
-    128-4173 and lengths off the tiles, causal or not; the instance each
-    bf16 case ran) and
+    groups 1-4 and MQA, Dh 16-256 and latent attention's q·k 192 with v
+    128 (bf16: the wgmma instance, v a view of wider rows), S 128-4173
+    and lengths off the tiles, causal or not; the instance each bf16 case
+    ran) and
     ``ssd_scan`` (chunk 16-256, N 16-128, P 16 and 64, 1-16 chunks, a
     decay-about-1 state-carry case in both dtypes) against their plain
     versions in float32 and bfloat16, allclose at the reference's
@@ -85,7 +86,10 @@ Phases, each of which raises on failure:
     own floor (flash's products with P·V twice; the scan's bytes with its
     float32 chunk states); after phase 17, flash again at OLMoE's first
     prefill layer's inputs (4, 512, 16, 16, 128: wgmma) and at
-    DeepSeek-V2-Lite's padded latent-attention inputs (Dh 192: mma_sync);
+    DeepSeek-V2-Lite's latent-attention inputs (q·k 192, v 128: wgmma),
+    v as the model passes it (``kv[..., qk_nope:]`` of 256-column rows,
+    read in place), beside the kernel on a contiguous copy of v, the old
+    path on v padded to 192 (mma_sync) and SDPA on both;
 14. durable multi-tenant path (run after phase 9) — a store of its own,
     built as phase 8 builds its own (the first 900 versions, LyreSplit at
     twice their records, no superblock budget), under ``StoreDurability``
@@ -126,7 +130,8 @@ Phases, each of which raises on failure:
     (kv_lora 512, qk 128 + 64, v 128, 64 routed experts top-6, 2 shared,
     vocab 102,400 tied) cut to ``MLA_DEPTH`` = 4 layers (the dense layer +
     3 MoE layers; 27 whole are 62 GB of float32 weights), the same
-    traffic and checks: 4 flash launches at Dh 192 (mma_sync);
+    traffic and checks: 4 flash launches at q·k 192, v 128 (wgmma, v
+    unpadded);
 17. the dense configs — Qwen1.5-4B, Mistral-NeMo-12B and Phi3-medium-14B
     at full width and vocab, 2 of 40 layers: 4 prompts of 128, 8 greedy
     tokens, the prefill check, 2 flash launches each;
@@ -2214,12 +2219,13 @@ def _close_err(got, want, tol: float) -> tuple:
 
 
 def flash_cases(torch):
-    """(B, Sq, Sk, H, Hkv, Dh, causal, dtype): GQA groups 1, 2, 4 and 3 and
-    MQA; Dh 16, 32, 64, 80 and 128 (bf16: the wgmma instance), 72, 192
-    (latent attention's padded core) and 256 (bf16: the mma.sync
-    instance); S from 128 to 4096 + 77, and lengths off the 128- and
-    64-row tiles (200, 4173, 130, 300 against Sk 136, 333, and Sk 192
-    against Sq 128); causal and not; float32 and bfloat16."""
+    """(B, Sq, Sk, H, Hkv, Dqk, Dv, causal, dtype): GQA groups 1, 2, 4 and 3
+    and MQA; Dh 16, 32, 64, 80 and 128 (bf16: the wgmma instance), 72, 192
+    and 256 (bf16: the mma.sync instance), and latent attention's
+    (192, 128) (bf16: the wgmma instance; causal and not, GQA, a ragged S
+    of 333 and Sq != Sk); S from 128 to 4096 + 77, and lengths off the
+    128- and 64-row tiles (200, 4173, 130, 300 against Sk 136, 333, and
+    Sk 192 against Sq 128); causal and not; float32 and bfloat16."""
     shapes = [(2, 128, 128, 4, 4, 16, True), (1, 256, 256, 8, 4, 64, False),
               (2, 512, 512, 8, 2, 80, True), (1, 1024, 1024, 4, 1, 128, True),
               (1, 384, 384, 6, 2, 80, False), (1, 200, 200, 4, 2, 64, True),
@@ -2227,8 +2233,12 @@ def flash_cases(torch):
               (2, 300, 136, 4, 2, 64, False), (1, 200, 200, 8, 2, 128, True),
               (1, 130, 130, 4, 2, 72, True), (1, 384, 384, 2, 2, 256, True),
               (1, 512, 512, 4, 4, 192, True), (2, 333, 333, 2, 2, 192, True)]
-    return [s + (dt,) for s in shapes
-            for dt in (torch.float32, torch.bfloat16)]
+    cases = [(b, sq, sk, h, hkv, d, d, c) for b, sq, sk, h, hkv, d, c in shapes]
+    cases += [(1, 512, 512, 4, 4, 192, 128, True),
+              (2, 333, 333, 4, 2, 192, 128, True),
+              (1, 256, 256, 4, 1, 192, 128, False),
+              (2, 200, 328, 2, 2, 192, 128, False)]
+    return [c + (dt,) for c in cases for dt in (torch.float32, torch.bfloat16)]
 
 
 def ssd_cases(torch):
@@ -2261,17 +2271,25 @@ def phase_model_small(torch, report: dict) -> None:
     worst: dict = {}
     instances: dict = {}
     n = 0
-    for b, sq, sk, h, hkv, dh, causal, dtype in flash_cases(torch):
+    for b, sq, sk, h, hkv, dh, dv, causal, dtype in flash_cases(torch):
         q = randn((b, sq, h, dh), dtype)
-        k, v = randn((b, sk, hkv, dh), dtype), randn((b, sk, hkv, dh), dtype)
+        k = randn((b, sk, hkv, dh), dtype)
+        # a narrower v as latent attention makes it: kv[..., dn:] of rows
+        # dn + dv wide, dn = dh - 64 (DeepSeek-V2's qk_nope and qk_rope)
+        dn = dh - 64
+        kv = randn((b, sk, hkv, dn + dv), dtype) if dv != dh else None
+        v = kv[..., dn:] if dv != dh else randn((b, sk, hkv, dh), dtype)
         which = fa.instance(q, k, v)
         instances[which] = instances.get(which, 0) + 1
+        if dtype == torch.bfloat16 and (dh, dv) == (192, 128) \
+                and which != "wgmma":
+            raise AssertionError(f"flash (192, 128) bf16 ran {which}")
         got = ops.flash_attention(q, k, v, causal)
         want = fa.flash_attention_plain(q, k, v, causal)
         torch.cuda.synchronize()
         ok, err = _close_err(got, want, FLASH_TOL[str(dtype)])
-        if not ok or got.dtype != dtype:
-            raise AssertionError(f"flash_attention != plain at {(b, sq, sk, h, hkv, dh, causal, dtype)}: max abs err {err}")
+        if not ok or got.dtype != dtype or got.shape != (b, sq, h, dv):
+            raise AssertionError(f"flash_attention != plain at {(b, sq, sk, h, hkv, dh, dv, causal, dtype)}: max abs err {err}")
         key = f"flash_attention {dtype}"
         worst[key] = max(worst.get(key, 0.0), err)
         n += 1
@@ -2493,8 +2511,9 @@ def flash_timing(torch, q, k, v, causal: bool) -> dict:
     beyond that rounding), then the kernel's, the plain version's and
     ``scaled_dot_product_attention``'s times (CUDA events), the bytes
     (each input read and the output written once) and the operations (the
-    (query, key) pairs the causal mask keeps), and the design's own
-    products (P·V twice, P as hi + lo bf16 terms)."""
+    (query, key) pairs the causal mask keeps, Q·Kᵀ over Dqk and P·V over
+    Dv), and the design's own products (P·V twice, P as hi + lo bf16
+    terms)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     got = fa._launch(q, k, v, causal)
@@ -2506,7 +2525,7 @@ def flash_timing(torch, q, k, v, causal: bool) -> dict:
     rel_l2 = float((got.float() - exact).norm() / exact.norm())
     del got, exact
     b, s, h, dh = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
+    sk, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
     esz = q.element_size()
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
@@ -2520,19 +2539,25 @@ def flash_timing(torch, q, k, v, causal: bool) -> dict:
     # a causal mask aligns the first query with the first key: query i
     # keeps min(i + 1, Sk) keys
     pairs = (sum(min(i + 1, sk) for i in range(s)) if causal else s * sk)
+    shape = [b, s, h, hkv, dh] if s == sk else [b, s, sk, h, hkv, dh]
     return {
-        "shape": [b, s, h, hkv, dh] if s == sk else [b, s, sk, h, hkv, dh],
+        "shape": shape + ([dv] if dv != dh else []),
         "causal": causal, "dtype": str(q.dtype),
         "instance": fa.instance(q, k, v),
-        "bytes_min": (2 * b * s * h * dh + 2 * b * sk * hkv * dh) * esz,
-        "operations": 4 * b * h * dh * pairs,
-        "design_operations": 6 * b * h * dh * pairs,
+        "bytes_min": (b * s * h * (dh + dv) + b * sk * hkv * (dh + dv)) * esz,
+        "operations": 2 * b * h * pairs * (dh + dv),
+        "design_operations": 2 * b * h * pairs * (dh + 2 * dv),
         "max_abs_err": err, "library_max_abs_err": lib_err,
         "rel_l2_vs_float32": rel_l2,
         "ms": cuda_ms(torch, lambda: fa._launch(q, k, v, causal), 5),
+        # the same launches queued behind a spin: the kernel's own time,
+        # where the host's launch path is longer than a short kernel
+        "queued_ms": queued_ms(torch, lambda: fa._launch(q, k, v, causal),
+                               20),
         "plain_ms": cuda_ms(torch, lambda: fa.flash_attention_plain(
             q, k, v, causal), 2),
-        "library_ms": cuda_ms(torch, sdpa, 10)}
+        "library_ms": cuda_ms(torch, sdpa, 10),
+        "library_queued_ms": queued_ms(torch, sdpa, 20)}
 
 
 def bound_and_print(torch, name: str, o: dict) -> None:
@@ -2553,6 +2578,9 @@ def bound_and_print(torch, name: str, o: dict) -> None:
         o["design_floor_ms"] = 1e3 * o["design_operations"] / rate
     lib = ("none: no single call" if o["library_ms"] is None else
            f"scaled_dot_product_attention {o['library_ms']:.4f} ms")
+    if "queued_ms" in o:
+        lib += (f" (queued behind a spin: kernel {o['queued_ms']:.4f} ms, "
+                f"SDPA {o['library_queued_ms']:.4f} ms)")
     print(f"{name} {o['shape']} {o['dtype']} ({o['bytes_min'] / 1e6:.1f} "
           f"MB, {o['operations'] / 1e9:.2f} GFLOP): kernel "
           f"{o['ms']:.4f} ms ({o['achieved_tflops']:.1f} TFLOP/s), plain "
@@ -3153,7 +3181,7 @@ def phase_families(torch, seed: int, report: dict) -> dict:
     phase_family_serve(torch, dataclasses.replace(configs.get(MLA_ARCH),
                                                   n_layers=MLA_DEPTH),
                        prompt_len=SERVE_PROMPT, decode=SERVE_DECODE,
-                       seed=seed, instance="mma_sync", report=report,
+                       seed=seed, instance="wgmma", report=report,
                        key="mla_serve", captured=captured)
     dense = {}
     for arch in DENSE_ARCHS:
@@ -3169,14 +3197,73 @@ def phase_families(torch, seed: int, report: dict) -> dict:
 def phase_family_flash_timing(torch, captured: dict, report: dict) -> None:
     """Phase 13's flash timing (``flash_timing``) again at OLMoE's first
     layer's prefill inputs (Dh 128, the wgmma instance) and at
-    DeepSeek-V2-Lite's padded latent-attention inputs (Dh 192, the
-    mma_sync instance)."""
+    DeepSeek-V2-Lite's latent-attention inputs (q·k 192, v 128: the
+    (192, 128) wgmma instance), v as the model passes it: the view
+    ``kv[..., qk_nope:]`` of rows qk_nope + v_head wide, read in place.
+    Beside the latter: the kernel on a contiguous copy of v (what reading
+    v in place saves), and the old path on v zero-padded to 192 (the
+    mma.sync instance, sliced back) with SDPA on the same padded inputs,
+    so the row's earlier yardstick stays comparable."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
     out = {}
     for key in ("moe_serve", "mla_serve"):
         q, k, v, causal = captured.pop(key)
+        if v.shape[3] != q.shape[3] and fa.v_pitch(v) == v.shape[3]:
+            raise AssertionError(f"{report[key]['arch']}'s prefill passed v "
+                                 f"contiguous, not the view of kv's rows")
         out[key] = flash_timing(torch, q, k, v, causal)
         bound_and_print(torch, f"flash_attention at {report[key]['arch']}'s "
                         f"prefill", out[key])
+        if v.shape[3] != q.shape[3]:
+            dqk, dv = q.shape[3], v.shape[3]
+            pitch = fa.v_pitch(v) * v.element_size()
+            vc = v.contiguous()
+            got = fa._launch(q, k, vc, causal)
+            want = fa.flash_attention_plain(q, k, v, causal)
+            cont_ok, cont_err = _close_err(got, want, FLASH_TOL[str(q.dtype)])
+            vp = F.pad(v, (0, dqk - dv))
+            old = fa._launch(q, k, vp, causal)[..., :dv]
+            pad_ok, pad_err = _close_err(old, want, FLASH_TOL[str(q.dtype)])
+            if not (cont_ok and pad_ok):
+                raise AssertionError(f"latent flash on a contiguous v "
+                                     f"({cont_err}) or padded ({pad_err}) "
+                                     f"!= plain")
+            qt, kt, vpt = (x.transpose(1, 2) for x in (q, k, vp))
+            def padded_sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vpt,
+                                                      is_causal=causal)
+
+            out[key].update({
+                "v_pitch_bytes": pitch,
+                "contiguous_ms": cuda_ms(torch, lambda: fa._launch(
+                    q, k, vc, causal), 5),
+                "contiguous_queued_ms": queued_ms(torch, lambda: fa._launch(
+                    q, k, vc, causal), 20),
+                "contiguous_max_abs_err": cont_err,
+                "padded_instance": fa.instance(q, k, vp),
+                "padded_ms": cuda_ms(torch, lambda: fa._launch(
+                    q, k, vp, causal), 5),
+                "padded_queued_ms": queued_ms(torch, lambda: fa._launch(
+                    q, k, vp, causal), 20),
+                "padded_max_abs_err": pad_err,
+                "padded_library_ms": cuda_ms(torch, padded_sdpa, 10),
+                "padded_library_queued_ms": queued_ms(torch, padded_sdpa,
+                                                      20)})
+            o = out[key]
+            print(f"  latent flash: v read in place at the model's "
+                  f"{pitch}-byte row pitch (above); on a contiguous copy "
+                  f"{o['contiguous_ms']:.4f} ms, queued "
+                  f"{o['contiguous_queued_ms']:.4f} (max abs err "
+                  f"{cont_err:.3e}); the old path on v padded to {dqk} "
+                  f"({o['padded_instance']}) {o['padded_ms']:.4f} ms, queued "
+                  f"{o['padded_queued_ms']:.4f}, SDPA on the padded inputs "
+                  f"{o['padded_library_ms']:.4f} ms, queued "
+                  f"{o['padded_library_queued_ms']:.4f}; the "
+                  f"{o['instance']} instance "
+                  f"{o['queued_ms'] / o['padded_queued_ms']:.3f}x the old "
+                  f"path (queued)")
+            del vc, got, want, vp, old, qt, kt, vpt
         del q, k, v
     torch.cuda.synchronize()
     report["family_flash_timing"] = out
@@ -3185,15 +3272,20 @@ def phase_family_flash_timing(torch, captured: dict, report: dict) -> None:
 def capture_flash_kinds(torch, captured: dict):
     """A stand-in for ``flash_attention``'s counted launch that keeps a copy
     of the first call's inputs of each kind, ``captured[(Sq, Sk,
-    causal)]``, and launches (and counts) as the real one does; returns the
-    real one, to put back."""
+    causal)]``, each with the strides it came with (a v read in place as a
+    view keeps its row pitch), and launches (and counts) as the real one
+    does; returns the real one, to put back."""
     from repro_torch.kernels import flash_attention as fa
     real = fa._launch
+
+    def copy(x):
+        return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype,
+                                   device=x.device).copy_(x)
 
     def launch(q, k, v, causal):
         kind = (q.shape[1], k.shape[1], bool(causal))
         if kind not in captured:
-            captured[kind] = [q.clone(), k.clone(), v.clone(), causal]
+            captured[kind] = [copy(q), copy(k), copy(v), causal]
         return real(q, k, v, causal)
     fa._launch = launch
     return real

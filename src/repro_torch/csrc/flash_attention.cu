@@ -2,12 +2,15 @@
 // for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py::flash_attention_fwd
-// (kernel body _flash_fwd_kernel).  For q (B, Sq, H, Dh) and k, v (B, Sk, Hkv, Dh), float32 or
-// bfloat16, with query head h reading kv head h / (H / Hkv):
+// (kernel body _flash_fwd_kernel).  For q (B, Sq, H, Dqk), k (B, Sk, Hkv, Dqk) and
+// v (B, Sk, Hkv, Dv), Dv <= Dqk, float32 or bfloat16, with query head h reading kv head
+// h / (H / Hkv):
 //
-//   out[b, i, h] = sum_j softmax_j(q[b, i, h] . k[b, j, hk] / sqrt(Dh), causal: j <= i) v[b, j, hk]
+//   out[b, i, h] = sum_j softmax_j(q[b, i, h] . k[b, j, hk] / sqrt(Dqk), causal: j <= i) v[b, j, hk]
 //
-// in float32 inside, the output in the operands' dtype.
+// in float32 inside, the output (B, Sq, H, Dv) in the operands' dtype.  The TPU kernel takes
+// one head dim; a v narrower than q is what latent attention computes (DeepSeek-V2: q.k width
+// 128 + 64, v width 128), which the TPU kernel gets by zero-padding v.
 //
 // The TPU kernel walks a (B*H, Sq/BQ, Sk/BK) grid whose trailing key axis runs in order, so
 // its VMEM scratch (acc, row max m, row sum l) carries from one key tile to the next.  Hopper
@@ -15,49 +18,59 @@
 // the key tiles itself, the online-softmax state on chip.  With `causal` the loop stops at the
 // tile holding the diagonal, and the query tiles are issued longest-first, so the short causal
 // rows fill the tail of the grid.  Scores outside the mask are -1e30 (NEG_INF) and a zero row
-// sum divides by 1, as in the TPU kernel.  The kernels read q, k and v in their (B, S, H, Dh)
-// layout: no transposed copy is made.  Sq and Sk are any positive lengths (the TPU kernel takes
-// multiples of its 128-row tiles): rows past Sq or Sk load as zeros, keys past Sk are masked,
-// rows past Sq are not written.  Three instances, chosen by dtype and Dh alone (the rule is
-// instance_of, which the wrapper also reads):
-//   * bfloat16, Dh a multiple of 16 up to 128 (every model of the port: Zamba2 80,
-//     InternLM2 128): flash_fwd_wgmma_kernel.  TMA needs q, k and v 16-byte aligned; the
+// sum divides by 1, as in the TPU kernel.  The kernels read q, k and v in their (B, S, H, D)
+// layout: no transposed copy is made, and the wgmma instance reads v's rows at a pitch past Dv
+// (v_ld: the view kv[..., dn:] of latent attention's expanded K/V is read in place; the other
+// instances take v contiguous).  Sq and Sk are any
+// positive lengths (the TPU kernel takes multiples of its 128-row tiles): rows past Sq or Sk
+// load as zeros, keys past Sk are masked, rows past Sq are not written.  Three instances,
+// chosen by dtype and the two widths alone (the rule is instance_of, which the wrapper also
+// reads; for any other Dv < Dqk the wrapper zero-pads v to Dqk and runs (Dqk, Dqk)):
+//   * bfloat16 with (Dqk, Dv) = (Dh, Dh), Dh a multiple of 16 up to 128 (Zamba2 80,
+//     InternLM2 128), or (192, 128) (DeepSeek-V2-Lite's latent attention):
+//     flash_fwd_wgmma_kernel.  TMA needs q, k and v 16-byte aligned (v's row pitch too); the
 //     wrapper copies a view that starts off a 16-byte boundary, and the tensor map refuses
 //     one that reaches the entry point (cudaErrorInvalidValue).  A block owns 128 query rows,
-//     two consumer warpgroups of 64 and one producer warp that keeps 128-row K and V tiles in
-//     flight by TMA (cp.async.bulk.tensor, 4-D maps over (Dh, heads, seq, batch), so rows past
-//     the sequence are zeros) in a ring of 3 slots on mbarriers.  S = Q K^T is wgmma
-//     m64n128k16 from shared memory; P V is wgmma with P in registers (the S accumulators
-//     convert in place to A fragments) and V in its (key, d) layout through the descriptor's
-//     transpose.  The softmax runs in the log2 domain (ex2.approx, log2e folded in the scale)
-//     and masks only the tiles that cross the diagonal or Sk.  Dh = 80 rows are 160 bytes,
-//     wider than the 128-byte swizzle span.  For Q K^T (K = Dh) the head dim is cut into
+//     two consumer warpgroups of 64 and one producer warp that keeps K and V tiles in
+//     flight by TMA (cp.async.bulk.tensor, 4-D maps over (D, heads, seq, batch), so rows past
+//     the sequence are zeros) in a ring on mbarriers of 128-key tiles: 3 slots for Dqk <= 128;
+//     at (192, 128) the Q tile is 48 KB and a slot 48 + 32 KB, so 2 slots (208 KB; 64-key
+//     tiles in 3 slots, 168 KB, measured no faster).  S = Q K^T is wgmma m64n128k16 from
+//     shared memory; P V is wgmma with P in registers (the S accumulators convert in place to
+//     A fragments) and V in its (key, d) layout through the descriptor's transpose.  The
+//     softmax runs in the log2 domain (ex2.approx, log2e folded in the scale 1/sqrt(Dqk)) and
+//     masks only the tiles that cross the diagonal or Sk.  Rows of 80 or 192 columns are
+//     wider than the 128-byte swizzle span.  For Q K^T (K = Dqk) the head dim is cut into
 //     pieces a span wide (64 + 16 for 80: a 128B-swizzled box and a 32B-swizzled box, each
-//     with its own tensor map and descriptors), not padded to 128 (which would cost 1.6x the
-//     Q K^T work).  For P V (N = Dh) V lands as 64-column atoms, 128B-swizzled, the last one
-//     zero-filled by TMA past Dh (columns 80-127 at Dh 80: smem, not products), so one wgmma
-//     m64n80k16 covers the head dim (one instruction per piece measured 9% slower).
-//   * bfloat16 otherwise (Dh not a multiple of 16, or Dh past 128):
+//     with its own tensor map and descriptors; 64 + 64 + 64 for 192), not padded (to 128 that
+//     would cost 1.6x the Q K^T work at 80; to 256, 1.33x at 192).  For P V (N = Dv) V lands
+//     as 64-column atoms, 128B-swizzled, the last one zero-filled by TMA past Dv (columns
+//     80-127 at Dv 80: smem, not products), so one wgmma m64n{Dv}k16 covers the head dim (one
+//     instruction per piece measured 9% slower).  The O accumulators are Dv wide: at
+//     (192, 128) a thread holds the registers of the (128, 128) instance.
+//   * bfloat16 otherwise (Dh not a multiple of 16, or Dh past 128, Dv = Dqk):
 //     flash_fwd_mma_kernel, 64-row tiles with both products on mma.sync m16n8k16.
-//   * float32: flash_fwd_kernel, float32 FMAs on the CUDA cores with the score tile in
-//     shared memory, so float32 callers keep float32 accuracy (the reference's 2e-5).
+//   * float32 (Dv = Dqk): flash_fwd_kernel, float32 FMAs on the CUDA cores with the score tile
+//     in shared memory, so float32 callers keep float32 accuracy (the reference's 2e-5).
 // The TPU kernel multiplies float32 probabilities by V; a bf16 product takes bf16 operands,
 // so both bf16 instances feed each probability as a pair of bf16 terms hi + lo (two
 // products for P V, 16 significant bits of p), not rounded to 8 bits: hi = bf16(p) and
 // lo = bf16(p - hi) (split_bf16, relative error at most 2^-17) in both.
 //
 // Bound: the bytes are q, k, v and out read or written once; the operations are
-// 4 * B * H * Dh (two products) times the (query, key) pairs the mask keeps (Sq * Sk, or
-// S (S + 1) / 2 causal), at the card's rate for the operands' type (bf16: 989 TFLOP/s dense
-// on the tensor cores).  At Zamba2-2.7B's attention with B = 4, S = 4096, H = Hkv = 32,
+// 2 * B * H * (Dqk + Dv) (two products) times the (query, key) pairs the mask keeps (Sq * Sk,
+// or S (S + 1) / 2 causal), at the card's rate for the operands' type (bf16: 989 TFLOP/s
+// dense on the tensor cores).  At Zamba2-2.7B's attention with B = 4, S = 4096, H = Hkv = 32,
 // Dh = 80 in bf16: 336 MB (0.10 ms at 3.35 TB/s) and 344 GFLOP (0.35 ms): bound by
-// operations.  The hi + lo split issues P V twice (1.5x the function's products, a floor of
-// 0.52 ms), and whole 128 x 128 tiles on the diagonal add the masked half of each.  This
-// design keeps the loads off the consumers' path (TMA, up to three tiles ahead) but runs each
-// warpgroup's products and its softmax one after the other; overlapping them within a
-// warpgroup (two S tiles in flight) needs registers past the 168 a thread this block gets,
-// and making the two warpgroups take strict turns (FA3's ping-pong, with a producer
-// warpgroup and setmaxnreg) measured only 2% faster.  Plain C entry point, loaded with ctypes.
+// operations.  At DeepSeek-V2-Lite's prefill (B = 4, S = 512, H = Hkv = 16, (192, 128)):
+// 41.9 MB (0.0125 ms) and 5.38 GFLOP (0.0054 ms): bound by bytes.  The hi + lo split issues
+// P V twice (2 * B * H * (Dqk + 2 Dv) * pairs, a floor of 0.52 ms at Zamba2), and whole tiles
+// on the diagonal add the masked half of each.  This design keeps the loads off the
+// consumers' path (TMA, up to three tiles ahead) but runs each warpgroup's products and its
+// softmax one after the other; overlapping them within a warpgroup (two S tiles in flight)
+// needs registers past the 168 a thread this block gets, and making the two warpgroups take
+// strict turns (FA3's ping-pong, with a producer warpgroup and setmaxnreg) measured only 2%
+// faster.  Plain C entry point, loaded with ctypes.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -452,42 +465,64 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, i
   return cudaGetLastError();
 }
 
-// ---- bfloat16, Dh a multiple of 16 up to 128: wgmma + TMA with a pipelined K/V ring ----
+// ---- bfloat16 wgmma + TMA with a pipelined K/V ring: (Dh, Dh) for Dh a multiple of 16 up to
+// 128, and (192, 128), latent attention's q.k and v widths ----
 
 namespace wg {
 
-constexpr int kRows = 128;              // query rows of a block; key rows of a K/V tile
-constexpr int kStages = 3;              // K/V tiles in flight
+constexpr int kRows = 128;              // query rows of a block
+constexpr int kKeys = 128;              // key rows of a K/V tile
 constexpr int kConsumers = 256;         // two consumer warpgroups of 64 query rows each
 constexpr int kThreads = kConsumers + 32;   // + one producer warp
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr size_t kMaxSmem = 232448;     // dynamic shared memory a block can have (227 KB)
 
-// The head dim in pieces a swizzle span wide: 64 columns (128-byte rows, 128B swizzle), then
-// 32 (64B) and 16 (32B).  Dh = 80 is 64 + 16, 112 is 64 + 32 + 16, 128 is 64 + 64.
+// A head dim in pieces a swizzle span wide: 64 columns (128-byte rows, 128B swizzle), then
+// 32 (64B) and 16 (32B).  Dh = 80 is 64 + 16, 112 is 64 + 32 + 16, 128 is 64 + 64, 192 is
+// 64 + 64 + 64.
 template <int DH>
 struct Pieces {
   static constexpr int w0 = DH >= 64 ? 64 : (DH >= 32 ? 32 : 16);
   static constexpr int r0 = DH - w0;
   static constexpr int w1 = r0 >= 64 ? 64 : (r0 >= 32 ? 32 : (r0 >= 16 ? 16 : 0));
   static constexpr int r1 = r0 - w1;
-  static constexpr int w2 = r1 >= 32 ? 32 : (r1 >= 16 ? 16 : 0);
-  static_assert(DH % 16 == 0 && DH <= 128 && r1 - w2 == 0, "Dh a multiple of 16 up to 128");
+  static constexpr int w2 = r1 >= 64 ? 64 : (r1 >= 32 ? 32 : (r1 >= 16 ? 16 : 0));
+  static_assert(DH % 16 == 0 && DH <= 192 && r1 - w2 == 0,
+                "Dh a multiple of 16 up to 192, in at most three pieces");
   static constexpr int count = 1 + (w1 > 0) + (w2 > 0);
   __host__ __device__ static constexpr int width(int p) { return p == 0 ? w0 : (p == 1 ? w1 : w2); }
   __host__ __device__ static constexpr int col(int p) {
     return p == 0 ? 0 : (p == 1 ? w0 : w0 + w1);
   }
-  // byte offset of piece p in a 128-row tile: the pieces lie one after another
-  __host__ __device__ static constexpr uint32_t offset(int p) {
-    return static_cast<uint32_t>(kRows * 2 * col(p));
+};
+
+// The tiles of the (DQK, DV) instance.  Q and K are cut into the pieces of DQK, which lie one
+// after another in a tile (a piece of `rows` rows takes rows * 2 * width bytes).  V lands as
+// atoms a swizzle span wide (the last one zero-filled past DV), so that one wgmma of width DV
+// reads all of them through the descriptor's leading offset; DV also sets the O accumulators
+// and the output's columns.
+template <int DQK, int DV>
+struct Tiles {
+  using QK = Pieces<DQK>;
+  static constexpr int stages = DQK > 128 ? 2 : 3;   // K/V tiles in flight
+  static_assert(DV % 16 == 0 && DV <= 128 && DV <= DQK, "DV a multiple of 16 up to 128");
+  static constexpr uint32_t q_bytes = kRows * 2 * DQK;
+  static constexpr uint32_t k_bytes = kKeys * 2 * DQK;
+  __host__ __device__ static constexpr uint32_t q_offset(int p) {
+    return static_cast<uint32_t>(kRows * 2 * QK::col(p));
   }
-  static constexpr uint32_t tile_bytes = kRows * 2 * DH;
-  // V as atoms a swizzle span wide (the last one zero-filled past Dh), so that one wgmma of
-  // width Dh reads all of them through the descriptor's leading offset
-  static constexpr int v_atom = DH >= 64 ? 64 : (DH >= 32 ? 32 : 16);
-  static constexpr int v_atoms = (DH + v_atom - 1) / v_atom;
-  static constexpr uint32_t v_atom_bytes = kRows * 2 * v_atom;
-  static constexpr uint32_t v_tile_bytes = v_atom_bytes * v_atoms;
+  __host__ __device__ static constexpr uint32_t k_offset(int p) {
+    return static_cast<uint32_t>(kKeys * 2 * QK::col(p));
+  }
+  static constexpr int v_atom = DV >= 64 ? 64 : (DV >= 32 ? 32 : 16);
+  static constexpr int v_atoms = (DV + v_atom - 1) / v_atom;
+  static constexpr uint32_t v_atom_bytes = kKeys * 2 * v_atom;
+  static constexpr uint32_t v_bytes = v_atom_bytes * v_atoms;
+  static constexpr uint32_t slot_bytes = k_bytes + v_bytes;
+  // 1024 for aligning the swizzled tiles, Q, the ring, then full[s], empty[s] and Q's barrier
+  static constexpr size_t smem = 1024 + q_bytes + static_cast<size_t>(slot_bytes) * stages +
+                                 8 * (2 * stages + 1);
+  static_assert(smem <= kMaxSmem, "the tiles must fit a block's shared memory");
 };
 
 // The wgmma descriptor's layout for a piece of `w` columns: 1 = 128B, 2 = 64B, 3 = 32B swizzle.
@@ -495,7 +530,7 @@ __host__ __device__ constexpr uint32_t layout_of(int w) {
   return w == 64 ? 1u : (w == 32 ? 2u : 3u);
 }
 
-// Tensor maps, 4-D over (Dh, heads, seq, batch), whose box is (width, 1, 128, 1); rows past the
+// Tensor maps, 4-D over (Dh, heads, seq, batch), whose box is (width, 1, 128, 1): rows past the
 // sequence and columns past Dh come in as zeros.  One map for each head-dim piece of q and k,
 // and one for the V atoms (v_atom wide).
 struct Maps {
@@ -591,8 +626,7 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
 
 // d (64 x 128, float32) = A (64 x 16) B (16 x 128) (+ d when scale_d), both bf16 from shared
 // memory through descriptors, both K-major.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                              int scale_d) {
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -752,41 +786,36 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int DH>
-constexpr size_t smem_bytes() {
-  return 1024 + Pieces<DH>::tile_bytes +
-         static_cast<size_t>(Pieces<DH>::tile_bytes + Pieces<DH>::v_tile_bytes) * kStages +
-         8 * (2 * kStages + 1);
-}
-
-// The bfloat16 kernel for Dh a multiple of 16 up to 128.  A block owns 128 query rows of one
+// The bfloat16 wgmma kernel of q.k width DQK and v width DV.  A block owns 128 query rows of one
 // (batch, head): warps 0-7 are two consumer warpgroups of 64 rows, warp 8 the producer, whose
-// one thread loads Q once and keeps 128-row K and V tiles in flight by TMA in a ring of
-// kStages slots (a full and an empty mbarrier each).  Per K/V tile each consumer warpgroup
-//   * forms S = Q K^T with wgmma m64n128k16 from shared memory (Dh / 16 k steps),
+// one thread loads Q once and keeps K and V tiles of kKeys rows in flight by TMA in a
+// ring of Tiles::stages slots (a full and an empty mbarrier each).  Per K/V tile each consumer
+// warpgroup
+//   * forms S = Q K^T with wgmma m64n128k16 from shared memory (DQK / 16 k steps over the
+//     pieces of DQK),
 //   * runs the online softmax in registers in the log2 domain (ex2.approx, log2e folded
 //     into the scale), masking only a tile that crosses the diagonal or Sk,
 //   * converts the S accumulators in place into A fragments, each probability as the pair
 //     hi = bf16(p), lo = bf16(p - hi) (split_bf16), and adds P V with two wgmma of
-//     width Dh (A from registers) per 16 keys, V read in its natural (key, d) layout through
+//     width DV (A from registers) per 16 keys, V read in its natural (key, d) layout through
 //     the descriptor's transpose, in swizzle atoms v_atom columns wide that the descriptor's
 //     leading offset joins,
 //   * and releases the slot.  Rows past Sq are computed on zeros and not written.
-template <int DH>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ Maps maps, __nv_bfloat16* __restrict__ out,
                        int sq, int sk, int n_heads, int n_kv, int causal, float scale_log2) {
-  using PC = Pieces<DH>;
-  constexpr uint32_t kTile = PC::tile_bytes;
+  using T = Tiles<DQK, DV>;
+  using QK = typename T::QK;
+  constexpr int kStages = T::stages;
   extern __shared__ __align__(1024) unsigned char wg_smem[];
   const uint32_t raw = smem_u32(wg_smem);
   const uint32_t base = (raw + 1023u) & ~1023u;   // swizzled tiles sit on 1024-byte bounds
   const uint32_t sQ = base;
-  constexpr uint32_t kVTile = PC::v_tile_bytes;
-  const uint32_t bars = base + kTile + (kTile + kVTile) * kStages;
-  // slot s: K at sQ + kTile + s (kTile + kVTile), V right after; full[s], empty[s], then the
-  // Q barrier
-  auto k_slot = [&](int s) { return sQ + kTile + s * (kTile + kVTile); };
+  const uint32_t bars = base + T::q_bytes + T::slot_bytes * kStages;
+  // slot s: K at sQ + q_bytes + s slot_bytes, V right after; full[s], empty[s], then the Q
+  // barrier
+  auto k_slot = [&](int s) { return sQ + T::q_bytes + s * T::slot_bytes; };
   auto full = [&](int s) { return bars + 8u * s; };
   auto empty = [&](int s) { return bars + 8u * (kStages + s); };
   const uint32_t qbar = bars + 8u * 2 * kStages;
@@ -797,7 +826,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ Maps maps, __nv_bfloat16* __restr
   const int h = blockIdx.y - b * n_heads;
   const int hk = h / (n_heads / n_kv);
   const int k_end = causal ? min(sk, q0 + kRows) : sk;
-  const int n_kt = (k_end + kRows - 1) / kRows;
+  const int n_kt = (k_end + kKeys - 1) / kKeys;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -812,24 +841,24 @@ flash_fwd_wgmma_kernel(const __grid_constant__ Maps maps, __nv_bfloat16* __restr
 
   if (tid >= kConsumers) {              // the producer warp
     if (tid == kConsumers) {
-      mbar_expect_tx(qbar, kTile);
+      mbar_expect_tx(qbar, T::q_bytes);
 #pragma unroll
-      for (int p = 0; p < PC::count; ++p) {
-        tma_load(sQ + PC::offset(p), &maps.q[p], PC::col(p), h, q0, b, qbar);
+      for (int p = 0; p < QK::count; ++p) {
+        tma_load(sQ + T::q_offset(p), &maps.q[p], QK::col(p), h, q0, b, qbar);
       }
       for (int kt = 0; kt < n_kt; ++kt) {
         const int s = kt % kStages;
         mbar_wait(empty(s), ((kt / kStages) & 1) ^ 1);
-        mbar_expect_tx(full(s), kTile + kVTile);
+        mbar_expect_tx(full(s), T::slot_bytes);
         const uint32_t sk_ = k_slot(s);
 #pragma unroll
-        for (int p = 0; p < PC::count; ++p) {
-          tma_load(sk_ + PC::offset(p), &maps.k[p], PC::col(p), hk, kt * kRows, b, full(s));
+        for (int p = 0; p < QK::count; ++p) {
+          tma_load(sk_ + T::k_offset(p), &maps.k[p], QK::col(p), hk, kt * kKeys, b, full(s));
         }
 #pragma unroll
-        for (int t = 0; t < PC::v_atoms; ++t) {
-          tma_load(sk_ + kTile + t * PC::v_atom_bytes, &maps.v, t * PC::v_atom, hk,
-                   kt * kRows, b, full(s));
+        for (int t = 0; t < T::v_atoms; ++t) {
+          tma_load(sk_ + T::k_bytes + t * T::v_atom_bytes, &maps.v, t * T::v_atom, hk,
+                   kt * kKeys, b, full(s));
         }
       }
     }
@@ -843,34 +872,34 @@ flash_fwd_wgmma_kernel(const __grid_constant__ Maps maps, __nv_bfloat16* __restr
   const int row0 = q0 + wgi * 64 + ((tid & 127) >> 5) * 16 + gid;   // and row0 + 8
   const int wg_first = q0 + wgi * 64;
 
-  float o[DH / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};
 
   // The two consumer warpgroups run independently on the same K/V slots; while one does its
   // softmax the other's products can run.  (Making them take strict turns on named barriers,
   // as FA3 does, measured slower here: it needs registers past this block's 168.)
-  float sc[64];
-  auto qk = [&](int kt) {               // S = Q K_kt^T: 64 rows x 128 keys a warpgroup
+  float sc[kKeys / 2];
+  auto qk = [&](int kt) {               // S = Q K_kt^T: 64 rows x kKeys keys a warpgroup
     const int s = kt % kStages;
     mbar_wait(full(s), (kt / kStages) & 1);
 #pragma unroll
-    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+    for (int i = 0; i < kKeys / 2; ++i) sc[i] = 0.f;
     fence_regs(sc);
     wg_fence();
 #pragma unroll
-    for (int p = 0; p < PC::count; ++p) {
-      const int w = PC::width(p);
+    for (int p = 0; p < QK::count; ++p) {
+      const int w = QK::width(p);
       const uint32_t lay = layout_of(w);
       const uint32_t sbo = 16u * w;     // 8 rows of 2 w bytes
 #pragma unroll
       for (int ks = 0; ks < w / 16; ++ks) {
         const uint64_t da =
-            gmma_desc(sQ + PC::offset(p) + wgi * 64 * 2 * w + 32 * ks, 16, sbo, lay);
-        const uint64_t db = gmma_desc(k_slot(s) + PC::offset(p) + 32 * ks, 16, sbo, lay);
-        wgmma_ss_n128(sc, da, db, (p > 0 || ks > 0) ? 1 : 0);
+            gmma_desc(sQ + T::q_offset(p) + wgi * 64 * 2 * w + 32 * ks, 16, sbo, lay);
+        const uint64_t db = gmma_desc(k_slot(s) + T::k_offset(p) + 32 * ks, 16, sbo, lay);
+        wgmma_ss(sc, da, db, (p > 0 || ks > 0) ? 1 : 0);
       }
     }
     wg_commit();
@@ -881,14 +910,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ Maps maps, __nv_bfloat16* __restr
   mbar_wait(qbar, 0);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int s = kt % kStages;
-    const uint32_t sV = k_slot(s) + kTile;
+    const uint32_t sV = k_slot(s) + T::k_bytes;
     qk(kt);
     // scale into the log2 domain; mask only a tile that crosses the diagonal or Sk.
     // Element 4 j + e is row row0 (+ 8 for e >= 2), key k0 + 8 j + 2 tig (+ 1 for odd e).
-    const int k0 = kt * kRows;
-    const bool edge = k0 + kRows > sk || (causal && k0 + kRows - 1 > wg_first);
+    const int k0 = kt * kKeys;
+    const bool edge = k0 + kKeys > sk || (causal && k0 + kKeys - 1 > wg_first);
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < kKeys / 2; ++i) {
       float x = sc[i] * scale_log2;
       if (edge) {
         const int row = row0 + ((i >> 1) & 1) * 8;
@@ -898,12 +927,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ Maps maps, __nv_bfloat16* __restr
       sc[i] = x;
     }
 
-    // online softmax; the 4 threads of a fragment row hold its 128 keys
+    // online softmax; the 4 threads of a fragment row hold its kKeys keys
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
+      for (int j = 0; j < kKeys / 8; ++j) {
+        mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
+      }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       const float m_new = fmaxf(m[r], mx);
@@ -911,7 +942,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ Maps maps, __nv_bfloat16* __restr
       m[r] = m_new;
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < kKeys / 8; ++j) {
 #pragma unroll
         for (int e = 2 * r; e < 2 * r + 2; ++e) {
           const float pr = fast_ex2(sc[4 * j + e] - m_new);
@@ -923,7 +954,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ Maps maps, __nv_bfloat16* __restr
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
       l[r] = l[r] * corr + sum;
 #pragma unroll
-      for (int i = 0; i < DH / 8; ++i) {
+      for (int i = 0; i < DV / 8; ++i) {
         o[4 * i + 2 * r] *= corr;
         o[4 * i + 2 * r + 1] *= corr;
       }
@@ -931,25 +962,25 @@ flash_fwd_wgmma_kernel(const __grid_constant__ Maps maps, __nv_bfloat16* __restr
 
     // P as A fragments: key step kk is S column tiles 2 kk and 2 kk + 1, each probability
     // as hi + lo (split_bf16)
-    uint32_t phi[8][4], plo[8][4];
+    uint32_t phi[kKeys / 16][4], plo[kKeys / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         split_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1], phi[kk][e], plo[kk][e]);
       }
     }
 
-    // O += P V in one wgmma of width Dh per 16 keys and hi / lo: V (key, d) MN-major in atoms
+    // O += P V in one wgmma of width DV per 16 keys and hi / lo: V (key, d) MN-major in atoms
     // of v_atom columns, key step kk 16 rows down each atom
     fence_regs(phi);
     fence_regs(plo);
     fence_regs(o);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const uint64_t db = gmma_desc(sV + kk * 16 * 2 * PC::v_atom, PC::v_atom_bytes,
-                                    16u * PC::v_atom, layout_of(PC::v_atom));
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      const uint64_t db = gmma_desc(sV + kk * 16 * 2 * T::v_atom, T::v_atom_bytes,
+                                    16u * T::v_atom, layout_of(T::v_atom));
       wgmma_rs(o, phi[kk], db);
       wgmma_rs(o, plo[kk], db);
     }
@@ -968,9 +999,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ Maps maps, __nv_bfloat16* __restr
     const int row = row0 + 8 * r;
     if (row >= sq) continue;
     const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
-    __nv_bfloat16* orow = out + ((static_cast<int64_t>(b) * sq + row) * n_heads + h) * DH;
+    __nv_bfloat16* orow = out + ((static_cast<int64_t>(b) * sq + row) * n_heads + h) * DV;
 #pragma unroll
-    for (int j = 0; j < DH / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * tig) =
           __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
     }
@@ -1002,16 +1033,19 @@ EncodeTiled encode_fn() {
   return fn;
 }
 
-// A 4-D map over a contiguous (batch, seq, heads, dh) bf16 tensor whose box is (width, 1,
-// 128, 1), swizzled to the width's span.
+// A 4-D map over a (batch, seq, heads, dh) bf16 tensor whose rows (one head of one position)
+// lie `ld` elements apart, ld >= dh (a contiguous tensor has ld = dh; a view of the first or
+// last columns of a wider row has the wider row's), with a box of (width, 1, rows, 1), swizzled
+// to the width's span.  TMA takes ld * 2 a multiple of 16 and a start on 16 bytes.
 bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int batch, int seq, int heads,
-            int dh, int width) {
+            int dh, int ld, int width, int rows) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(dh) * 2,
-                                 static_cast<cuuint64_t>(heads) * dh * 2,
-                                 static_cast<cuuint64_t>(seq) * heads * dh * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(width), 1, kRows, 1};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ld) * 2,
+                                 static_cast<cuuint64_t>(heads) * ld * 2,
+                                 static_cast<cuuint64_t>(seq) * heads * ld * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(width), 1, static_cast<cuuint32_t>(rows),
+                             1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle swz = width == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
                                  : width == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
@@ -1021,28 +1055,32 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int batch, int se
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DH>
+template <int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int batch, int sq,
-                   int sk, int n_heads, int n_kv, int causal, cudaStream_t stream) {
-  using PC = Pieces<DH>;
+                   int sk, int n_heads, int n_kv, int v_ld, int causal, cudaStream_t stream) {
+  using T = Tiles<DQK, DV>;
+  using QK = typename T::QK;
   const EncodeTiled fn = encode_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
   Maps maps;
   memset(&maps, 0, sizeof(maps));
-  for (int p = 0; p < PC::count; ++p) {
-    const int w = PC::width(p);
-    if (!encode(fn, &maps.q[p], q, batch, sq, n_heads, DH, w) ||
-        !encode(fn, &maps.k[p], k, batch, sk, n_kv, DH, w)) {
+  for (int p = 0; p < QK::count; ++p) {
+    const int w = QK::width(p);
+    if (!encode(fn, &maps.q[p], q, batch, sq, n_heads, DQK, DQK, w, kRows) ||
+        !encode(fn, &maps.k[p], k, batch, sk, n_kv, DQK, DQK, w, kKeys)) {
       return cudaErrorInvalidValue;
     }
   }
-  if (!encode(fn, &maps.v, v, batch, sk, n_kv, DH, PC::v_atom)) return cudaErrorInvalidValue;
-  constexpr size_t smem = smem_bytes<DH>();
-  auto kernel = flash_fwd_wgmma_kernel<DH>;
+  if (!encode(fn, &maps.v, v, batch, sk, n_kv, DV, v_ld, T::v_atom, kKeys)) {
+    return cudaErrorInvalidValue;
+  }
+  constexpr size_t smem = T::smem;
+  auto kernel = flash_fwd_wgmma_kernel<DQK, DV>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const float scale_log2 = static_cast<float>(kLog2e / sqrt(static_cast<double>(DH)));
+  // the scale is the q.k width's: 1/sqrt(DQK), whatever v's width
+  const float scale_log2 = static_cast<float>(kLog2e / sqrt(static_cast<double>(DQK)));
   const dim3 grid((sq + kRows - 1) / kRows, batch * n_heads);
   kernel<<<grid, kThreads, smem, stream>>>(maps, static_cast<__nv_bfloat16*>(out), sq, sk,
                                            n_heads, n_kv, causal, scale_log2);
@@ -1051,39 +1089,44 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
 
 }  // namespace wg
 
-// The instance a launch runs: 0 flash_fwd_kernel (float32 FMA), 1 flash_fwd_mma_kernel
-// (bf16 mma.sync), 2 flash_fwd_wgmma_kernel (bf16 wgmma + TMA: Dh a multiple of 16 up to
-// 128), -1 a dtype no instance takes.
-int instance_of(int dh, int dtype) {
+// The instance a launch at q.k width dqk and v width dv runs: 0 flash_fwd_kernel (float32
+// FMA), 1 flash_fwd_mma_kernel (bf16 mma.sync), 2 flash_fwd_wgmma_kernel (bf16 wgmma + TMA:
+// (d, d) for d a multiple of 16 up to 128, and (192, 128)); -1 where no instance takes these
+// widths as they are (a dtype no instance takes, or dv < dqk outside (192, 128): the wrapper
+// zero-pads v to dqk and runs the instance of (dqk, dqk)).
+int instance_of(int dqk, int dv, int dtype) {
+  if (dtype != 0 && dtype != 1) return -1;
+  if (dtype == 1 && dqk == 192 && dv == 128) return 2;
+  if (dv != dqk) return -1;
   if (dtype == 0) return 0;
-  if (dtype != 1) return -1;
-  return dh % 16 == 0 && dh <= 128 ? 2 : 1;
+  return dqk % 16 == 0 && dqk <= 128 ? 2 : 1;
 }
 
 cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v, void* out, int batch,
-                           int sq, int sk, int n_heads, int n_kv, int dh, int causal,
-                           cudaStream_t s) {
-  switch (dh) {
-    case 16: return wg::launch<16>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, s);
-    case 32: return wg::launch<32>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, s);
-    case 48: return wg::launch<48>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, s);
-    case 64: return wg::launch<64>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, s);
-    case 80: return wg::launch<80>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, s);
-    case 96: return wg::launch<96>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, s);
-    case 112: return wg::launch<112>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, s);
-    case 128: return wg::launch<128>(q, k, v, out, batch, sq, sk, n_heads, n_kv, causal, s);
+                           int sq, int sk, int n_heads, int n_kv, int dqk, int dv, int v_ld,
+                           int causal, cudaStream_t s) {
+#define FLASH_WG(DQK, DV) \
+  wg::launch<DQK, DV>(q, k, v, out, batch, sq, sk, n_heads, n_kv, v_ld, causal, s)
+  if (dqk == 192 && dv == 128) return FLASH_WG(192, 128);
+  if (dv != dqk) return cudaErrorInvalidValue;
+  switch (dqk) {
+    case 16: return FLASH_WG(16, 16);
+    case 32: return FLASH_WG(32, 32);
+    case 48: return FLASH_WG(48, 48);
+    case 64: return FLASH_WG(64, 64);
+    case 80: return FLASH_WG(80, 80);
+    case 96: return FLASH_WG(96, 96);
+    case 112: return FLASH_WG(112, 112);
+    case 128: return FLASH_WG(128, 128);
     default: return cudaErrorInvalidValue;
   }
+#undef FLASH_WG
 }
 
-// The bf16 instances: wgmma where instance_of says so, mma.sync at the smallest padded width
-// otherwise.
+// The bf16 instance of (dh, dh): mma.sync at the smallest padded width.
 cudaError_t dispatch_mma(const void* q, const void* k, const void* v, void* out, int batch,
                          int sq, int sk, int n_heads, int n_kv, int dh, int causal,
                          cudaStream_t s) {
-  if (instance_of(dh, 1) == 2) {
-    return dispatch_wgmma(q, k, v, out, batch, sq, sk, n_heads, n_kv, dh, causal, s);
-  }
   if (dh <= 16) return launch_mma<16>(q, k, v, out, batch, sq, sk, n_heads, n_kv, dh, causal, s);
   if (dh <= 32) return launch_mma<32>(q, k, v, out, batch, sq, sk, n_heads, n_kv, dh, causal, s);
   if (dh <= 64) return launch_mma<64>(q, k, v, out, batch, sq, sk, n_heads, n_kv, dh, causal, s);
@@ -1124,30 +1167,44 @@ cudaError_t dispatch_fma(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// The flash binding: q, k, v, out, B, Sq, Sk, H, Hkv, Dh, causal, dtype (0 float32,
-// 1 bfloat16) and the stream; returns a cudaError_t (0 on success).  Refuses what the
-// wrapper refuses (a non-positive dim, H not a multiple of Hkv, Dh > 256) and a grid past
-// the card's limits.
+// The flash binding: q, k, v, out, B, Sq, Sk, H, Hkv, the q.k width Dqk, v's width Dv, v's row
+// pitch (the elements between one (position, head) row of v and the next, Dv for a contiguous
+// v), causal, dtype (0 float32, 1 bfloat16) and the stream; returns a cudaError_t (0 on
+// success).  q and k are contiguous (B, S, H, Dqk); out is contiguous (B, Sq, H, Dv).  The
+// wgmma instance reads v's rows at any pitch TMA takes (16-byte multiples); the mma.sync and
+// FMA instances take a contiguous v.  Refuses what the wrapper refuses (a non-positive dim, H
+// not a multiple of Hkv, Dqk > 256, Dv > Dqk, a pitch below Dv), widths no instance takes as
+// they are (instance_of), a pitch the instance does not take and a grid past the card's
+// limits.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       int batch, int sq, int sk, int n_heads, int n_kv,
-                                      int dh, int causal, int dtype, void* stream) {
+                                      int dqk, int dv, int v_ld, int causal, int dtype,
+                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (batch <= 0 || sq <= 0 || sk <= 0 || n_heads <= 0 || n_kv <= 0 || dh <= 0 ||
-      dh > 256 || n_heads % n_kv != 0 ||
+  if (batch <= 0 || sq <= 0 || sk <= 0 || n_heads <= 0 || n_kv <= 0 || dqk <= 0 ||
+      dqk > 256 || dv <= 0 || dv > dqk || v_ld < dv || n_heads % n_kv != 0 ||
       static_cast<long long>(batch) * n_heads > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 0) {
-    return static_cast<int>(
-        dispatch_fma(q, k, v, out, batch, sq, sk, n_heads, n_kv, dh, causal, s));
+  const int which = instance_of(dqk, dv, dtype);
+  if (which != 2 && v_ld != dv) return static_cast<int>(cudaErrorInvalidValue);
+  switch (which) {
+    case 0:
+      return static_cast<int>(
+          dispatch_fma(q, k, v, out, batch, sq, sk, n_heads, n_kv, dqk, causal, s));
+    case 1:
+      return static_cast<int>(
+          dispatch_mma(q, k, v, out, batch, sq, sk, n_heads, n_kv, dqk, causal, s));
+    case 2:
+      return static_cast<int>(dispatch_wgmma(q, k, v, out, batch, sq, sk, n_heads, n_kv, dqk,
+                                             dv, v_ld, causal, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 1) {
-    return static_cast<int>(
-        dispatch_mma(q, k, v, out, batch, sq, sk, n_heads, n_kv, dh, causal, s));
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Which instance a launch at this head dim and dtype runs (instance_of): 0 float32 FMA,
-// 1 bf16 mma.sync, 2 bf16 wgmma + TMA, -1 none.
-extern "C" int flash_attention_instance(int dh, int dtype) { return instance_of(dh, dtype); }
+// Which instance a launch at these widths and dtype runs (instance_of): 0 float32 FMA,
+// 1 bf16 mma.sync, 2 bf16 wgmma + TMA, -1 none takes them as they are.
+extern "C" int flash_attention_instance(int dqk, int dv, int dtype) {
+  return instance_of(dqk, dv, dtype);
+}

@@ -123,10 +123,11 @@ def load(name: str) -> ctypes.CDLL:
 # scan (``csrc/membership_scan.cu``): the bitmap, two outputs, R, W, the row
 # and word strides in elements, BR, vid and the stream.  Flash attention
 # (``csrc/flash_attention.cu``):
-# q, k, v, out, then B, Sq, Sk, H, Hkv, Dh, causal, dtype (0 float32,
-# 1 bfloat16) and the stream.  The SSD scan (``csrc/ssd_scan.cu``): xs, B, C,
-# dt, a, y, the final state, the bf16 scratch (chunk states, decays), then B,
-# L, H, P, N, Q, dtype and the stream.
+# q, k, v, out, then B, Sq, Sk, H, Hkv, the q·k width Dqk, v's width Dv,
+# v's row pitch, causal, dtype (0 float32, 1 bfloat16) and the stream.  The
+# SSD scan (``csrc/ssd_scan.cu``): xs, B, C, dt, a, y, the final state, the
+# bf16 scratch (chunk states, decays), then B, L, H, P, N, Q, dtype and the
+# stream.
 TILE_ARGS = ([ctypes.c_void_p] * 5
              + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                 ctypes.c_void_p])
@@ -137,7 +138,7 @@ MEMBERSHIP_ARGS = ([ctypes.c_void_p] * 3
                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
-FLASH_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+FLASH_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 SSD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
@@ -189,10 +190,11 @@ def flash_fn():
 
 @functools.lru_cache(maxsize=None)
 def flash_instance_fn():
-    """``flash_attention_instance`` (Dh, dtype -> the instance a launch
-    runs), built and bound on first use."""
+    """``flash_attention_instance`` (Dqk, Dv, dtype -> the instance a
+    launch at these widths runs, -1 if none takes them as they are), built
+    and bound on first use."""
     return _bind("flash_attention", "flash_attention_instance",
-                 [ctypes.c_int] * 2)
+                 [ctypes.c_int] * 3)
 
 
 @functools.lru_cache(maxsize=None)

@@ -342,20 +342,21 @@ def _row_lse(q, k, causal: bool, block_k: int = LSE_BLOCK_K) -> torch.Tensor:
 def _flash_bwd(q, k, v, o, do, causal: bool, block_k: int = LSE_BLOCK_K):
     """The reference's ``_flash_bwd_rule``: for each key block, rebuild P
     from (q, k, lse) and accumulate dq; dk and dv are that block's own.
-    float32 throughout; dq, dk, dv in the inputs' dtypes.  Live memory
-    O(Sq · BK)."""
+    v (and so dO and dV) may be narrower than q (latent attention); the
+    scale is q's.  float32 throughout; dq, dk, dv in the inputs' dtypes
+    and shapes.  Live memory O(Sq · BK)."""
     b, sq, h, dh = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
+    sk, hkv, dvw = k.shape[1], k.shape[2], v.shape[3]
     g = h // hkv
     scale = dh ** -0.5
     qg = q.float().reshape(b, sq, hkv, g, dh)
-    dog = do.float().reshape(b, sq, hkv, g, dh)
+    dog = do.float().reshape(b, sq, hkv, g, dvw)
     lseg = _row_lse(q, k, causal, block_k).reshape(b, sq, hkv, g)
     delta = (do.float() * o.float()).sum(dim=-1).reshape(b, sq, hkv, g)
     qpos = torch.arange(sq, device=q.device)
     dq = torch.zeros((b, sq, hkv, g, dh), device=q.device)
     dk = torch.empty((b, sk, hkv, dh), device=q.device)
-    dv = torch.empty_like(dk)
+    dv = torch.empty((b, sk, hkv, dvw), device=q.device)
     for j0, j1 in _key_blocks(sk, block_k):
         k_c, v_c = k[:, j0:j1].float(), v[:, j0:j1].float()
         s_c = _block_logits(qg, k_c, torch.arange(j0, j1, device=q.device),
@@ -393,7 +394,7 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
-    """Differentiable flash attention, (B, Sq, H, Dh) on q's device: the
+    """Differentiable flash attention, (B, Sq, H, Dv) on q's device: the
     kernel's forward (``kernels.flash_attention``) and the reference's
     blockwise backward.  The kernel stays the only forward on the card,
     with gradients on or off."""

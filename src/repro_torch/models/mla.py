@@ -9,9 +9,10 @@ re-expanded from the whole latent every step, as the reference does.
 
 The prefill's attention core (no cache) runs the flash kernel
 (``kernels.ops.flash_attention``), as ``layers._sdpa_core`` sends every
-full-sequence GQA core: q and k have the head dim qk_nope + qk_rope, and
-v (v_head wide) is zero-padded to it and the output sliced back, so the
-kernel's scale 1/√Dh is the reference's ``(qk_nope + qk_rope) ** -0.5``.
+full-sequence GQA core: q and k have the head dim qk_nope + qk_rope and v
+its own v_head (the kernel's (192, 128) wgmma instance at V2-Lite's
+widths), and the kernel's scale 1/√Dqk is the reference's
+``(qk_nope + qk_rope) ** -0.5``.
 On the card the kernel launches or raises; it never falls back.  The
 decode's core (one query against the cache, offset by its length) is the
 reference's materialised softmax, its probabilities rounded to x's dtype
@@ -53,7 +54,6 @@ import dataclasses
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops, ref
@@ -105,15 +105,13 @@ def _expand_kv(w: torch.Tensor, c_kv: torch.Tensor, k_rope: torch.Tensor,
 
 def _prefill_core(q: torch.Tensor, k: torch.Tensor,
                   v: torch.Tensor) -> torch.Tensor:
-    """Causal attention through the flash kernel, v zero-padded to q's
-    head dim and the output sliced back."""
+    """Causal attention through the flash kernel, v at its own width (the
+    view ``kv[..., dn:]``, read in place on the card)."""
     dqk, dv = q.shape[-1], v.shape[-1]
     if dv > dqk:
         raise PlanError(f"v_head {dv} wider than qk_nope + qk_rope {dqk}: "
-                        "the flash kernel's scale would not be the "
-                        "reference's")
-    out = ops.flash_attention(q, k, F.pad(v, (0, dqk - dv)), causal=True)
-    return out[..., :dv]
+                        "the flash kernel takes v no wider than q")
+    return ops.flash_attention(q, k, v, causal=True)
 
 
 def mla_attention(p: MLA, x: torch.Tensor, cfg: MLAConfig,

@@ -543,11 +543,13 @@ def test_cuda_versioned_dataset_matches_numpy(cuda_device):
         w.graph.version_sizes().tolist()
 
 
-# flash cases: (B, Sq, Sk, H, Hkv, Dh, causal) — GQA groups 1, 2, 4 and
-# MQA; Dh 16, 32, 48, 64, 80, 112, 128 and 256; S from 16 to 4096 + 77, and
-# lengths off the wgmma instance's 128-row tiles, the mma.sync instance's 64
-# and the TPU kernel's 128 (200, 77, 4173, Sk 192, 328, 136); Sq != Sk
-# without the mask
+# flash cases: (B, Sq, Sk, H, Hkv, Dh, causal), or (..., causal, Dv) with v
+# narrower than q — GQA groups 1, 2, 4 and MQA; Dh 16, 32, 48, 64, 80, 112,
+# 128 and 256; latent attention's (192, 128) (bf16: the wgmma instance;
+# DeepSeek-V2-Lite's prefill shape among them) and (192, 64) (v padded to
+# 192); S from 16 to 4096 + 77, and lengths off the wgmma instance's
+# 128-row and 64-key tiles, the mma.sync instance's 64 and the TPU kernel's
+# 128 (200, 77, 4173, Sk 192, 328, 136, 333); Sq != Sk without the mask
 FLASH_CASES = [(2, 256, 256, 4, 4, 64, True), (1, 512, 512, 4, 2, 128, True),
                (2, 128, 128, 8, 2, 80, False),
                (1, 1024, 1024, 4, 1, 80, True),
@@ -557,7 +559,11 @@ FLASH_CASES = [(2, 256, 256, 4, 4, 64, True), (1, 512, 512, 4, 2, 128, True),
                (1, 200, 328, 2, 2, 128, False),
                (1, 4173, 4173, 2, 1, 80, True), (1, 200, 200, 8, 2, 80, True),
                (2, 300, 136, 4, 2, 64, False), (1, 333, 333, 4, 4, 48, True),
-               (1, 256, 256, 2, 2, 112, True), (1, 130, 130, 4, 4, 72, True)]
+               (1, 256, 256, 2, 2, 112, True), (1, 130, 130, 4, 4, 72, True),
+               (4, 512, 512, 16, 16, 192, True, 128),
+               (1, 333, 333, 4, 2, 192, True, 128),
+               (2, 200, 328, 4, 1, 192, False, 128),
+               (1, 96, 96, 2, 2, 192, True, 64)]
 # the shapes of the serve phases of the encoder-decoder and the vlm:
 # Seamless-M4T-medium's encoder self-attention (non-causal, 544 frames),
 # its decoder's causal self-attention and its cross-attention (512 queries
@@ -583,16 +589,23 @@ def _randn(shape, seed, dtype, device, scale=1.0):
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", FLASH_CASES + FAMILY_FLASH_CASES, ids=str)
 def test_cuda_flash_attention_matches_plain(cuda_device, case, dtype):
-    b, sq, sk, h, hkv, dh, causal = case
+    b, sq, sk, h, hkv, dh, causal, *rest = case
+    dv = rest[0] if rest else dh
     q = _randn((b, sq, h, dh), 1, dtype, cuda_device)
     k = _randn((b, sk, hkv, dh), 2, dtype, cuda_device)
-    v = _randn((b, sk, hkv, dh), 3, dtype, cuda_device)
+    # v as latent attention makes it: kv[..., dn:] of rows dn + dv wide,
+    # dn = dh - 64 (DeepSeek-V2's qk_nope beside its qk_rope)
+    dn = dh - 64 if dv != dh else dh
+    kv = _randn((b, sk, hkv, dn + dv), 3, dtype, cuda_device)
+    v = kv[..., dn:] if dv != dh else kv[..., :dh].contiguous()
+    if (dh, dv) == (192, 128) and dtype == torch.bfloat16:
+        assert fa.instance(q, k, v) == "wgmma"
     before = fa.LAUNCHES
     got = ops.flash_attention(q, k, v, causal)
     assert fa.LAUNCHES == before + 1
     want = fa.flash_attention_plain(q, k, v, causal)
     torch.cuda.synchronize()
-    assert got.dtype == dtype and got.shape == q.shape
+    assert got.dtype == dtype and got.shape == (b, sq, h, dv)
     torch.testing.assert_close(got.float(), want.float(),
                                atol=FLASH_TOL[dtype], rtol=FLASH_TOL[dtype])
 
@@ -679,6 +692,33 @@ def test_cuda_flash_attention_runs_the_wgmma_instance(cuda_device, dh):
         shifted, q, q).float(), atol=2e-2, rtol=2e-2)
 
 
+def test_cuda_flash_attention_instances_by_both_widths(cuda_device):
+    """The instance is fixed by dtype, Dqk and Dv: latent attention's
+    (192, 128) in bf16 runs the wgmma instance; (192, 192) stays on
+    mma.sync and float32 on the FMA instance; a v narrower than q at any
+    other pair runs the instance of (Dqk, Dqk) on v zero-padded, and
+    agrees with the plain version on the unpadded v."""
+    def make(dqk, dv, dtype):
+        q = _randn((1, 128, 2, dqk), 1, dtype, cuda_device)
+        return q, q, _randn((1, 128, 2, dv), 2, dtype, cuda_device)
+
+    bf, f32 = torch.bfloat16, torch.float32
+    for dqk, dv, dtype, want in ((192, 128, bf, "wgmma"),
+                                 (192, 192, bf, "mma_sync"),
+                                 (192, 128, f32, "fma"),
+                                 (192, 64, bf, "mma_sync"),
+                                 (128, 64, bf, "wgmma"),
+                                 (80, 48, f32, "fma")):
+        q, k, v = make(dqk, dv, dtype)
+        assert fa.instance(q, k, v) == want, (dqk, dv, dtype)
+        before = fa.LAUNCHES
+        got = ops.flash_attention(q, k, v)
+        assert fa.LAUNCHES == before + 1
+        torch.testing.assert_close(
+            got.float(), fa.flash_attention_plain(q, k, v).float(),
+            atol=FLASH_TOL[dtype], rtol=FLASH_TOL[dtype])
+
+
 def test_cuda_model_kernels_refuse(cuda_device):
     """The contract is checked before any launch (PlanError), and the C
     entry points refuse on their own (KernelError)."""
@@ -695,13 +735,23 @@ def test_cuda_model_kernels_refuse(cuda_device):
     big = _ssd_inputs(1, 64, 2, 16, 256, torch.float32, cuda_device)
     with pytest.raises(build.PlanError, match="d_state"):
         ops.ssd_scan(*big, chunk=64)
+    with pytest.raises(build.PlanError, match="wider than q"):
+        ops.flash_attention(q, q, wide[..., :96])    # Dv 96 > Dqk 64
     fn = build.flash_fn()
     stream = torch.cuda.current_stream().cuda_stream
     ptr = q.data_ptr()
-    assert fn(ptr, ptr, ptr, ptr, 1, 128, 128, 3, 2, 64, 1, 0, stream) != 0
+    assert fn(ptr, ptr, ptr, ptr, 1, 128, 128, 3, 2, 64, 64, 64, 1, 0,
+              stream) != 0
     # bf16 at Dh 64 runs the wgmma instance, whose tensor map refuses a q
     # that starts off a 16-byte boundary
-    assert fn(ptr + 2, ptr, ptr, ptr, 1, 128, 128, 2, 2, 64, 1, 1, stream) != 0
+    assert fn(ptr + 2, ptr, ptr, ptr, 1, 128, 128, 2, 2, 64, 64, 64, 1, 1,
+              stream) != 0
+    # v wider than q, Dv <= 0, a pitch below Dv, and a pair that no
+    # instance takes as it is (the wrapper pads it)
+    for dqk, dv, ld in ((64, 96, 96), (64, 0, 64), (192, 128, 120),
+                        (128, 64, 64)):
+        assert fn(ptr, ptr, ptr, ptr, 1, 128, 128, 2, 2, dqk, dv, ld, 1, 1,
+                  stream) != 0
     sfn = build.ssd_fn()          # the bf16 instance without its scratch
     assert sfn(ptr, ptr, ptr, ptr, ptr, ptr, ptr, None, None, 1, 64, 2, 16,
                16, 64, 1, stream) != 0
@@ -761,7 +811,8 @@ def test_cuda_dataset_checks_out_rows_off_16_bytes(cuda_device):
 # heads of 128: the wgmma instance in bf16) and a ragged one (S 700, off
 # the kernel's tiles and the backward's 512-key blocks)
 GRAD_FLASH_CASES = [(8, 256, 16, 8, 128, True), (1, 700, 6, 2, 64, True),
-                    (2, 300, 4, 4, 64, False)]
+                    (2, 300, 4, 4, 64, False),
+                    (2, 512, 16, 16, 192, True, 128)]   # latent attention
 # the Function's forward is the kernel's, its backward plain float32; the
 # bf16 gradients differ from autograd through the plain version by the
 # kernel output's rounding (delta = do · o) and their own, 2^-9 each
@@ -778,11 +829,12 @@ def _rel(a, b):
 @pytest.mark.parametrize("case", GRAD_FLASH_CASES, ids=str)
 def test_cuda_flash_gradients_match_autograd_through_plain(cuda_device, case,
                                                            dtype):
-    b, s, h, hkv, dh, causal = case
+    b, s, h, hkv, dh, causal, *rest = case
+    dv = rest[0] if rest else dh
     q, k, v = (_randn(shape, seed, dtype, cuda_device).requires_grad_(True)
                for seed, shape in ((1, (b, s, h, dh)), (2, (b, s, hkv, dh)),
-                                   (3, (b, s, hkv, dh))))
-    do = _randn((b, s, h, dh), 4, dtype, cuda_device)
+                                   (3, (b, s, hkv, dv))))
+    do = _randn((b, s, h, dv), 4, dtype, cuda_device)
     before = fa.LAUNCHES
     got = torch.autograd.grad(ops.flash_attention(q, k, v, causal),
                               (q, k, v), do)

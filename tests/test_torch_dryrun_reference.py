@@ -8,9 +8,8 @@ sides: the port's on ``meta`` tensors by ``repro_torch.launch.op_count``
 mesh: without one its MoE layer takes the meshless ``_moe_ffn_local``,
 which runs every expert on every token.
 
-* decode: equal FLOPs on all 10 configs; prefill: on the 9 that do not
-  pad v (DeepSeek-V2-Lite's latent attention pads v to q's head dim for
-  the flash kernel, which adds one P·V product of the padding's width);
+* decode and prefill: equal FLOPs on all 10 configs (DeepSeek-V2-Lite's
+  latent attention runs the flash kernel with v at its own width);
 * train: the port counts more by a closed form in the attention and SSD
   layer counts (see ``_train_extra``);
 * parameter counts, the active parameters and the flash I/O bytes equal
@@ -119,21 +118,15 @@ def _n_attention(cfg) -> int:
     return cfg.n_layers
 
 
-def _padded_pv(cfg) -> int:
-    """The latent attention's P·V over v zero-padded from v_head to
-    qk_nope + qk_rope (``models.mla._prefill_core``), one a layer."""
-    m = cfg.mla
-    return _pv(cfg, m.qk_nope + m.qk_rope - m.v_head)
-
-
 def _train_extra(cfg) -> int:
     """What the port's train step counts beyond the reference's.
 
     An attention layer: two q·kᵀ products of 2·B·H·S²·Dh each.  The flash
     backward (``kernels.ops._flash_bwd``) streams the row lse from (q, k)
     and rebuilds P from (q, k, lse), where the reference's autodiff of the
-    materialised softmax keeps P.  Latent attention adds its padded v three
-    times: in the forward P·V, in dO·Vᵀ and in dV.
+    materialised softmax keeps P.  Latent attention's products are over
+    q·k's width and v's own (the kernel takes v unpadded), so its extra is
+    the same two q·kᵀ products.
 
     An SSD layer: two products the size of the state update,
     2·B·L·H·P·N each, at this geometry the net of the port's backward
@@ -142,8 +135,7 @@ def _train_extra(cfg) -> int:
     ``chunk_step`` and its own contraction orders (``op_breakdown``)."""
     if cfg.attn_type == "mla":
         m = cfg.mla
-        per_attn = (2 * _pv(cfg, m.qk_nope + m.qk_rope)
-                    + 3 * _pv(cfg, m.qk_nope + m.qk_rope - m.v_head))
+        per_attn = 2 * _pv(cfg, m.qk_nope + m.qk_rope)
     else:
         per_attn = 2 * _pv(cfg, cfg.hd)
     extra = _n_attention(cfg) * per_attn
@@ -159,19 +151,9 @@ def test_decode_flops_equal_the_reference(arch):
     assert port_flops(arch, "decode") == reference_flops(arch, "decode")
 
 
-@pytest.mark.parametrize(
-    "arch", [a for a in TC.ARCH_IDS if a != "deepseek_v2_lite_16b"])
+@pytest.mark.parametrize("arch", TC.ARCH_IDS)
 def test_prefill_flops_equal_the_reference(arch):
     assert port_flops(arch, "prefill") == reference_flops(arch, "prefill")
-
-
-def test_latent_attention_prefill_differs_by_the_padded_pv():
-    arch = "deepseek_v2_lite_16b"
-    cfg = TC.smoke(arch)
-    extra = cfg.n_layers * _padded_pv(cfg)
-    assert extra == 1_572_864
-    assert (port_flops(arch, "prefill") - reference_flops(arch, "prefill")
-            == extra)
 
 
 @pytest.mark.parametrize("arch", TC.ARCH_IDS)

@@ -3,7 +3,14 @@ kernel (interpret mode, as its own tests run it): the plain version and
 ``ops.flash_attention`` on CPU tensors, over the reference sweep of
 ``tests/test_flash_attention.py`` plus Zamba2's head_dim 80, at the
 reference's tolerances (2e-5 float32, 2e-2 bfloat16), and at lengths off
-the TPU kernel's tiles against the reference oracle.  The torch twin of
+the TPU kernel's tiles against the reference oracle.  Latent attention's
+widths (q·k 192, v 128, and a small pair like it) against the Pallas
+kernel on v zero-padded to q's width, the output sliced back (exact by
+construction: the padding's columns of the output are its own), forward
+and the ``_FlashAttention`` gradients against ``jax.vjp`` of the
+reference's custom VJP on the padded v, dV sliced (relative L2: float32
+within 2e-5, bf16 within 2 · 2^-8, the bound ``tests/test_torch_train.py``
+derives for the flash Function's bf16 gradients).  The torch twin of
 ``ref.mha_ref`` is held against the reference oracle, and the operands the
 kernel's contract refuses raise ``PlanError``."""
 import jax
@@ -12,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as rops
 from repro.kernels.flash_attention import flash_attention_fwd
 from repro.kernels.ref import mha_ref
 from repro_torch.kernels import flash_attention as fa
@@ -29,7 +37,15 @@ SWEEP = [
     (2, 256, 4, 4, 80, "bf16", True),     # Zamba2's head_dim
     (1, 128, 4, 2, 80, "f32", False),
 ]
+# latent attention's widths: (B, S, H, Hkv, Dqk, Dv, dtype, causal)
+LATENT = [
+    (1, 128, 2, 2, 192, 128, "f32", True),    # DeepSeek-V2-Lite's widths
+    (1, 128, 4, 2, 192, 128, "bf16", True),   # GQA, bf16
+    (2, 128, 2, 1, 192, 128, "f32", False),   # MQA, no mask
+    (1, 256, 4, 4, 48, 32, "bf16", False),    # a narrower pair, two tiles
+]
 TOL = {"f32": 2e-5, "bf16": 2e-2}
+GRAD_TOL = {"f32": 2e-5, "bf16": 2 * 2.0 ** -8}
 JNP = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 TORCH = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -104,6 +120,95 @@ def test_flash_takes_lengths_off_the_tpu_tiles(b, sq, sk, h, hkv, dh, dtype,
         assert got.dtype == TORCH[dtype] and got.shape == tq.shape
         np.testing.assert_allclose(got.float().numpy(), want,
                                    atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def _latent(b, s, h, hkv, dqk, dv, seed=13):
+    """q, k, v (v dv wide) and v zero-padded to dqk, as numpy float32."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, s, h, dqk), np.float32)
+    k = rng.standard_normal((b, s, hkv, dqk), np.float32)
+    v = rng.standard_normal((b, s, hkv, dv), np.float32)
+    return q, k, v, np.pad(v, ((0, 0),) * 3 + ((0, dqk - dv),))
+
+
+@pytest.mark.parametrize("b,s,h,hkv,dqk,dv,dtype,causal", LATENT)
+def test_latent_widths_match_the_pallas_kernel_on_padded_v(
+        b, s, h, hkv, dqk, dv, dtype, causal):
+    q, k, v, vp = _latent(b, s, h, hkv, dqk, dv)
+    (jq, jk, jvp), (tq, tk, tv) = (
+        [jnp.asarray(a).astype(JNP[dtype]) for a in (q, k, vp)],
+        [torch.from_numpy(a).to(TORCH[dtype]) for a in (q, k, v)])
+    want = np.asarray(flash_attention_fwd(jq, jk, jvp, causal=causal,
+                                          interpret=True),
+                      np.float32)[..., :dv]
+    # v as latent attention makes it: a view of wider rows
+    wide = torch.cat([tk, tv], dim=-1)[..., dqk:]
+    before = fa.LAUNCHES
+    for got in (fa.flash_attention_plain(tq, tk, tv, causal),
+                ops.flash_attention(tq, tk, tv, causal),
+                ops.flash_attention(tq, tk, wide, causal)):
+        assert got.dtype == TORCH[dtype] and got.shape == (b, s, h, dv)
+        np.testing.assert_allclose(got.float().numpy(), want,
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+    assert fa.LAUNCHES == before           # the CPU never launches
+
+
+def _rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+@pytest.mark.parametrize("b,s,h,hkv,dqk,dv,dtype,causal", LATENT)
+def test_latent_gradients_match_the_reference_vjp_on_padded_v(
+        b, s, h, hkv, dqk, dv, dtype, causal):
+    q, k, v, vp = _latent(b, s, h, hkv, dqk, dv, seed=17)
+    do = np.random.default_rng(19).standard_normal((b, s, h, dv),
+                                                   np.float32)
+    jdt = JNP[dtype]
+    out, vjp = jax.vjp(lambda a, c, e: rops.flash_attention(a, c, e, causal,
+                                                            True),
+                       *(jnp.asarray(t).astype(jdt) for t in (q, k, vp)))
+    dop = np.pad(do, ((0, 0),) * 3 + ((0, dqk - dv),))
+    wq, wk, wv = vjp(jnp.asarray(dop).astype(jdt))
+    tq, tk, tv = (torch.from_numpy(t).to(TORCH[dtype]).requires_grad_(True)
+                  for t in (q, k, v))
+    o = ops.flash_attention(tq, tk, tv, causal)
+    o.backward(torch.from_numpy(do).to(TORCH[dtype]))
+    assert tv.grad.shape == tv.shape
+    host = (lambda t: t.detach().float().numpy())
+    jhost = (lambda t: np.asarray(t, np.float32))
+    tol = GRAD_TOL[dtype]
+    assert _rel(host(o), jhost(out)[..., :dv]) <= tol
+    for got, want in ((tq.grad, wq), (tk.grad, wk), (tv.grad, wv)):
+        assert got.dtype == TORCH[dtype]
+        want = jhost(want)[..., :got.shape[-1]]
+        assert _rel(host(got), want) <= tol, (_rel(host(got), want), tol)
+
+
+def test_v_pitch_reads_a_view_of_wider_rows():
+    """The wgmma instance reads v at its row pitch: a contiguous v has Dv,
+    the view ``kv[..., dn:]`` kv's row; a v whose rows do not lie evenly
+    apart (heads of a fused row, a transposed view) has none and is
+    copied before a launch."""
+    kv = torch.zeros((2, 8, 3, 40))
+    assert fa.v_pitch(kv[..., 24:].contiguous()) == 16
+    assert fa.v_pitch(kv[..., 24:]) == 40
+    assert fa.v_pitch(kv[:1, :, :, 24:]) == 40
+    fused = torch.zeros((2, 8, 5 * 16))           # (B, S, (H + 2 Hkv) · D)
+    assert fa.v_pitch(fused[..., 32:].reshape(2, 8, 3, 16)) is None
+    assert fa.v_pitch(torch.zeros((2, 3, 8, 16)).transpose(1, 2)) is None
+    assert fa.v_pitch(kv[..., ::2]) is None
+
+
+@pytest.mark.parametrize("vshape,match", [
+    ((1, 128, 2, 96), "wider than q"),        # Dv 96 > Dqk 64
+    ((1, 128, 2, 0), "outside"),              # Dv 0
+])
+def test_flash_refuses_a_v_wider_than_q_or_empty(vshape, match):
+    q = torch.zeros((1, 128, 2, 64))
+    with pytest.raises(PlanError, match=match):
+        ops.flash_attention(q, q, torch.zeros(vshape))
 
 
 @pytest.mark.parametrize("qshape,kshape,match", [

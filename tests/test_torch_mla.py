@@ -4,11 +4,11 @@ carried over: the prefill (no cache) and 8 cached decode steps, their
 outputs and the latent cache ``ckv``, in float32 at rtol = atol = 1e-4, at
 DeepSeek-V2-Lite's SMOKE geometry and at the serve driver's reduced one.
 The prefill's core goes through the flash kernel's plain version with v
-zero-padded to the query's head dim; it equals the materialised core of
-the decode path (at 1e-5 in float32, within the flash kernel's bf16
-tolerance, 2e-2, in bf16, where only the probabilities' rounding
-differs).  A v wider than the query's head dim, and a full cache, are
-refused."""
+at its own width (a view of wider rows, as the model makes it, unpadded);
+it equals the materialised core of the decode path (at 1e-5 in float32,
+within the flash kernel's bf16 tolerance, 2e-2, in bf16, where only the
+probabilities' rounding differs).  A v wider than the query's head dim,
+and a full cache, are refused."""
 import dataclasses
 
 import jax
@@ -114,13 +114,29 @@ def test_prefill_equals_the_decode_path(geometry):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
-def test_the_padded_flash_core_equals_the_materialised_core(dtype, tol):
+def test_the_unpadded_flash_core_equals_the_materialised_core(
+        dtype, tol, monkeypatch):
     gen = torch.Generator().manual_seed(5)
     q, k = (torch.randn((2, 40, 4, 24), generator=gen).to(dtype)
             for _ in range(2))
-    v = torch.randn((2, 40, 4, 16), generator=gen).to(dtype)
+    # v as ``_expand_kv`` makes it: the last 16 columns of 40-wide rows
+    v = torch.randn((2, 40, 4, 40), generator=gen).to(dtype)[..., 24:]
+    pad = torch.nn.functional.pad
+    seen = []
+    real = fa.flash_attention_plain
+
+    def plain(q_, k_, v_, causal=True):
+        seen.append(tuple(v_.shape))
+        return real(q_, k_, v_, causal)
+
+    monkeypatch.setattr(fa, "flash_attention_plain", plain)
     before = fa.LAUNCHES
     got = TMLA._prefill_core(q, k, v)
+    assert seen == [(2, 40, 4, 16)]              # v reached it unpadded
+    # the padded core the port ran before, sliced back, agrees too
+    padded = real(q, k, pad(v, (0, 8)), True)[..., :16]
+    np.testing.assert_allclose(got.float().numpy(), padded.float().numpy(),
+                               rtol=tol, atol=tol)
     want = ref.mha_ref(q, k, v, causal=True, q_offset=0)
     assert got.shape == (2, 40, 4, 16) and got.dtype == dtype
     assert fa.LAUNCHES == before                 # the CPU never launches

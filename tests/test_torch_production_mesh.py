@@ -186,12 +186,12 @@ def repeated_prefill_flops(cfg, m: int, dp: int) -> int:
         if not heads_split(a.n_heads, m):
             # C.3 Slice 15: latent attention's weights whole where its heads
             # do not split; and C.3 Slice 16: its core on every head and
-            # every row on each model rank (v padded to the qk width)
+            # every row on each model rank (q·kᵀ over dq, P·V over v_head)
             h, dq = a.n_heads, a.qk_nope + a.qk_rope
             per += cfg.n_layers * 2 * B * S * (
                 d * h * dq + d * (a.kv_lora + a.qk_rope)
                 + a.kv_lora * h * (a.qk_nope + a.v_head) + h * a.v_head * d)
-            per += cfg.n_layers * 2 * 2 * B * h * S * S * dq
+            per += cfg.n_layers * 2 * B * h * S * S * (dq + a.v_head)
     elif cfg.n_heads and not heads_split(cfg.n_kv, m):
         # C.3 Slice 15: the sequence path's projections whole, on all rows
         apps = {"hybrid": cfg.n_layers // max(cfg.shared_every, 1),
