@@ -291,9 +291,12 @@ Phases, each of which raises on failure:
     first of ``RANK_STEP_CELLS`` whose counted peak (``launch.dryrun``)
     is under ``RANK_PEAK_LIMIT``: Zamba2-2.7B ``train_4k`` at full width
     and depth, B 16 × 4096 a rank in 4 microbatches, 2 of 32 attention
-    heads and 5 of 80 SSD heads.  Rank 0's shards of the parameters are
-    made on the card from a seeded generator per leaf and rank (no whole
-    model is made), and its step runs ``RANK_STEP_STEPS`` times after one
+    heads and 5 of 80 SSD heads, in the reference's activation layout
+    (the residual stream the rank's 256 of 4096 rows between blocks, the
+    vocabulary its 2,016 of 32,256 columns, the cross-entropy over the
+    shards).  Rank 0's shards of the parameters are made on the card from
+    a seeded generator per leaf and rank (no whole model is made), and
+    its step runs ``RANK_STEP_STEPS`` times after one
     untimed step: ms a step against the count's bound for rank 0, max
     (compute, memory on the kernel path) with the collectives free (a
     fake group moves no bytes and leaves a gather's output unwritten, so
@@ -2722,7 +2725,7 @@ def fill_cross_cache(model, cfg, cache: dict, enc_embeds) -> None:
     ``enc_k``/``enc_v`` (the first S_enc slots)."""
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
-    enc = T._encode(model, enc_embeds, cfg)
+    enc, _ = T._encode(model, enc_embeds, cfg)
     n = enc.shape[1]
     for i, p in enumerate(model.layers):
         k, v = L.cross_kv_init(p.xattn, enc, cfg.attn_cfg(causal=False))
@@ -4221,27 +4224,43 @@ TP_RTOL = 1e-5                    # its first loss and grad norm vs ctx=None
 TP_RESHARD_LAYER = "layers.0.moe."  # model layer 1: the first MoE layer
 
 
-def expected_tp_calls(cfg, steps: int) -> dict:
+def expected_tp_calls(cfg, steps: int, m: int = 1) -> dict:
     """The model group's collectives ``steps`` plain steps of ``cfg`` (a
     latent-attention MoE stack with shared experts, S divisible by the
-    model axis) issue, by ``sharding.TP_CALLS`` kind, a microbatch each.
-    ``copy_to_tp``'s all-reduces run in the backward (latent attention:
-    ``wq`` and the latent; a SwiGLU or shared expert: ``wi`` and ``wg``;
-    an MoE layer's router) and so do ``split_seq``'s all-gathers;
-    ``reduce_from_tp`` (each attention's and SwiGLU's ``wo``),
-    ``gather_seq`` and an MoE layer's two all-to-alls run in the forward,
-    the all-to-alls once each again in the backward.  Remat's recompute
-    counts apart (``sharding.TP_RECOMPUTE``): where torch stops it
-    differs between builds and devices."""
+    model axis ``m``, the heads split over it) issue, by
+    ``sharding.TP_CALLS`` kind, a microbatch each.  On an axis of 1 (the
+    residual whole): ``copy_to_tp``'s all-reduces run in the backward
+    (latent attention: ``wq`` and the latent; a SwiGLU or shared expert:
+    ``wi`` and ``wg``; an MoE layer's router) and so do ``split_seq``'s
+    all-gathers; ``reduce_from_tp`` (each attention's and SwiGLU's
+    ``wo``), ``gather_seq`` and an MoE layer's two all-to-alls run in the
+    forward, the all-to-alls once each again in the backward.  Above 1
+    (the residual the rank's sequence rows, the vocabulary sharded): the
+    embedding's reduce-scatter, each attention's and each SwiGLU's or
+    shared expert's gather in and reduce-scatter out, and the head's
+    gather, each once forward and once backward; ``copy_to_tp`` for every
+    norm's scale on the rows, each latent and each router; the two
+    all-to-alls each way; the cross-entropy's ``vocab_max`` and
+    ``vocab_sum`` once.  Remat's recompute counts apart
+    (``sharding.TP_RECOMPUTE``): where torch stops it differs between
+    builds and devices."""
     from repro_torch.sharding import TP_CALLS
     if cfg.attn_type != "mla" or not cfg.moe.n_shared:
         raise ValueError(f"{cfg.name}: the reckoning is for latent "
                          "attention and shared experts")
     n_moe = cfg.n_layers - cfg.first_dense
     per_mb = dict.fromkeys(TP_CALLS, 0)
-    per_mb.update({"copy_to_tp": 4 * cfg.first_dense + 5 * n_moe,
-                   "reduce_from_tp": 2 * cfg.n_layers, "split_seq": n_moe,
-                   "gather_seq": n_moe, "all_to_all": 4 * n_moe})
+    if m == 1:
+        per_mb.update({"copy_to_tp": 4 * cfg.first_dense + 5 * n_moe,
+                       "reduce_from_tp": 2 * cfg.n_layers,
+                       "split_seq": n_moe, "gather_seq": n_moe,
+                       "all_to_all": 4 * n_moe})
+    else:
+        both = 2 * (2 * cfg.n_layers + 1)
+        per_mb.update({"copy_to_tp": 3 * cfg.n_layers + n_moe + 1,
+                       "all_gather_seq": both, "reduce_scatter_seq": both,
+                       "all_to_all": 4 * n_moe, "vocab_max": 1,
+                       "vocab_sum": 1})
     n = steps * max(cfg.microbatches, 1)
     return {k: n * v for k, v in per_mb.items()}
 

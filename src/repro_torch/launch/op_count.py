@@ -42,6 +42,9 @@ is computed), under a ``TorchDispatchMode`` that sees every aten op:
              ``coll_counts``) and by process group (``coll_groups``).
              ``wait_tensor`` and ``_wrap_tensor_autograd`` are none; a
              c10d op of none of the five kinds raises, so none is dropped.
+             Inside ``collective_as(kind, nbytes)`` a collective counts
+             as ``kind`` at ``nbytes`` (``sharding``'s reduce-scatter,
+             run as an all-to-all and a sum in rank order).
              "collective-permute" has no spelling in the port: it stays 0.
   * DTensors — an op on DTensor operands, and a DTensor argument, is
              charged at this rank's local shards (a ``TorchDispatchMode``
@@ -143,6 +146,28 @@ class kernel_dtype:
     def __exit__(self, *exc):
         if _COUNTER is not None:
             _COUNTER.flop_dtype = self.kept
+        return False
+
+
+class collective_as:
+    """``with collective_as(kind, nbytes):`` counts the collectives inside
+    under ``kind`` at ``nbytes`` of result each: the reduce-scatter that
+    ``sharding`` runs as an all-to-all and a local sum in rank order is the
+    reference's reduce-scatter, what lands the reduced rows."""
+
+    __slots__ = ("kind", "nbytes", "kept")
+
+    def __init__(self, kind: str, nbytes: int):
+        self.kind, self.nbytes = kind, nbytes
+
+    def __enter__(self):
+        if _COUNTER is not None:
+            self.kept = _COUNTER.coll_as
+            _COUNTER.coll_as = (self.kind, self.nbytes)
+
+    def __exit__(self, *exc):
+        if _COUNTER is not None:
+            _COUNTER.coll_as = self.kept
         return False
 
 
@@ -334,6 +359,7 @@ class _Counter:
         self.attribute = attribute
         self.attn_depth = 0
         self.flop_dtype: Optional[torch.dtype] = None
+        self.coll_as: Optional[tuple] = None     # (kind, bytes) of a scope
         self.live: dict = {}            # storage key -> bytes, fresh ones
         self.known: set = set()         # the arguments' storages
         self.cur = 0
@@ -465,7 +491,7 @@ class _Counter:
         out = func(*args, **kwargs)
         if name in _NOT_COLLECTIVES:
             return out
-        kind = _KIND.get(name)
+        kind = _KIND.get(name) if self.coll_as is None else self.coll_as[0]
         if kind is None:
             raise NotImplementedError(
                 f"collective {func} is none of the reference's kinds "
@@ -476,7 +502,8 @@ class _Counter:
         for t in _tensors(out, []):
             if t.untyped_storage()._cdata not in ins:
                 self.track(t.untyped_storage())
-        b = sum(t.numel() * t.element_size() for t in _tensors(result, []))
+        b = (sum(t.numel() * t.element_size() for t in _tensors(result, []))
+             if self.coll_as is None else self.coll_as[1])
         cost = self.cost
         cost.n_ops += 1
         cost.coll_bytes[kind] += b

@@ -16,9 +16,15 @@ Under a mesh context (``sharding.mesh_context``, as the train, eval and
 serve steps run the forward) the SwiGLU and, where the kv heads divide the
 model axis, attention are tensor-parallel over "model", Megatron-style:
 ``wq``/``wk``/``wv``/``wi``/``wg`` are column-parallel on this rank's
-columns (``dense(..., gather="col")``, whose input passes
-``sharding.copy_to_tp``), ``wo`` is row-parallel and followed by
-``sharding.reduce_from_tp`` (``gather="row"``).  The weights are then each
+columns, ``wo`` is row-parallel.  On a whole residual the input passes
+``sharding.copy_to_tp`` (``dense(..., gather="col")``) and ``wo``'s sums
+``sharding.reduce_from_tp`` (``gather="row"``).  On the sequence-sharded
+residual (``sharding.residual_rows``: the steps' forward on a model axis
+above 1 where it divides S) the layer's input is this rank's S/m rows:
+it is gathered over the sequence (``sharding.all_gather_seq``, whose
+backward reduce-scatters the ranks' partial gradients) and ``wo``'s sums
+are reduce-scattered back to the rank's rows (``gather="scatter"``,
+``sharding.reduce_scatter_seq``).  The weights are each
 rank's shards as plain tensors (``train.train_step``
 ``cast_and_gather_params``), and each layer reads its local head count off
 its shard (local columns / head_dim), so one config serves every model
@@ -26,19 +32,22 @@ axis; without a context the same code is the one-device layer.
 
 Where the kv heads do not divide a model axis above 1, the heads are not
 split: the working copy holds the layer's ``wq``/``wk``/``wv``/``wo``
-whole on every rank (``train_step.working_specs``).  There, with as many
-queries as keys and a sequence that divides the axis, ``attention`` takes
-the reference's sequence-sharded attention (``_sdpa``,
-``src/repro/models/layers.py:143-170`` and ``:191-259``): each rank takes
-its S/m query rows (``split_seq``) against the whole K and V, computes
-the materialised core with the causal mask offset by its first row
-(``seq_rows``, the reference's custom VJP: dQ stays with the rank's rows,
-dK and dV are partial sums over them, all-reduced over "model" by
-``kv_grad_sum``), and ``gather_seq`` restores the sequence.  Where the
-sequence does not divide the axis either (a prefill of odd length), the
-reference leaves the layout to its partitioner; the port computes the
-same values with the heads replicated over "model", every rank the whole
-layer, no collective.
+whole on every rank (``train_step.working_specs``).  On the
+sequence-sharded residual (the reference's rule, ``seq_sharded``) the
+layer runs the reference's sequence-sharded attention
+(``src/repro/models/layers.py:143-170`` and ``:191-259``) on the rank's
+rows (``_attention_rows``): q, k and v are projected from its S/m rows at
+their positions, K and V gathered over the sequence in float32
+(``seq_attention``), the materialised core run with the causal mask
+offset by its first row (``seq_rows``, the reference's custom VJP: dQ
+stays with the rank's rows, dK and dV are partial sums over them,
+reduce-scattered to their rows' owners by the gather's backward), and
+``wo`` applied to the rows; each weight's gradient is a sum over the
+rank's rows, so the weights pass ``copy_to_tp``.  No projection runs on
+all rows.  On a whole residual at a model axis above 1 (an S that the
+axis does not divide) the reference leaves the layout to its
+partitioner; the port computes the same values with the heads replicated
+over "model", every rank the whole layer, no collective.
 
 Decode under a mesh context is sequence-parallel, as the reference's
 ``cache_specs`` lays the cache out: each rank holds S/m of the cache's
@@ -73,9 +82,9 @@ from torch import nn
 from ..kernels import ops, ref
 from ..kernels.build import PlanError
 from ..launch.op_count import attn_core
-from ..sharding import (copy_to_tp, decode_max, decode_sum, gather_seq,
-                        kv_grad_sum, norm_sum, reduce_from_tp, split_seq,
-                        tp_group)
+from ..sharding import (all_gather_seq, copy_to_tp, decode_max, decode_sum,
+                        gather_seq, norm_sum, reduce_from_tp,
+                        reduce_scatter_seq, residual_rows, tp_group)
 
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32
@@ -115,17 +124,25 @@ def dense(p: Dense, x: torch.Tensor, gather: Optional[str] = None
     """``x @ w (+ b)``.  ``gather`` keeps the reference's signature
     (``layers.py:39-55``, where it pins the weight's layout for the
     partitioner); here, under a mesh context, it names the tensor-parallel
-    role of the rank's shard: ``"col"`` a column-parallel product (the
-    input through ``copy_to_tp``, the output this rank's columns, the bias
-    its slice), ``"row"`` a row-parallel one (the input this rank's
-    features, the partial sums through ``reduce_from_tp``, then the bias).
-    Without a context, or with ``gather=None``, the plain product."""
+    role of the rank's shard: ``"col"`` a column-parallel product on a
+    whole input (the input through ``copy_to_tp``, the output this rank's
+    columns, the bias its slice), ``"row"`` a row-parallel one (the input
+    this rank's features, the partial sums through ``reduce_from_tp``,
+    then the bias), ``"scatter"`` a row-parallel one into the
+    sequence-sharded residual (the partial sums through
+    ``reduce_scatter_seq``, each rank keeping its rows).  A
+    column-parallel product on the residual's rows gathered by
+    ``all_gather_seq`` passes ``gather=None``: the gather's backward sums
+    the ranks' parts.  Without a context, or with ``gather=None``, the
+    plain product."""
     tp = tp_group() if gather else None
     if tp is not None and gather == "col":
         x = copy_to_tp(x, tp)
     y = x @ p.w.to(x.dtype)
     if tp is not None and gather == "row":
         y = reduce_from_tp(y, tp)
+    elif tp is not None and gather == "scatter":
+        y = reduce_scatter_seq(y, tp)
     if p.b is not None:
         y = y + p.b.to(x.dtype)
     return y
@@ -278,21 +295,12 @@ def seq_sharded(sq: int, sk: int, n_kv: int) -> bool:
     """The reference's test for its sequence-sharded attention
     (``src/repro/models/layers.py:163-170``): under a context whose model
     axis is above 1, as many queries as keys (more than one), kv heads
-    that do not divide the axis and a sequence that does."""
+    that do not divide the axis and a sequence that does.  Where it holds
+    the residual's rows layout takes ``seq_attention``."""
     tp = tp_group()
     if tp is None or tp.size == 1:
         return False
     return sq > 1 and sq == sk and n_kv % tp.size != 0 and sq % tp.size == 0
-
-
-def _sdpa(q, k, v, causal: bool, n_kv: int) -> torch.Tensor:
-    """q: (B, Sq, H, Dh); k/v: (B, Sk, Hkv, Dh) — GQA by head repetition:
-    on a rank's heads when they split over the model axis, else whole;
-    sequence-sharded where the reference shards it (``seq_sharded`` of
-    the layer's ``n_kv`` kv heads)."""
-    if seq_sharded(q.shape[1], k.shape[1], n_kv):
-        return _sdpa_seq_sharded(q, k, v, causal)
-    return _sdpa_core(q, k, v, causal, 0)
 
 
 def _sdpa_core(q, k, v, causal: bool, q_offset: int) -> torch.Tensor:
@@ -384,18 +392,18 @@ def seq_rows(q, k, v, causal: bool, row0: int) -> torch.Tensor:
     return _SeqRows.apply(q, k, v, causal, row0)
 
 
-def _sdpa_seq_sharded(q, k, v, causal: bool) -> torch.Tensor:
-    """The sequence-sharded attention on the model group: this rank's S/m
-    query rows against the whole K and V (``seq_rows``), the K and V
-    gradients summed over "model" (``kv_grad_sum``), the rows gathered
-    back (``gather_seq``)."""
-    tp = tp_group()
-    row0 = tp.rank * (q.shape[1] // tp.size)
-    q_rows = split_seq(q, tp)
-    kf, vf = kv_grad_sum(k.float(), tp), kv_grad_sum(v.float(), tp)
+def seq_attention(q, k, v, causal: bool, tp) -> torch.Tensor:
+    """The sequence-sharded attention on the model group ``tp``: this
+    rank's rows of q, k and v (B, S/m, ., Dh), the first at row
+    ``rank · S/m``; K and V gathered over the sequence in float32
+    (``all_gather_seq``, whose backward reduce-scatters the ranks' partial
+    dK/dV sums to the rows' owners before they round, as the reference's
+    psum precedes its cast), the rank's query rows against them
+    (``seq_rows``) -> this rank's rows of the output (B, S/m, H, Dh)."""
+    row0 = tp.rank * q.shape[1]
+    kf, vf = all_gather_seq(k.float(), tp), all_gather_seq(v.float(), tp)
     with attn_core:
-        out = seq_rows(q_rows, kf, vf, causal, row0)
-    return gather_seq(out, tp)
+        return seq_rows(q, kf, vf, causal, row0)
 
 
 def decode_values(weights, v, dtype) -> torch.Tensor:
@@ -470,11 +478,24 @@ def attention(p: Attention, x: torch.Tensor, cfg: AttnConfig,
     column-parallel, ``wo`` row-parallel), else whole; a cache holds this
     rank's positions (``cache_specs``) and so does ``cross_kv`` with
     ``cross_sharded`` (a decode's encoder rows), and the decode merges
-    over "model"."""
-    b, s, _ = x.shape
+    over "model".  On the sequence-sharded residual
+    (``sharding.residual_rows``) ``x`` and the output are this rank's
+    sequence rows: split heads gather x over the sequence and
+    reduce-scatter ``wo``'s sums back to rows; whole heads project the rows
+    (``_attention_rows``)."""
     tp = tp_group()
     split = heads_split(cfg.n_kv)
-    col, row = ("col", "row") if split else (None, None)
+    rows = residual_rows()
+    if rows and not split:
+        if kv_cache is not None:
+            raise PlanError("attention decodes on a whole residual")
+        return _attention_rows(p, x, cfg, cross_kv), kv_cache
+    if rows:
+        x = all_gather_seq(x, tp)
+        col, row = None, "scatter"
+    else:
+        col, row = ("col", "row") if split else (None, None)
+    b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     hd = cfg.head_dim
@@ -489,7 +510,7 @@ def attention(p: Attention, x: torch.Tensor, cfg: AttnConfig,
             if split:
                 out = own_heads(out, h, tp)
         else:
-            out = _sdpa(q, k, v, False, cfg.n_kv)
+            out = _sdpa_core(q, k, v, False, 0)
         return dense(p.wo, out.reshape(b, s, -1), gather=row), kv_cache
     hkv = local_heads(p.wk.w, cfg.n_kv, hd, "attention wk", split)
     k = dense(p.wk, x, gather=col).reshape(b, s, hkv, hd)
@@ -497,7 +518,7 @@ def attention(p: Attention, x: torch.Tensor, cfg: AttnConfig,
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     if kv_cache is None:
-        out = _sdpa(q, k, v, cfg.causal, cfg.n_kv)
+        out = _sdpa_core(q, k, v, cfg.causal, 0)
         new_cache = None
     else:
         idx = int(kv_cache["len"])
@@ -525,15 +546,69 @@ def attention(p: Attention, x: torch.Tensor, cfg: AttnConfig,
     return dense(p.wo, out.reshape(b, s, -1), gather=row), new_cache
 
 
-def cross_kv_init(p: Attention, memory: torch.Tensor, cfg: AttnConfig):
+def _rows_proj(d: Dense, x: torch.Tensor, heads: int, hd: int, tp
+               ) -> torch.Tensor:
+    """``d`` (whole on every rank) on this rank's sequence rows x ->
+    (B, S/m, heads, hd); the weight's gradient is a sum over the rank's
+    rows, so the weight and the bias pass ``copy_to_tp``."""
+    b, s, _ = x.shape
+    y = x @ copy_to_tp(d.w, tp).to(x.dtype)
+    if d.b is not None:
+        y = y + copy_to_tp(d.b, tp).to(x.dtype)
+    return y.reshape(b, s, heads, hd)
+
+
+def _attention_rows(p: Attention, x: torch.Tensor, cfg: AttnConfig,
+                    cross_kv: Optional[tuple] = None) -> torch.Tensor:
+    """Attention whose heads are whole on every model rank, on this rank's
+    sequence rows x (B, S/m, d): q projected from the rows (``_rows_proj``)
+    and, for self-attention, k and v too, at the rows' positions, through
+    ``seq_attention``; a cross-attention's K and V (``cross_kv``, gathered
+    from the encoder's rows by ``cross_kv_init``) whole, the non-causal
+    core on the rank's query rows; ``wo`` on the rows."""
+    tp = tp_group()
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    h = local_heads(p.wq.w, cfg.n_heads, hd, "attention wq", False)
+    q = _rows_proj(p.wq, x, h, hd, tp)
+    if cross_kv is not None:
+        out = _sdpa_core(q, *cross_kv, False, 0)
+    else:
+        row0 = tp.rank * s
+        positions = torch.arange(row0, row0 + s, device=x.device)[None, :]
+        hkv = local_heads(p.wk.w, cfg.n_kv, hd, "attention wk", False)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(_rows_proj(p.wk, x, hkv, hd, tp), positions, cfg.rope_theta)
+        out = seq_attention(q, k, _rows_proj(p.wv, x, hkv, hd, tp),
+                            cfg.causal, tp)
+    out = out.reshape(b, s, h * hd)
+    return out @ copy_to_tp(p.wo.w, tp).to(out.dtype)
+
+
+def cross_kv_init(p: Attention, memory: torch.Tensor, cfg: AttnConfig,
+                  memory_layout: str = "whole"):
     """Precompute encoder-memory K/V once per sequence (enc-dec decode);
-    this rank's kv heads under a mesh context where they split."""
+    this rank's kv heads under a mesh context where they split.
+    ``memory_layout`` says what ``memory`` is on a model axis: ``"whole"``
+    (every rank the same; a split layer's products pass ``copy_to_tp``),
+    ``"gathered"`` (the encoder's sequence-sharded output through
+    ``all_gather_seq``, whose backward sums the ranks' parts) or
+    ``"rows"`` (the encoder's rows themselves: a layer whose heads do not
+    split projects them and gathers K and V over the sequence)."""
     b, sm, _ = memory.shape
     split = heads_split(cfg.n_kv)
-    col = "col" if split else None
-    hkv = local_heads(p.wk.w, cfg.n_kv, cfg.head_dim, "cross wk", split)
-    k = dense(p.wk, memory, gather=col).reshape(b, sm, hkv, cfg.head_dim)
-    v = dense(p.wv, memory, gather=col).reshape(b, sm, hkv, cfg.head_dim)
+    hd = cfg.head_dim
+    hkv = local_heads(p.wk.w, cfg.n_kv, hd, "cross wk", split)
+    if memory_layout == "rows":
+        if split:
+            raise PlanError("a cross-attention whose kv heads split takes "
+                            "the encoder's output gathered")
+        tp = tp_group()
+        return tuple(all_gather_seq(_rows_proj(d, memory, hkv, hd, tp), tp)
+                     for d in (p.wk, p.wv))
+    col = "col" if split and memory_layout == "whole" else None
+    k = dense(p.wk, memory, gather=col).reshape(b, sm, hkv, hd)
+    v = dense(p.wv, memory, gather=col).reshape(b, sm, hkv, hd)
     return k, v
 
 
@@ -548,6 +623,11 @@ class SwiGLU(nn.Module):
 
 def swiglu(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
     """Under a mesh context this rank's columns of ``wi``/``wg`` and rows
-    of ``wo``, the partial sums reduced over "model"."""
-    h = F.silu(dense(p.wg, x, gather="col")) * dense(p.wi, x, gather="col")
-    return dense(p.wo, h, gather="row")
+    of ``wo``, the partial sums reduced over "model"; on the
+    sequence-sharded residual x and the output are this rank's rows (x
+    gathered, the sums reduce-scattered)."""
+    col, row = "col", "row"
+    if residual_rows():
+        x, col, row = all_gather_seq(x, tp_group()), None, "scatter"
+    h = F.silu(dense(p.wg, x, gather=col)) * dense(p.wi, x, gather=col)
+    return dense(p.wo, h, gather=row)

@@ -39,6 +39,14 @@ divide the model axis the working copy holds ``wq``, ``wkv_b`` and ``wo``
 whole too, and every rank computes the whole layer (the reference leaves
 that layout to its partitioner).
 
+On the sequence-sharded residual (``sharding.residual_rows``) the layer's
+input is the rank's S/m rows, gathered over the sequence: with its heads
+split by ``all_gather_seq`` (whose backward sums the ranks' partial
+gradients; the whole latent's gradient, equal on every rank, enters that
+sum scaled by 1/m) and ``wo``'s sums reduce-scattered back to the rows;
+with its heads whole by ``gather_seq``, the whole layer on every rank and
+its output sliced to the rank's rows (``split_seq``).
+
 Decode under a mesh context is sequence-parallel, as ``cache_specs`` lays
 out the latent cache (each rank S/m positions): every rank computes the
 step's latent row whole and the rank that owns position ``len`` writes
@@ -59,7 +67,8 @@ from torch import nn
 from ..kernels import ops, ref
 from ..kernels.build import PlanError
 from ..launch.op_count import attn_core
-from ..sharding import copy_to_tp, gather_seq, tp_group
+from ..sharding import (all_gather_seq, copy_to_tp, gather_seq, scale_grad,
+                        residual_rows, split_seq, tp_group)
 from . import layers as L
 
 
@@ -122,20 +131,32 @@ def mla_attention(p: MLA, x: torch.Tensor, cfg: MLAConfig,
     ``len``, and the returned cache holds the same tensor and the new
     length.  Under a mesh context this rank's heads (see the module's
     docstring)."""
-    b, s, _ = x.shape
-    if positions is None:
-        positions = torch.arange(s, device=x.device)[None, :]
     dn, dr, dv = cfg.qk_nope, cfg.qk_rope, cfg.v_head
     tp = tp_group()
     split = L.heads_split(cfg.n_heads)
+    rows = residual_rows()
+    if rows and cache is None:
+        # the sequence-sharded residual: gathered whole over the sequence
+        # (split heads: the gather's backward sums the ranks' parts; whole
+        # heads: every rank computes the layer, so the gradient is whole
+        # and equal, and the gather's backward takes the rank's rows)
+        x = all_gather_seq(x, tp) if split else gather_seq(x, tp)
+    elif rows:
+        raise PlanError("latent attention decodes on a whole residual")
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
     h = L.local_heads(p.wq.w, cfg.n_heads, dn + dr, "mla wq", split)
     L.local_heads(p.wkv_b.w, cfg.n_heads, dn + dv, "mla wkv_b", split)
+    col = "col" if split and not rows else None
 
-    q = L.dense(p.wq, x, gather="col" if split else None).reshape(
-        b, s, h, dn + dr)
+    q = L.dense(p.wq, x, gather=col).reshape(b, s, h, dn + dr)
     q = torch.cat([q[..., :dn], L.rope(q[..., dn:], positions,
                                        cfg.rope_theta)], dim=-1)
-    ckv_full = L.dense(p.wkv_a, x)                       # (B, S, kv_lora+dr)
+    # the whole latent on every rank: on the gathered rows of split heads
+    # its equal gradient reaches the gather's sum once in m
+    ckv_full = L.dense(p.wkv_a, scale_grad(x, 1.0 / tp.size)
+                       if rows and split else x)         # (B, S, kv_lora+dr)
     if ckv_full.shape[-1] != cfg.kv_lora + dr:
         raise PlanError(f"mla wkv_a: {ckv_full.shape[-1]} columns, not the "
                         f"whole latent {cfg.kv_lora} + {dr} (the working "
@@ -146,7 +167,7 @@ def mla_attention(p: MLA, x: torch.Tensor, cfg: MLAConfig,
     if split:                 # each rank's heads add their part of the grad
         latent = copy_to_tp(torch.cat([c_kv, k_rope], dim=-1), tp)
         c_kv, k_rope = latent[..., :cfg.kv_lora], latent[..., cfg.kv_lora:]
-    row = "row" if split else None
+    row = ("scatter" if rows else "row") if split else None
 
     if cache is None:
         k, v = _expand_kv(p.wkv_b.w, c_kv, k_rope, cfg)
@@ -182,4 +203,7 @@ def mla_attention(p: MLA, x: torch.Tensor, cfg: MLAConfig,
             out = L.merged_decode(q, k, v, idx, pos0, True, tp)
             if split:
                 out = L.own_heads(out, h, tp)
-    return L.dense(p.wo, out.reshape(b, s, h * dv), gather=row), new_cache
+    out = L.dense(p.wo, out.reshape(b, s, h * dv), gather=row)
+    if rows and not split:
+        out = split_seq(out, tp)              # the whole layer's rows
+    return out, new_cache

@@ -10,8 +10,14 @@ Under one (``sharding.mesh_context``, as the train and eval steps run the
 forward) the rank holds its E/m experts (``moe_param_specs``: the expert
 leaves' rows over "model") and, at every model-axis size, 1 included:
 
+* on the sequence-sharded residual (``sharding.residual_rows``, a model axis
+  above 1), the block's input is already the rank's S/m rows: it routes
+  them as they come, at the capacity ``_capacity(B·S/m)``, with the router
+  through ``copy_to_tp``, no ``split_seq`` and no ``gather_seq``, and the
+  shared expert gathers and reduce-scatters as ``layers.swiglu`` does;
 * the token-parallel split (``moe.py:134-168``): when S > 1 and S % m ==
-  0, each model rank takes its S/m slice of its rows (``split_seq``) and
+  0 on a whole residual, each model rank takes its
+  S/m slice of its rows (``split_seq``) and
   routes those B·S/m tokens with the capacity ``_capacity(B·S/m)``, so
   results depend on the model axis as the reference's do; the router's
   weights are replicated but each rank routes other tokens, so they pass
@@ -75,7 +81,8 @@ from torch import nn
 from ..kernels.build import PlanError
 from ..kernels.ops import resolve_device
 from ..sharding import (copy_to_tp, expert_exchange, expert_return,
-                        gather_seq, scale_grad, split_seq, tp_group)
+                        gather_seq, scale_grad, residual_rows, split_seq,
+                        tp_group)
 from . import layers as L
 
 # the list of the innermost counting_drops() block, None outside any
@@ -223,7 +230,9 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d): the routed experts through the
     capacity-bounded dispatch, plus the shared expert.  Without a mesh
     context all B·S tokens at once; under one the token-parallel split or
-    the replicated dispatch across "model" (the module's docstring)."""
+    the replicated dispatch across "model" (the module's docstring); on
+    the sequence-sharded residual x is this rank's rows, which it routes
+    as they come."""
     b, s, d = x.shape
     tp = tp_group()
     if tp is None:
@@ -237,11 +246,14 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
                             f"1/{m} of {cfg.n_experts} (the expert leaves "
                             "are each rank's rows over the model axis)")
         router_w = copy_to_tp(p.router.w, tp)
-        if s > 1 and s % m == 0:                        # token-parallel
-            xs = split_seq(x, tp)                       # (B, S/m, d)
+        rows = residual_rows()                  # x is the rank's S/m rows
+        if rows or (s > 1 and s % m == 0):              # token-parallel
+            xs = x if rows else split_seq(x, tp)        # (B, S/m, d)
             y, keep = _dispatch_combine(xs.reshape(-1, d), router_w, p.wi,
                                         p.wg, p.wo, cfg, tp)
-            y = gather_seq(y.reshape(xs.shape), tp)
+            y = y.reshape(xs.shape)
+            if not rows:
+                y = gather_seq(y, tp)
         else:                                           # replicated
             y, keep = _dispatch_combine(copy_to_tp(x, tp).reshape(b * s, d),
                                         router_w, p.wi, p.wg, p.wo, cfg, tp)

@@ -26,7 +26,11 @@ whole ``B`` and ``C`` ones, and its heads' slices of ``A_log``,
 columns' weights, whose gradient each rank holds a part of; the gated
 norm runs over the whole ``d_inner`` through ``layers.rms_norm_split``
 (the sum of squares over "model"); ``out_proj`` is row-parallel, then
-``reduce_from_tp``.  The decode keeps each rank's heads of the state
+``reduce_from_tp``.  On the sequence-sharded residual
+(``sharding.residual_rows``) the input is the rank's S/m rows, gathered
+over the sequence by ``all_gather_seq`` (whose backward sums the ranks'
+parts, in place of ``copy_to_tp``), and ``out_proj``'s sums are
+reduce-scattered back to the rows.  The decode keeps each rank's heads of the state
 ``h`` and the whole conv state on every rank: the new ``x`` row is
 gathered over "model" (``gather_seq``) so that every rank's copy of the
 conv state stays equal.
@@ -46,7 +50,8 @@ from torch import nn
 from ..kernels import ops
 from ..kernels.build import PlanError
 from ..launch.op_count import attn_core
-from ..sharding import copy_to_tp, gather_seq, reduce_from_tp, tp_group
+from ..sharding import (all_gather_seq, copy_to_tp, gather_seq, residual_rows,
+                        tp_group)
 from .layers import Dense, dense, param, rms_norm, rms_norm_split
 
 
@@ -131,15 +136,17 @@ def _shared(t: torch.Tensor, lo: int, hi: int, tp) -> torch.Tensor:
                       t[..., hi:]], dim=-1)
 
 
-def _split_proj(p: SSD, x: torch.Tensor, cfg: SSDConfig):
-    """(z, xBC, dt) of this rank's heads (all of them without a
-    context)."""
+def _split_proj(p: SSD, x: torch.Tensor, cfg: SSDConfig,
+                gathered: bool = False):
+    """(z, xBC, dt) of this rank's heads (all of them without a context);
+    ``gathered``: x came through ``all_gather_seq``, whose backward sums
+    the ranks' parts, so it skips ``copy_to_tp``."""
     tp, _, di = _geometry(cfg)
     if tp is None:
         zxbcdt = dense(p.in_proj, x)
     else:
         w = _shared(p.in_proj.w, 2 * di, 2 * di + 2 * cfg.d_state, tp)
-        zxbcdt = copy_to_tp(x, tp) @ w.to(x.dtype)
+        zxbcdt = (x if gathered else copy_to_tp(x, tp)) @ w.to(x.dtype)
     conv_dim = di + 2 * cfg.d_state
     z = zxbcdt[..., :di]
     xbc = zxbcdt[..., di:di + conv_dim]
@@ -228,12 +235,17 @@ def chunk_scan(xs, bmat, cmat, dt, a, chunk: int):
 def ssd_forward(p: SSD, x: torch.Tensor, cfg: SSDConfig):
     """Train and prefill path.  x: (B, L, d_model), L a multiple of
     ``min(chunk, L)`` (pad upstream; PlanError otherwise).  Returns
-    (y, final_state) — final_state (B, H, P, N) float32."""
+    (y, final_state) — final_state (B, H, P, N) float32.  On the
+    sequence-sharded residual x and y are this rank's rows: x is gathered
+    over the sequence, and ``out_proj``'s sums reduce-scattered back."""
+    tp, h, di = _geometry(cfg)
+    rows = residual_rows()
+    if rows:
+        x = all_gather_seq(x, tp)
     b, l, _ = x.shape
-    _, h, di = _geometry(cfg)
     pdim, n = cfg.headdim, cfg.d_state
 
-    z, xbc, dt_raw = _split_proj(p, x, cfg)
+    z, xbc, dt_raw = _split_proj(p, x, cfg, gathered=rows)
     xbc, _ = _causal_conv(p, xbc, cfg)
     xs = xbc[..., :di].reshape(b, l, h, pdim)
     bmat = xbc[..., di:di + n]
@@ -248,7 +260,8 @@ def ssd_forward(p: SSD, x: torch.Tensor, cfg: SSDConfig):
     y = y + p.D.to(x.dtype)[None, None, :, None] * xs
     y = y.reshape(b, l, di)
     y = y * F.silu(z)
-    return dense(p.out_proj, _gated_norm(p, y, cfg), gather="row"), h_final
+    return dense(p.out_proj, _gated_norm(p, y, cfg),
+                 gather="scatter" if rows else "row"), h_final
 
 
 def ssd_decode_step(p: SSD, x: torch.Tensor, cfg: SSDConfig, state: dict):

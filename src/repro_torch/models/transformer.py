@@ -44,15 +44,34 @@ Under a mesh context (``sharding.mesh_context``; the train, eval and serve
 steps run the forward under one) attention, latent attention, the
 SwiGLU, the experts and the SSD heads are tensor- and expert-parallel
 over "model" on each rank's working shards (``models.layers``,
-``models.mla``, ``models.moe``, ``models.ssd``); attention whose kv heads
-do not divide the axis runs sequence-sharded or replicated
-(``models.layers``).  The residual stream stays replicated over "model"
-(the reference shards its sequence, ``residual_spec``; ROADMAP C.3), and
-so do the embedding and the LM head: the step's working copy gathers them
-whole over "model" once a step (``train.train_step.working_specs``), so
-the logits and the loss are whole on every rank, where the reference's
-logits are vocab-sharded (``transformer.py:402``; a vocab-parallel
-cross-entropy is later work).
+``models.mla``, ``models.moe``, ``models.ssd``).  On a model axis m above
+1 the layout of the activations is the reference's:
+  * the vocabulary over "model" (the reference's ``embed``
+    ``P("model", "data")``, ``lm_head`` ``P("data", "model")`` and
+    vocab-sharded logits, ``transformer.py:402``): the working copy holds
+    each rank's V/m rows of the embedding and columns of the head
+    (``train.train_step.working_specs``); ``_embed`` looks up the tokens
+    the rank's rows hold and sums the partial rows over "model", ``_head``
+    gives the rank's logits (B, S, V/m) and ``loss_fn`` takes the
+    cross-entropy over the shards (``sharding.vocab_log_likelihood``), so
+    no rank holds a (B, S, V) tensor; a tied head is the rank's embedding
+    shard transposed, both uses summing into it.  The serving prefill
+    (``last_only``) and the decode gather their (B, 1, V) logits whole;
+  * the residual stream's sequence over "model" between blocks (the
+    reference's ``residual_spec``, ``sharding.py:117-132``): where m
+    divides S > 1 (``rows_layout``) each rank holds rows [r·S/m,
+    (r+1)·S/m) from the embedding (a reduce-scatter of the partial rows)
+    to the final norm, the norms and the residual adds run on them, and
+    each layer gathers its input over the sequence and reduce-scatters
+    its output back (``sharding.all_gather_seq``/``reduce_scatter_seq``);
+    the experts route the rank's rows as they come; attention whose kv
+    heads do not divide m projects q, k and v from the rank's rows and
+    gathers K and V (``layers.seq_attention``).  An encoder runs on its
+    frames' rows the same way, and the decoder's cross-attention takes K/V
+    from its output gathered over the sequence.  Under remat each block
+    then saves its (B, S/m, d) input.  Elsewhere (the decode's S of 1, an
+    S that m does not divide, in an encoder-decoder on either side) the
+    residual is whole on every rank, as ``residual_spec`` says.
 
 The decode cache on a mesh is laid out by ``cache_specs`` (the
 reference's ``:482-505``): the batch over the batch axes when it has
@@ -78,7 +97,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.build import PlanError
 from ..kernels.ops import resolve_device
-from ..sharding import MeshContext, current_ctx, mesh_context
+from ..sharding import (MeshContext, all_gather_seq, copy_to_tp, current_ctx,
+                        gather_seq, mesh_context, reduce_from_tp,
+                        reduce_scatter_seq, residual_layout, residual_rows,
+                        split_seq, tp_group, vocab_log_likelihood)
 from . import layers as L
 from . import mla as MLA
 from . import moe as MOE
@@ -182,9 +204,18 @@ class SSDBlock(nn.Module):
         self.ssd = SSD.SSD(cfg.ssd, generator, device)
 
 
+def _norm(scale: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``rms_norm`` on the residual stream: on its sequence rows
+    (``sharding.residual_rows``) the scale's gradient is a sum over the rank's
+    rows, so the scale passes ``copy_to_tp`` (summed over "model")."""
+    if residual_rows():
+        scale = copy_to_tp(scale, tp_group())
+    return L.rms_norm(scale, x)
+
+
 def _attn_block_apply(p: AttnBlock, x, cfg: ArchConfig, positions=None,
                       cache=None, cross_kv=None, causal=True):
-    h = L.rms_norm(p.ln1, x)
+    h = _norm(p.ln1, x)
     if cfg.attn_type == "mla":
         a, cache = MLA.mla_attention(p.attn, h, cfg.mla, positions=positions,
                                      cache=cache)
@@ -193,13 +224,13 @@ def _attn_block_apply(p: AttnBlock, x, cfg: ArchConfig, positions=None,
                                positions=positions, kv_cache=cache)
     x = x + a
     if hasattr(p, "xattn") and cross_kv is not None:
-        h = L.rms_norm(p.lnx, x)
+        h = _norm(p.lnx, x)
         # a decode's encoder K/V come from its cache: on a mesh, this
         # rank's positions
         a, _ = L.attention(p.xattn, h, cfg.attn_cfg(causal=False),
                            cross_kv=cross_kv, cross_sharded=cache is not None)
         x = x + a
-    h = L.rms_norm(p.ln2, x)
+    h = _norm(p.ln2, x)
     if isinstance(p, MoEBlock):
         x = x + MOE.moe_ffn(p.moe, h, cfg.moe)
     else:
@@ -208,7 +239,7 @@ def _attn_block_apply(p: AttnBlock, x, cfg: ArchConfig, positions=None,
 
 
 def _ssd_block_apply(p: SSDBlock, x, cfg: ArchConfig, state=None):
-    h = L.rms_norm(p.ln, x)
+    h = _norm(p.ln, x)
     if state is None:
         y, _ = SSD.ssd_forward(p.ssd, h, cfg.ssd)
         new_state = None
@@ -317,14 +348,104 @@ def count_params(model) -> int:
     return int(sum(t.numel() for t in named.values()))
 
 
-def _embed(params: Model, tokens: torch.Tensor) -> torch.Tensor:
-    return params.embed[tokens.long()].to(L.COMPUTE_DTYPE)
+def _vocab_tp():
+    """The model group when the vocabulary is sharded over it (a context
+    whose model axis is above 1), else None."""
+    tp = tp_group()
+    return tp if tp is not None and tp.size > 1 else None
+
+
+def rows_layout(batch: dict, m: int) -> bool:
+    """Whether a forward of ``batch`` on a model axis of ``m`` keeps the
+    residual stream as each model rank's S/m sequence rows: the
+    reference's ``residual_spec`` (m above 1, S above 1, m divides S), for
+    the tokens and, in an encoder-decoder, the encoder's frames too (the
+    decoder's cross-attention reads the encoder's output in the layout
+    the encoder ran in)."""
+    seqs = [batch["tokens"].shape[1]]
+    if "enc_embeds" in batch:
+        seqs.append(batch["enc_embeds"].shape[1])
+    return m > 1 and all(s > 1 and s % m == 0 for s in seqs)
+
+
+def _vocab_rows(params: Model, cfg: ArchConfig, tp) -> int:
+    """This rank's rows of the embedding (its V/m of the padded
+    vocabulary, the working copy's shard); PlanError if they are not."""
+    n = params.embed.shape[0]
+    head = n if params.lm_head is None else params.lm_head.shape[1]
+    if n * tp.size != cfg.vocab_padded or head != n:
+        raise PlanError(f"{cfg.name}: embedding rows {n} and LM head "
+                        f"columns {head} are not 1/{tp.size} of the padded "
+                        f"vocabulary {cfg.vocab_padded} (the working copy "
+                        "shards the vocabulary over the model axis)")
+    return n
+
+
+def _embed(params: Model, tokens: torch.Tensor,
+           cfg: Optional[ArchConfig] = None) -> torch.Tensor:
+    """The tokens' embeddings in the compute dtype.  Under a context whose
+    model axis is above 1 (``cfg`` given) each rank looks up the tokens
+    its vocabulary rows hold and writes zeros for the others, and the
+    partial rows are summed over "model": reduce-scattered into the
+    rank's sequence rows on the sequence-sharded residual, else
+    all-reduced.  Exactly one rank adds a nonzero row, so the sum is
+    exact; the backward reaches the rank's own rows only."""
+    tp = _vocab_tp()
+    if tp is None:
+        return params.embed[tokens.long()].to(L.COMPUTE_DTYPE)
+    n = _vocab_rows(params, cfg, tp)
+    ids = tokens.long() - tp.rank * n
+    own = ((ids >= 0) & (ids < n))[..., None]
+    part = torch.where(own, params.embed[ids.clamp(0, n - 1)].to(
+        L.COMPUTE_DTYPE), 0.0)
+    return (reduce_scatter_seq(part, tp) if residual_rows()
+            else reduce_from_tp(part, tp))
+
+
+def _place_patches(x: torch.Tensor, pe: torch.Tensor) -> torch.Tensor:
+    """The vlm stub's patch embeddings (B, P, d) in place of the first P
+    positions: on the sequence-sharded residual, of those among the
+    rank's rows."""
+    pe = pe.to(x.device, x.dtype)
+    lo = tp_group().rank * x.shape[1] if residual_rows() else 0
+    n = min(max(pe.shape[1] - lo, 0), x.shape[1])
+    if n == 0:
+        return x
+    return torch.cat([pe[:, lo:lo + n], x[:, n:]], dim=1)
 
 
 def _logits(params: Model, x: torch.Tensor) -> torch.Tensor:
     x = L.rms_norm(params.final_norm, x)
     head = params.embed.T if params.lm_head is None else params.lm_head
     return x @ head.to(x.dtype)
+
+
+def _head(params: Model, x: torch.Tensor, cfg: ArchConfig,
+          last_only: bool = False) -> torch.Tensor:
+    """The final norm and the LM head (with ``last_only`` on the last
+    position).  Without a context, or on a model axis of 1, the whole
+    vocabulary.  On a larger axis the head is this rank's V/m columns
+    (tied: the embedding's rows, transposed): the final norm runs on the
+    residual's rows, which are gathered over the sequence in front of the
+    column-parallel head (``all_gather_seq``; ``copy_to_tp`` on a whole
+    residual), giving this rank's logits (B, S, V/m); ``last_only`` takes
+    the last rank's last row and gathers the (B, 1, V) logits whole over
+    the vocabulary, as serving returns them."""
+    tp = _vocab_tp()
+    rows = residual_rows()
+    if last_only:
+        x = x[:, -1:, :]
+        if rows:                                 # the last rank's last row
+            x, rows = gather_seq(x, tp)[:, -1:], False
+    if tp is None:
+        return _logits(params, x)
+    _vocab_rows(params, cfg, tp)
+    x = L.rms_norm(copy_to_tp(params.final_norm, tp) if rows
+                   else params.final_norm, x)
+    x = all_gather_seq(x, tp) if rows else copy_to_tp(x, tp)
+    head = params.embed.T if params.lm_head is None else params.lm_head
+    logits = x @ head.to(x.dtype)
+    return gather_seq(logits, tp, dim=-1) if last_only else logits
 
 
 def _maybe_remat(apply, cfg: ArchConfig):
@@ -346,27 +467,37 @@ def _maybe_remat(apply, cfg: ArchConfig):
     return block
 
 
-def _encode(params: Model, enc_embeds: torch.Tensor,
-            cfg: ArchConfig) -> torch.Tensor:
+def _encode(params: Model, enc_embeds: torch.Tensor, cfg: ArchConfig):
     """The encoder stack over the stub frontend's frame embeddings (cast to
     the compute dtype, on the model's device): non-causal blocks and no
-    final norm, as the reference's ``forward`` runs them.  (B, S_enc,
-    d_model)."""
+    final norm, as the reference's ``forward`` runs them.  Returns (its
+    output, ``cross_kv_init``'s ``memory_layout`` for it): (B, S_enc,
+    d_model) ``"whole"``; on the sequence-sharded residual the rank's rows
+    gathered over the sequence (``"gathered"``) where the cross-attention's
+    kv heads split, else the rows themselves (``"rows"``)."""
+    h = enc_embeds.to(params.embed.device, L.COMPUTE_DTYPE)
+    rows, tp = residual_rows(), tp_group()
+    if rows:
+        h = split_seq(h, tp)
     enc = _maybe_remat(functools.partial(_attn_block_apply, causal=False),
                        cfg)
-    h = enc_embeds.to(params.embed.device, L.COMPUTE_DTYPE)
     for p in params.enc_layers:
         h = enc(p, h)
-    return h
+    if not rows:
+        return h, "whole"
+    if L.heads_split(cfg.n_kv):
+        return all_gather_seq(h, tp), "gathered"
+    return h, "rows"
 
 
-def _decoder_block(enc: torch.Tensor):
+def _decoder_block(enc: torch.Tensor, memory_layout: str):
     """A decoder block's apply with the encoder output ``enc`` captured, as
     the reference's closure captures it: the block's cross K/V are
     ``cross_kv_init`` of ``enc`` inside the block (recomputed with it under
-    remat)."""
+    remat); ``memory_layout`` as ``_encode`` returns it."""
     def apply(p: AttnBlock, x, cfg: ArchConfig):
-        ckv = L.cross_kv_init(p.xattn, enc, cfg.attn_cfg(causal=False))
+        ckv = L.cross_kv_init(p.xattn, enc, cfg.attn_cfg(causal=False),
+                              memory_layout)
         return _attn_block_apply(p, x, cfg, cross_kv=ckv)
     return apply
 
@@ -378,34 +509,37 @@ def forward(params: Model, batch: dict, cfg: ArchConfig,
     prefill returns just the next-token distribution).  ``vlm`` takes
     batch["patch_embeds"] (B, P, d_model) in place of the first P
     positions' embeddings, ``encdec`` batch["enc_embeds"] (B, S_enc,
-    d_model) as the encoder's input."""
+    d_model) as the encoder's input.  Under a context whose model axis m
+    is above 1 the residual stream is each rank's S/m sequence rows where
+    ``rows_layout`` says so (the encoder's too), and the logits are this
+    rank's V/m vocabulary columns (B, S, V/m), or with ``last_only`` the
+    whole (B, 1, V) (``_head``)."""
     check_supported(cfg)
-    attn = _maybe_remat(_attn_block_apply, cfg)
-    ssd = _maybe_remat(_ssd_block_apply, cfg)
-    x = _embed(params, batch["tokens"])
-    if cfg.family == "vlm":
-        pe = batch["patch_embeds"].to(x.device, x.dtype)
-        x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
-    if cfg.family == "encdec":
-        dec = _maybe_remat(
-            _decoder_block(_encode(params, batch["enc_embeds"], cfg)), cfg)
-        for p in params.layers:
-            x = dec(p, x)
-    elif cfg.family in ("dense", "vlm", "moe"):
-        for p in (*params.dense_layers, *params.layers):
-            x = attn(p, x)
-    elif cfg.family == "ssm":
-        for p in params.layers:
-            x = ssd(p, x)
-    else:                                               # hybrid
-        g = cfg.shared_every
-        for i, p in enumerate(params.layers):
-            x = ssd(p, x)
-            if (i + 1) % g == 0:
-                x = attn(params.shared_block, x)
-    if last_only:
-        x = x[:, -1:, :]
-    return _logits(params, x)
+    tp = _vocab_tp()
+    with residual_layout(rows_layout(batch, tp.size if tp else 1)):
+        attn = _maybe_remat(_attn_block_apply, cfg)
+        ssd = _maybe_remat(_ssd_block_apply, cfg)
+        x = _embed(params, batch["tokens"], cfg)
+        if cfg.family == "vlm":
+            x = _place_patches(x, batch["patch_embeds"])
+        if cfg.family == "encdec":
+            dec = _maybe_remat(_decoder_block(*_encode(
+                params, batch["enc_embeds"], cfg)), cfg)
+            for p in params.layers:
+                x = dec(p, x)
+        elif cfg.family in ("dense", "vlm", "moe"):
+            for p in (*params.dense_layers, *params.layers):
+                x = attn(p, x)
+        elif cfg.family == "ssm":
+            for p in params.layers:
+                x = ssd(p, x)
+        else:                                           # hybrid
+            g = cfg.shared_every
+            for i, p in enumerate(params.layers):
+                x = ssd(p, x)
+                if (i + 1) % g == 0:
+                    x = attn(params.shared_block, x)
+        return _head(params, x, cfg, last_only)
 
 
 def loss_fn(params: Model, batch: dict, cfg: ArchConfig) -> torch.Tensor:
@@ -414,11 +548,17 @@ def loss_fn(params: Model, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     the sum over the positions from ``n_patches`` on (the patch positions
     carry no label) divided by the mask's count, which is one row's (the
     reference's mask is (1, S)), so a vlm batch of B rows gives B times
-    the per-token mean, as the reference's does."""
+    the per-token mean, as the reference's does.  On a model axis above 1
+    the logits are this rank's vocabulary columns and the log-likelihood
+    comes from ``sharding.vocab_log_likelihood`` over the shards."""
     logits = forward(params, batch, cfg)
     labels = batch["labels"].to(logits.device).long()
-    lp = F.log_softmax(logits.float(), dim=-1)
-    ll = lp.gather(-1, labels[..., None])[..., 0]
+    tp = _vocab_tp()
+    if tp is None:
+        lp = F.log_softmax(logits.float(), dim=-1)
+        ll = lp.gather(-1, labels[..., None])[..., 0]
+    else:
+        ll = vocab_log_likelihood(logits, labels, tp)
     mask = torch.ones_like(ll)
     if cfg.family == "vlm":
         pos = torch.arange(labels.shape[1], device=ll.device)[None, :]
@@ -559,7 +699,7 @@ def decode_step(params: Model, batch: dict, cache: dict, cfg: ArchConfig):
     check_supported(cfg)
     tokens = batch["tokens"]
     b = tokens.shape[0]
-    x = _embed(params, tokens)
+    x = _embed(params, tokens, cfg)
 
     if cfg.family in ("dense", "vlm", "moe", "encdec"):
         # an MoE stack's dense layers come first, and so do their slots
@@ -594,4 +734,4 @@ def decode_step(params: Model, batch: dict, cache: dict, cfg: ArchConfig):
         new_cache = dict(cache)
         if hybrid:
             new_cache["len"] = pos + 1
-    return _logits(params, x)[..., :cfg.vocab], new_cache
+    return _head(params, x, cfg, last_only=True)[..., :cfg.vocab], new_cache

@@ -19,7 +19,14 @@ step's working copy (``train.train_step.cast_and_gather_params``) on each
 call; plain parameters serve a model axis of 1 as they are.  The decode's
 cache is the rank's part (``models.transformer.init_cache(..., ctx=)`` or
 ``shard_cache``), and so are the results: the prefill returns the logits
-of the rank's rows, the decode the logits of its rows and its cache.
+of the rank's rows, the decode the logits of its rows and its cache.  On a
+model axis above 1 the working copy holds the rank's V/m of the
+vocabulary (``train.train_step.working_specs``): the prefill runs on the
+sequence-sharded residual where the axis divides the prompt, and both
+steps compute the rank's vocabulary columns of the next-token logits and
+gather them whole over "model" (``models.transformer._head``), so that
+they return (B, 1, vocab_padded) and (B, 1, vocab) as on one device, as
+the reference's jitted steps return global arrays.
 """
 from __future__ import annotations
 

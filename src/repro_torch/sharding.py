@@ -4,9 +4,12 @@
 Axis roles (as the reference's):
   pod    — data parallelism across pods (multi-pod mesh only)
   data   — data parallelism + FSDP parameter sharding within a pod
-  model  — tensor and expert parallelism, the sequence-sharded attention
-           where the kv heads do not split over it, SSD heads, and the
-           serving cache's sequence (``models.transformer.cache_specs``)
+  model  — tensor and expert parallelism, the vocabulary (the embedding's
+           rows, the LM head's columns, the logits), the residual
+           stream's sequence between blocks, the sequence-sharded
+           attention where the kv heads do not split over it, SSD heads,
+           and the serving cache's sequence
+           (``models.transformer.cache_specs``)
 
 A spec is a tuple whose entries are ``None``, an axis name, or a tuple of
 names, one entry a tensor dim: the counterpart of ``PartitionSpec``.
@@ -25,13 +28,22 @@ collectives below, each a ``torch.autograd.Function`` over plain
 them):
 
   copy_to_tp      identity forward, all-reduce backward (before a
-                  column-parallel product: the input's gradient is the sum
-                  of every rank's columns' part);
-  kv_grad_sum     the same, for the whole K and V of the sequence-sharded
-                  attention, whose backward gives each rank the partial
-                  dK/dV sums over its query rows;
+                  column-parallel product on a replicated input: the
+                  input's gradient is the sum of every rank's columns'
+                  part);
   reduce_from_tp  all-reduce forward, identity backward (after a
-                  row-parallel product);
+                  row-parallel product into a replicated residual, and the
+                  vocabulary-parallel embedding's partial rows);
+  all_gather_seq  the residual's sequence rows all-gathered forward, the
+                  ranks' partial gradients reduce-scattered back to each
+                  rank's rows backward (a block's entry: the
+                  sequence-sharded residual into a column-parallel
+                  product, or the sequence path's K and V);
+  reduce_scatter_seq
+                  the partial sums reduce-scattered into each rank's
+                  sequence rows forward, the rows' gradients all-gathered
+                  backward (a block's exit after a row-parallel product,
+                  and the embedding's partial rows into the residual);
   norm_sum        all-reduce forward and backward (the SSD norm's sum of
                   squares over a rank's heads: each rank uses the sum for
                   its own features, so each holds a part of its gradient);
@@ -44,12 +56,27 @@ them):
                   the sequence-parallel decode's merge (an all-reduce
                   MAX of the logits' row maxima, an all-reduce SUM of the
                   softmax sums and of the P·V partials); serving only, so
-                  their backward refuses.
+                  their backward refuses;
+  vocab_log_likelihood
+                  the cross-entropy over the vocabulary's shards: an
+                  all-reduce MAX of the logits' row maxima (``vocab_max``)
+                  and one all-reduce SUM of the exp sums and the labels'
+                  shifted logits (``vocab_sum``) forward; the backward
+                  (softmax minus the one-hot on the rank's own columns)
+                  runs no collective.
+
+The residual's layout rides on the context: ``residual_layout(True)``
+marks the stream between blocks as this rank's S/m sequence rows (the
+reference's ``residual_spec``; ``residual_rows()`` reads it, and remat's
+recompute, which re-enters the forward's context, sees it too), and a
+layer that reads the residual gathers it (``all_gather_seq``) and hands its
+output back as rows (``reduce_scatter_seq``).  Outside it the residual is
+whole on every model rank.
 
 ``TP_CALLS`` counts the collectives these issue, by function (``copy_to_tp``
-and ``kv_grad_sum`` count their backward's all-reduces, ``split_seq`` its
-backward's all-gathers, ``norm_sum`` both), once for each forward and each
-backward; a forward rerun inside the backward (remat's recompute, which
+counts its backward's all-reduces, ``split_seq`` its backward's
+all-gathers, ``norm_sum``, ``all_gather_seq`` and ``reduce_scatter_seq``
+both), once for each forward and each backward; a forward rerun inside the backward (remat's recompute, which
 ``torch.utils.checkpoint`` stops once the tensors the backward needs are
 rebuilt, at a point that differs between torch builds and devices) counts
 in ``TP_RECOMPUTE`` instead.  ``zero_tp_calls`` resets both.  ``shard`` is
@@ -78,6 +105,7 @@ class MeshContext:
     mesh: Any
     dp: tuple = ("data",)     # batch axes; ("pod", "data") multi-pod
     tp: str = "model"
+    residual_rows: bool = False   # the residual is this rank's sequence rows
 
     def size(self, axis: str) -> int:
         names = self.mesh.mesh_dim_names
@@ -125,6 +153,25 @@ def mesh_context(ctx: Optional[MeshContext]):
         yield ctx
     finally:
         _state.ctx = prev
+
+
+def residual_rows() -> bool:
+    """Whether the residual stream under the active context is this rank's
+    S/m sequence rows (``residual_layout``)."""
+    return bool(getattr(current_ctx(), "residual_rows", False))
+
+
+@contextlib.contextmanager
+def residual_layout(rows: bool):
+    """The active context with the residual stream laid out as this rank's
+    sequence rows (``rows``) or whole on every model rank; nothing changes
+    without a context."""
+    ctx = current_ctx()
+    if ctx is None or residual_rows() == rows:
+        yield ctx
+        return
+    with mesh_context(dataclasses.replace(ctx, residual_rows=rows)) as inner:
+        yield inner
 
 
 def make_ctx(mesh) -> MeshContext:
@@ -252,22 +299,11 @@ def dp_spec(*rest) -> tuple:
     return (dp, *rest)
 
 
-def residual_spec(x) -> tuple:
-    """Sharding for the (B, S, D) residual stream between blocks: the
-    sequence over the model axis where S divides it (the reference's
-    Megatron-style sequence parallelism), else replicated over it."""
-    ctx = current_ctx()
-    dp = ctx.dp if ctx else ("data",)
-    s = x.shape[1] if x.ndim >= 3 else 0
-    if ctx is not None and s > 1 and s % ctx.tp_size == 0:
-        return (dp, "model", None)
-    return (dp, None, None)
-
-
 # ------------------------------------------ collectives over "model" --
 TP_CALLS = {"copy_to_tp": 0, "reduce_from_tp": 0, "split_seq": 0,
-            "gather_seq": 0, "all_to_all": 0, "kv_grad_sum": 0,
-            "norm_sum": 0, "decode_max": 0, "decode_sum": 0}
+            "gather_seq": 0, "all_to_all": 0, "all_gather_seq": 0,
+            "reduce_scatter_seq": 0, "norm_sum": 0, "decode_max": 0,
+            "decode_sum": 0, "vocab_max": 0, "vocab_sum": 0}
 TP_RECOMPUTE = dict(TP_CALLS)
 
 
@@ -320,16 +356,16 @@ def _slice(x: torch.Tensor, dim: int, tp: TPGroup) -> torch.Tensor:
 
 class _CopyToTP(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, tp, kind):
-        ctx.tp, ctx.kind = tp, kind
+    def forward(ctx, x, tp):
+        ctx.tp = tp
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        _count(ctx.kind, False)
+        _count("copy_to_tp", False)
         dist.all_reduce(g, group=ctx.tp.group)
-        return g, None, None
+        return g, None
 
 
 class _ReduceFromTP(torch.autograd.Function):
@@ -401,6 +437,90 @@ class _GatherSeq(torch.autograd.Function):
         return _slice(g, ctx.dim, ctx.tp).contiguous(), None, None
 
 
+def _reduce_scatter(x: torch.Tensor, dim: int, tp: TPGroup) -> torch.Tensor:
+    """The sum over the model group of ``x``, this rank's 1/m slice of
+    ``dim`` (the r-th contiguous part) of it: each rank's slices exchanged
+    (``all_to_all``, the bytes a ring reduce-scatter moves) and added here
+    in rank order, so that the sum rounds the same way on every backend
+    and topology (the reference's, on faked host devices, adds in that
+    order).  The count names it the reduce-scatter it is."""
+    from .launch.op_count import collective_as
+    m, n = tp.size, x.shape[dim]
+    if n % m:
+        raise PlanError(f"dim {dim} of {tuple(x.shape)} does not split over "
+                        f"{m} model ranks")
+    send = x.movedim(dim, 0).contiguous()
+    recv = torch.empty_like(send)
+    with collective_as("reduce-scatter", recv.nbytes // m):
+        dist.all_to_all_single(recv, send, group=tp.group)
+    parts = recv.chunk(m)
+    out = parts[0] + parts[1] if m > 1 else parts[0].clone()
+    for part in parts[2:]:
+        out.add_(part)
+    return out.movedim(0, dim)
+
+
+class _AllGatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, tp):
+        ctx.dim, ctx.tp = dim, tp
+        _count("all_gather_seq", True)
+        return _all_gather(x, dim, tp)
+
+    @staticmethod
+    def backward(ctx, g):
+        _count("all_gather_seq", False)
+        return _reduce_scatter(g, ctx.dim, ctx.tp), None, None
+
+
+class _ReduceScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, tp):
+        ctx.dim, ctx.tp = dim, tp
+        _count("reduce_scatter_seq", True)
+        return _reduce_scatter(x, dim, tp)
+
+    @staticmethod
+    def backward(ctx, g):
+        _count("reduce_scatter_seq", False)
+        return _all_gather(g.contiguous(), ctx.dim, ctx.tp), None, None
+
+
+class _VocabLogLikelihood(torch.autograd.Function):
+    """Each position's log-softmax at its label, float32, from this rank's
+    columns of the logits (B, S, V/m), the r-th contiguous part of the
+    padded vocabulary; the rank's softmax, exp(x - max) / Σ exp(x - max)
+    over every rank's columns, kept in float32 for the backward."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, tp):
+        n = logits.shape[-1]
+        ids = labels.long() - tp.rank * n
+        own = (ids >= 0) & (ids < n)
+        ids = ids.clamp(0, n - 1)[..., None]
+        p = logits.to(torch.float32, copy=True)
+        top = p.amax(dim=-1, keepdim=True)
+        _count("vocab_max", True)
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=tp.group)
+        p.sub_(top)                                 # shifted, in place
+        label = torch.where(own, p.gather(-1, ids)[..., 0], 0.0)
+        p.exp_()
+        both = torch.stack([p.sum(dim=-1), label], dim=-1)
+        _count("vocab_sum", True)
+        dist.all_reduce(both, group=tp.group)
+        total = both[..., :1]
+        ctx.save_for_backward(p.div_(total), ids, own)  # the rank's softmax
+        ctx.dtype = logits.dtype
+        return both[..., 1] - torch.log(total[..., 0])
+
+    @staticmethod
+    def backward(ctx, g):
+        p, ids, own = ctx.saved_tensors
+        d = p * -g[..., None]
+        d.scatter_add_(-1, ids, (g * own)[..., None])
+        return d.to(ctx.dtype), None, None
+
+
 def _exchange(x: torch.Tensor, tp: TPGroup, back: bool,
               forward: bool) -> torch.Tensor:
     """The reference's tiled ``all_to_all`` pair on (E, C, d) buffers:
@@ -446,14 +566,7 @@ class _ScaleGrad(torch.autograd.Function):
 
 def copy_to_tp(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
     """Identity forward; the gradient all-reduced over the model group."""
-    return _CopyToTP.apply(x, tp, "copy_to_tp")
-
-
-def kv_grad_sum(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
-    """``copy_to_tp`` for the sequence-sharded attention's whole K and V:
-    identity forward; the ranks' partial dK/dV sums all-reduced backward
-    (counted apart, as ``kv_grad_sum``)."""
-    return _CopyToTP.apply(x, tp, "kv_grad_sum")
+    return _CopyToTP.apply(x, tp)
 
 
 def norm_sum(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
@@ -492,6 +605,33 @@ def gather_seq(x: torch.Tensor, tp: TPGroup, dim: int = 1) -> torch.Tensor:
     this rank's slice of the gradient backward (every rank holds the same
     whole gradient, so nothing is summed)."""
     return _GatherSeq.apply(x, dim, tp)
+
+
+def all_gather_seq(x: torch.Tensor, tp: TPGroup, dim: int = 1
+                   ) -> torch.Tensor:
+    """The ranks' sequence rows all-gathered along ``dim`` in rank order
+    forward; the ranks' partial gradients of the whole summed and each
+    rank's rows of the sum returned backward (a reduce-scatter: every rank
+    uses the whole sequence for its own columns or heads)."""
+    return _AllGatherSeq.apply(x, dim, tp)
+
+
+def reduce_scatter_seq(x: torch.Tensor, tp: TPGroup, dim: int = 1
+                       ) -> torch.Tensor:
+    """The ranks' partial sums of the whole sequence summed and each rank's
+    1/m rows of ``dim`` kept forward (a reduce-scatter); the rows'
+    gradients all-gathered backward."""
+    return _ReduceScatterSeq.apply(x, dim, tp)
+
+
+def vocab_log_likelihood(logits: torch.Tensor, labels: torch.Tensor,
+                         tp: TPGroup) -> torch.Tensor:
+    """log_softmax(logits)[label] in float32 a position, (B, S), from this
+    rank's vocabulary columns ``logits`` (B, S, V/m; rank r holds columns
+    [r·V/m, (r+1)·V/m) of the padded vocabulary): the maximum and the
+    exp sum over every rank's columns, the label's logit from the rank
+    that holds it.  No rank holds a whole row of the logits."""
+    return _VocabLogLikelihood.apply(logits, labels, tp)
 
 
 def expert_exchange(buf: torch.Tensor, tp: TPGroup) -> torch.Tensor:

@@ -28,11 +28,14 @@ own rows, as the reference shards the batch over ("pod", "data"):
   axes once (``cast_and_gather_params``; the reference's ``_drop_fsdp``;
   the FSDP2 alternative, ``fully_shard``, is not used) into a model of
   plain tensors, each rank keeping its "model" shard as the layers want it
-  (``working_specs``), and the forward runs under ``mesh_context(ctx)``,
-  so the attention, SwiGLU, latent-attention, expert and SSD layers run
-  tensor-, expert- and sequence-parallel over "model" (``models.layers``,
-  ``models.mla``, ``models.moe``, ``models.ssd``) at every model-axis
-  size, 1 included, while the flash, SSD and RMS-norm Functions and the
+  (``working_specs``: the vocabulary's rows or columns among them), and
+  the forward runs under ``mesh_context(ctx)``, so the attention, SwiGLU,
+  latent-attention, expert and SSD layers run tensor-, expert- and
+  sequence-parallel over "model" (``models.layers``, ``models.mla``,
+  ``models.moe``, ``models.ssd``) at every model-axis size, 1 included,
+  and above 1 the embedding, the LM head and the loss run over the
+  vocabulary's shards and the residual stream is the rank's sequence rows
+  (``models.transformer``), while the flash, SSD and RMS-norm Functions and the
   kernels see plain local tensors, never DTensors.  Each working shard's
   gradient is whole for that shard (the layers' collectives sum what the
   model ranks share, such as the router's and the SSD's B/C columns');
@@ -57,6 +60,7 @@ a group of one rank still runs them.
 """
 from __future__ import annotations
 
+import copy
 import functools
 import math
 from typing import Optional
@@ -197,9 +201,10 @@ def working_specs(cfg: ArchConfig, m: int) -> dict:
     """The layout of each leaf in the forward's working copy on a model
     axis of ``m``, by parameter name: ``_drop_fsdp`` of its
     ``param_specs`` entry (gathered over "data", each rank keeping its
-    "model" shard, as the reference's ``cast_and_gather_params``), but
-      * the embedding and the LM head whole: gathered over "model" once a
-        step (the reference's logits are vocab-sharded);
+    "model" shard, as the reference's ``cast_and_gather_params``; the
+    embedding's rows and the LM head's columns are the rank's V/m of the
+    vocabulary, so its gradients return to the storage specs with no
+    gather over "model"), but
       * latent attention's ``wkv_a`` whole and ``wkv_b``'s columns (its
         heads) over "model" (``models.mla``'s docstring);
       * an attention whose heads do not divide ``m`` (above 1) whole: its
@@ -222,8 +227,7 @@ def working_specs(cfg: ArchConfig, m: int) -> dict:
         leaf = parts[-1]
         attn = ("attn" in parts or "xattn" in parts) and parts[-2] in (
             "wq", "wk", "wv", "wo", "wkv_b")
-        if name in ("embed", "lm_head") or name.endswith(".wkv_a.w") or (
-                attn and whole_attn):
+        if name.endswith(".wkv_a.w") or (attn and whole_attn):
             out[name] = (None,) * len(spec)
         elif name.endswith(".wkv_b.w"):
             out[name] = (None, "model")
@@ -268,6 +272,19 @@ def _ungroup(g: torch.Tensor, cfg: ArchConfig, ctx: MeshContext,
     return out
 
 
+def _shell(module: nn.Module) -> nn.Module:
+    """A copy of ``module``'s tree that shares no container with it: each
+    module shallow-copied with its own parameter and child dicts, the
+    parameters still ``module``'s until the caller replaces them.  No
+    tensor is made (a whole skeleton on ``meta`` would be a whole model's
+    storage to the count, ``launch.op_count``)."""
+    out = copy.copy(module)
+    out._parameters = dict(module._parameters)
+    out._modules = {k: None if m is None else _shell(m)
+                    for k, m in module._modules.items()}
+    return out
+
+
 def cast_and_gather_params(params: Model, cfg: ArchConfig,
                            ctx: MeshContext) -> Model:
     """The forward's working copy (the reference's ``:41``): ``params`` (a
@@ -278,7 +295,7 @@ def cast_and_gather_params(params: Model, cfg: ArchConfig,
     storage, not a copy.  The reference casts its working copy to bf16;
     the port's forward casts at each use, as its one-device step does, so
     the copy stays float32."""
-    work = Model(cfg, None, torch.device("meta"))
+    work = _shell(params)
     specs = working_specs(cfg, ctx.tp_size)
     for name, p in params.named_parameters():
         if _is_dtensor(p):

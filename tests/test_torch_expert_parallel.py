@@ -200,16 +200,17 @@ def test_moe_block_gradients_at_tp_m_equal_tp_1(runs, world, split):
 def test_model_group_collectives_are_as_chip_smoke_reckons(runs, world,
                                                            remat):
     """``chip_smoke.expected_tp_calls`` (phase 25's check that the TP/EP
-    path ran) against the calls of a DeepSeek-V2-Lite SMOKE step at 4
-    layers and 2 microbatches, on 2 and 4 model ranks, with and without
-    remat (whose recompute counts apart)."""
+    path ran, its reckoning on a model axis above 1 the sequence-sharded
+    residual's and the vocabulary's) against the calls of a
+    DeepSeek-V2-Lite SMOKE step at 4 layers and 2 microbatches, on 2 and 4
+    model ranks, with and without remat (whose recompute counts apart)."""
     import dataclasses
     sys.path.insert(0, str(ROOT))
     from chip_smoke import expected_tp_calls
     cfg = dataclasses.replace(R.port_cfg("deepseek_v2_lite_16b"), n_layers=4,
                               remat=remat, microbatches=2)
     assert _json(runs, f"calls{world}")[str(remat)] == \
-        expected_tp_calls(cfg, 1)
+        expected_tp_calls(cfg, 1, world)
 
 
 @pytest.mark.parametrize("world", [2, 4])

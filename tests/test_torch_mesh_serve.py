@@ -221,10 +221,11 @@ def test_each_rank_holds_its_part_of_the_cache(runs, arch, mesh):
 
 @pytest.mark.parametrize("arch", COUNTED)
 def test_decode_collectives_by_kind(runs, arch):
-    """(1, 4): a decode step's model-group collectives, 4 steps: an
-    attention layer gathers its heads' q, k and v once (none where its
-    heads are whole), merges with one ``decode_max`` and two
-    ``decode_sum``; an SSD layer gathers its x row and sums its norm's
+    """(1, 4): a decode step's model-group collectives, 4 steps: the
+    embedding's partial rows reduced once and the logits gathered over the
+    vocabulary once; an attention layer gathers its heads' q, k and v once
+    (none where its heads are whole), merges with one ``decode_max`` and
+    two ``decode_sum``; an SSD layer gathers its x row and sums its norm's
     squares; every row-parallel product reduces once."""
     cfg = R.port_cfg(arch)
     meta, _ = _ranks(runs, f"{arch}_1x4", (1, 4))[0]
@@ -240,11 +241,12 @@ def test_decode_collectives_by_kind(runs, arch):
     want = {"decode_max": STEPS * n_attn, "decode_sum": 2 * STEPS * n_attn,
             "norm_sum": STEPS * n_ssd,
             "gather_seq": STEPS * (n_ssd + n_attn * (2 if mla else 1)
-                                   * split),
-            "reduce_from_tp": STEPS * (n_ssd + n_attn * split + mlp)}
+                                   * split + 1),
+            "reduce_from_tp": STEPS * (n_ssd + n_attn * split + mlp + 1)}
     for k, v in want.items():
         assert calls[k] == v, (k, calls)
-    assert calls["kv_grad_sum"] == calls["copy_to_tp"] == 0
+    assert calls["copy_to_tp"] == calls["all_gather_seq"] == 0
+    assert calls["reduce_scatter_seq"] == 0
 
 
 @pytest.mark.parametrize("batch", [1, 4])

@@ -176,11 +176,11 @@ def test_the_counting_group_is_one_at_a_time_and_ends():
 def repeated_prefill_flops(cfg, m: int, dp: int) -> int:
     """What the port's prefill of B × S repeats on each of the ``m`` model
     ranks of a (pod, data) line, summed over the ``dp · m`` ranks, beyond
-    the one-device count.  Each term names its divergence."""
+    the one-device count.  Each term names its divergence.  The LM head
+    runs on the rank's vocabulary columns, and attention whose kv heads do
+    not split projects the rank's sequence rows: neither repeats."""
     d = cfg.d_model
-    # ROADMAP C.3 Slice 14: the LM head whole on every model rank (the
-    # reference's logits are vocab-sharded); the prefill's last position
-    per = 2 * B * d * cfg.vocab_padded
+    per = 0
     if cfg.attn_type == "mla":
         a = cfg.mla
         if not heads_split(a.n_heads, m):
@@ -192,12 +192,6 @@ def repeated_prefill_flops(cfg, m: int, dp: int) -> int:
                 d * h * dq + d * (a.kv_lora + a.qk_rope)
                 + a.kv_lora * h * (a.qk_nope + a.v_head) + h * a.v_head * d)
             per += cfg.n_layers * 2 * B * h * S * S * (dq + a.v_head)
-    elif cfg.n_heads and not heads_split(cfg.n_kv, m):
-        # C.3 Slice 15: the sequence path's projections whole, on all rows
-        apps = {"hybrid": cfg.n_layers // max(cfg.shared_every, 1),
-                "encdec": cfg.n_enc_layers + 2 * cfg.n_layers
-                }.get(cfg.family, cfg.n_layers)
-        per += apps * 2 * B * S * d * 2 * (cfg.n_heads + cfg.n_kv) * cfg.hd
     if cfg.ssd is not None:
         # C.3 Slice 15: every rank's heads read the whole B and C: their
         # in_proj columns and C·Bᵀ per chunk

@@ -10,13 +10,15 @@ writes.  The card holds one NCCL rank, so the numerics across model ranks
 are held here (``chip_smoke.py`` phase 26 holds each rank's part on the
 card).
 
-* ``layers._sdpa`` with 3 kv heads on a model axis of 2 and of 4 (so the
-  reference's ``_sdpa_seq_sharded`` applies) at tp 2 and 4, float32,
-  causal and not: the forward and the q, k and v gradients equal the
+* ``layers.seq_attention`` with 3 kv heads on a model axis of 2 and of 4
+  (so the reference's ``_sdpa_seq_sharded`` applies) at tp 2 and 4,
+  float32, causal and not, each rank its sequence rows of q, k and v: the
+  output's rows and the q, k and v gradients' rows, gathered, equal the
   one-device computation within ``COLLECTIVE_TOL`` relative L2 (float32
-  sums in another order; a dK/dV whose partial sums were not all-reduced
-  is off by the other ranks' rows), with one ``split_seq``, one
-  ``gather_seq`` and two ``kv_grad_sum`` calls.  The decode merge
+  sums in another order; a dK/dV whose partial sums were not
+  reduce-scattered is off by the other ranks' rows), with two
+  ``all_gather_seq`` calls (K and V) forward and their two
+  reduce-scatters backward.  The decode merge
   (``merged_decode`` on each rank's slice of a cache) equals the whole
   materialised decode.
 * TINY (``tests/test_elastic_restart.py``'s config, 2 kv heads), B 4, S
@@ -150,8 +152,8 @@ def test_seq_sharded_attention_matches_the_whole_computation(runs, world,
     for part in ("fwd", "dq", "dk", "dv"):
         assert errs[f"{tag}_{part}"] <= COLLECTIVE_TOL, (part, errs)
     calls = errs[f"{tag}_calls"]
-    assert (calls["split_seq"], calls["gather_seq"], calls["kv_grad_sum"],
-            calls["copy_to_tp"]) == (1, 1, 2, 0), calls
+    assert (calls["all_gather_seq"], calls["reduce_scatter_seq"],
+            calls["copy_to_tp"]) == (4, 0, 0), calls
 
 
 @pytest.mark.parametrize("world", [2, 4])

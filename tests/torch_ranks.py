@@ -27,8 +27,8 @@ The reference's "exchange" case runs its ``_dispatch_combine`` in
 
 The model axis's second half (``tests/test_torch_seq_parallel.py``,
 ``tests/test_torch_ssd_parallel.py``, ``tests/test_torch_mesh_serve.py``):
-``seq_attention`` holds the sequence-sharded attention and the decode
-merge at tp m against the whole computation, ``ssd_layer`` an SSD layer's
+``seq_attention`` holds the sequence-sharded attention on each rank's
+rows and the decode merge at tp m against the whole computation, ``ssd_layer`` an SSD layer's
 heads split over "model" against the one-device layer, ``serve`` the
 prefill and decode steps on a (data, model) mesh; the reference's
 "serve" kind serves the same on its mesh.
@@ -98,10 +98,13 @@ def tiny():
                       tie_embeddings=True, remat=False, microbatches=1)
 
 
-def port_cfg(name: str, microbatches: int = 1):
+def port_cfg(name: str, microbatches: int = 1, overrides=None):
+    """The port's config ``name`` (``"tiny"`` or a SMOKE config) with
+    ``microbatches`` and the fields of ``overrides`` replaced."""
     from repro_torch import configs
     cfg = tiny() if name == "tiny" else configs.smoke(name)
-    return dataclasses.replace(cfg, microbatches=microbatches)
+    return dataclasses.replace(cfg, microbatches=microbatches,
+                               **(overrides or {}))
 
 
 def nest(flat: dict) -> dict:
@@ -127,15 +130,16 @@ def flat(tree, prefix=()) -> dict:
 
 def load_inputs(path):
     """(weights, batches) from the test's ``.npz``: ``w/<path>`` leaves and
-    ``tokens<i>``/``labels<i>`` batches (with ``patch_embeds<i>`` where the
-    file has them)."""
+    ``tokens<i>``/``labels<i>`` batches (with ``patch_embeds<i>`` and
+    ``enc_embeds<i>`` where the file has them)."""
     z = np.load(path)
     weights = nest({k[2:]: z[k] for k in z.files if k.startswith("w/")})
     batches = []
     for i in range(sum(k.startswith("tokens") for k in z.files)):
         b = {"tokens": z[f"tokens{i}"], "labels": z[f"labels{i}"]}
-        if f"patch_embeds{i}" in z.files:
-            b["patch_embeds"] = z[f"patch_embeds{i}"]
+        for k in ("patch_embeds", "enc_embeds"):
+            if f"{k}{i}" in z.files:
+                b[k] = z[f"{k}{i}"]
         batches.append(b)
     return weights, batches
 
@@ -177,7 +181,8 @@ def _plain_case(rank, world, spec, out):
     from repro_torch.models.transformer import param_specs
     from repro_torch.sharding import distribute, local, make_ctx
     from repro_torch.train import AdamW, make_eval_step, make_train_step
-    cfg = port_cfg(spec["arch"], spec.get("microbatches", 1))
+    cfg = port_cfg(spec["arch"], spec.get("microbatches", 1),
+                   spec.get("overrides"))
     weights, batches = load_inputs(spec["inputs"])
     mesh = make_mesh(tuple(spec.get("mesh", (world, 1))), ("data", "model"),
                      "cpu")
@@ -519,6 +524,133 @@ def _moe_checks(rank, world, ctx, tp, g, dims) -> dict:
     return errs
 
 
+def _vocab_case(rank, world, spec, out):
+    """The vocabulary over "model" and the two sequence collectives on
+    (data, model) = (1, world), float32, against the one-device
+    computation of the same seeded inputs (every rank draws them all).
+    For a tied and an untied head, on a whole residual and on the
+    sequence-sharded one, for a dense and a ``vlm`` loss: the embedding
+    (``transformer._embed``), an elementwise stand-in for the blocks, the
+    final norm and head (``_head``) and ``loss_fn``'s cross-entropy
+    (``sharding.vocab_log_likelihood`` on the rank's logits), with tokens
+    and labels on every rank's first and last rows of the padded
+    vocabulary (700 of 1024; the other 324 columns live in the softmax):
+    the loss, the rank's logits, the gradients of the embedding's rows,
+    the head's columns and the norm's scale against the one-device ones'
+    shards, and the serving head (``last_only``) gathered whole.  Then
+    ``all_gather_seq`` and ``reduce_scatter_seq`` with each rank's own
+    weights and parts: forward and gradient.  Rank 0 writes each check's
+    relative L2 error."""
+    import torch
+    import torch.distributed as dist
+    from types import SimpleNamespace
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import (all_gather_seq, mesh_context,
+                                      reduce_scatter_seq, residual_layout)
+    ctx, tp = _tp_ctx(world)
+    g = torch.Generator().manual_seed(spec["seed"])
+    b, s, d, vocab = 2, 4 * world, 32, 700
+    errs = {}
+    real_forward = T.forward
+
+    def shard(t, dim):
+        n = t.shape[dim] // world
+        return t.narrow(dim, rank * n, n).detach().clone()
+
+    def leaf(t):
+        return t.detach().clone().requires_grad_(True)
+
+    for tied in (True, False):
+        for family in ("dense", "vlm"):
+            cfg = T.ArchConfig(name="vocab", family=family, n_layers=1,
+                               d_model=d, vocab=vocab, n_heads=2, n_kv=2,
+                               d_ff=64, head_dim=16, n_patches=3,
+                               tie_embeddings=tied, remat=False)
+            vp = cfg.vocab_padded
+            n = vp // world
+            edges = [i for r in range(world) for i in (r * n, r * n + n - 1)
+                     if i < vocab]
+            ids = torch.randint(0, vocab, (2, b, s), generator=g)
+            ids.view(-1)[:len(edges)] = torch.tensor(edges)
+            ids.view(-1)[-len(edges):] = torch.tensor(edges[::-1])
+            tokens, labels = ids[0], ids[1]
+            embed = torch.randn(vp, d, generator=g) * d ** -0.5
+            head = None if tied else torch.randn(d, vp, generator=g) * 0.3
+            scale = 1.0 + 0.1 * torch.randn(d, generator=g)
+            mid = 1.0 + 0.5 * torch.randn(b, s, d, generator=g)
+
+            def params(e, h, sc):
+                return SimpleNamespace(embed=leaf(e), final_norm=leaf(sc),
+                                       lm_head=None if h is None else leaf(h))
+
+            def leaves(p):
+                return [p.embed, p.final_norm] + (
+                    [] if p.lm_head is None else [p.lm_head])
+
+            def fake_forward(params, batch, cfg, last_only=False):
+                x = T._embed(params, batch["tokens"], cfg)
+                rows = (slice(rank * (s // world), (rank + 1) * (s // world))
+                        if x.shape[1] < s else slice(None))
+                return T._head(params, x * mid[:, rows], cfg, last_only)
+
+            T.forward = fake_forward
+            try:
+                one = params(embed, head, scale)
+                batch = {"tokens": tokens, "labels": labels}
+                want_loss = T.loss_fn(one, batch, cfg)
+                want_g = torch.autograd.grad(want_loss, leaves(one))
+                want_logits = fake_forward(one, batch, cfg)
+                want_last = fake_forward(one, batch, cfg, last_only=True)
+                for layout in ("whole", "rows"):
+                    mine = params(shard(embed, 0),
+                                  None if head is None else shard(head, 1),
+                                  scale)
+                    with mesh_context(ctx), residual_layout(layout == "rows"):
+                        loss = T.loss_fn(mine, batch, cfg)
+                        logits = fake_forward(mine, batch, cfg)
+                        last = fake_forward(mine, batch, cfg, last_only=True)
+                    got_g = torch.autograd.grad(loss, leaves(mine))
+                    tag = (f"{'tied' if tied else 'untied'}_{layout}_"
+                           f"{family}")
+                    errs[f"{tag}_loss"] = _rel_err(loss, want_loss)
+                    errs[f"{tag}_logits"] = _rel_err(logits,
+                                                     shard(want_logits, -1))
+                    errs[f"{tag}_last"] = _rel_err(last, want_last)
+                    errs[f"{tag}_dembed"] = _rel_err(got_g[0],
+                                                     shard(want_g[0], 0))
+                    errs[f"{tag}_dscale"] = _rel_err(got_g[1], want_g[1])
+                    if not tied:
+                        errs[f"{tag}_dhead"] = _rel_err(got_g[2],
+                                                        shard(want_g[2], 1))
+                    errs[f"{tag}_logits_cols"] = float(
+                        logits.shape[-1] != n or last.shape[-1] != vp)
+            finally:
+                T.forward = real_forward
+    # the sequence collectives: rank r's own weights w_r and parts p_r
+    x = torch.randn(b, s, d, generator=g)
+    ws = torch.randn(world, b, s, d, generator=g)
+    parts = torch.randn(world, b, s, d, generator=g)
+    u = torch.randn(b, s, d, generator=g)
+    rows = slice(rank * (s // world), (rank + 1) * (s // world))
+    xr = leaf(x[:, rows])
+    pr = leaf(parts[rank])
+    with mesh_context(ctx):
+        y = all_gather_seq(xr, tp)
+        z = reduce_scatter_seq(pr, tp)
+    dx, = torch.autograd.grad((y * ws[rank]).sum(), xr)
+    dp, = torch.autograd.grad((z * u[:, rows]).sum(), pr)
+    errs["seq_gather_fwd"] = _rel_err(y, x)
+    errs["seq_gather_dx"] = _rel_err(dx, ws.sum(0)[:, rows])
+    errs["seq_scatter_fwd"] = _rel_err(z, parts.sum(0)[:, rows])
+    errs["seq_scatter_dx"] = _rel_err(dp, u)
+    seen = [None] * world
+    dist.all_gather_object(seen, errs, group=tp.group)
+    if rank == 0:
+        worst = {k: max(e[k] for e in seen) for k in errs}
+        with open(out + ".json", "w") as fh:
+            json.dump(worst, fh)
+
+
 def _exchange_case(rank, world, spec, out):
     """The port's ``_dispatch_combine`` on (data, model) = (1, world):
     each rank its contiguous T/m slice of the input's tokens, the whole
@@ -719,19 +851,29 @@ def _remat_thread_case(rank, world, spec, out):
 def _seq_attention_case(rank, world, spec, out):
     """The sequence-sharded attention on (data, model) = (1, world), float32,
     against the whole computation of the same seeded inputs (every rank
-    draws them all): ``layers._sdpa`` with kv heads that do not divide the
-    axis (so it takes ``_sdpa_seq_sharded``), its forward and the q, k and
-    v gradients through a weighted loss, causal and not; and the decode
-    merge (``merged_decode`` on this rank's slice of a cache) against the
-    whole materialised decode.  Rank 0 writes each check's relative L2
-    error and the model group's collectives."""
+    draws them all): ``layers.seq_attention`` on this rank's rows of q, k
+    and v with kv heads that do not divide the axis (where
+    ``layers.seq_sharded`` takes it), its output rows and the q, k and v
+    gradients' rows through a weighted loss, gathered over the ranks,
+    causal and not; and the decode merge (``merged_decode`` on this rank's
+    slice of a cache) against the whole materialised decode.  Rank 0
+    writes each check's relative L2 error and the model group's
+    collectives."""
     import torch
+    import torch.distributed as dist
     from repro_torch.kernels import ref
     from repro_torch.models import layers as L
     from repro_torch.sharding import (TP_CALLS, mesh_context, zero_tp_calls)
     ctx, tp = _tp_ctx(world)
     g = torch.Generator().manual_seed(spec["seed"])
     b, s, h, hkv, dh = 2, 8 * world, 6, 3, 16
+    rows = slice(rank * (s // world), (rank + 1) * (s // world))
+
+    def gathered(t):
+        parts = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(parts, t.contiguous(), group=tp.group)
+        return torch.cat(parts, dim=1)
+
     errs = {}
     for causal in (True, False):
         q, k, v, w = (torch.randn(b, s, n, dh, generator=g)
@@ -739,18 +881,19 @@ def _seq_attention_case(rank, world, spec, out):
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
         want = L._sdpa_core(*leaves, causal, 0)
         want_g = torch.autograd.grad((want * w).sum(), leaves)
-        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        leaves = [t[:, rows].clone().requires_grad_(True) for t in (q, k, v)]
         zero_tp_calls()
         with mesh_context(ctx):
             taken = L.seq_sharded(s, s, hkv)
-            got = L._sdpa(*leaves, causal, hkv)
-        got_g = torch.autograd.grad((got * w).sum(), leaves)
+            got = L.seq_attention(*leaves, causal, tp)
+        got_g = torch.autograd.grad((got * w[:, rows]).sum(), leaves)
+        calls = dict(TP_CALLS)
         tag = "causal" if causal else "full"
-        errs[f"{tag}_fwd"] = _rel_err(got, want)
+        errs[f"{tag}_fwd"] = _rel_err(gathered(got), want)
         for name, a, c in zip("qkv", got_g, want_g):
-            errs[f"{tag}_d{name}"] = _rel_err(a, c)
+            errs[f"{tag}_d{name}"] = _rel_err(gathered(a), c)
         errs[f"{tag}_taken"] = float(not taken)
-        errs[f"{tag}_calls"] = dict(TP_CALLS)
+        errs[f"{tag}_calls"] = calls
     # the decode merge: one query at position ``pos`` against a cache of
     # ``n`` positions, this rank's slice of them
     n, pos = 4 * world, 4 * world - 3
@@ -1072,6 +1215,7 @@ def run_cases(rank, world, cases):
         {"plain": _plain_case, "compressed": _compressed_case,
          "launcher": _launcher_case, "collectives": _collectives_case,
          "exchange": _exchange_case, "refusals": _refusals_case,
+         "vocab": _vocab_case,
          "tp_restore": _tp_restore_case, "tp_calls": _tp_calls_case,
          "remat_thread": _remat_thread_case,
          "seq_attention": _seq_attention_case, "ssd_layer": _ssd_layer_case,
@@ -1120,7 +1264,7 @@ def reference_main(cases_path: str, out_path: str) -> None:
         else:
             cfg = RC.smoke(spec["arch"])
         return dataclasses.replace(cfg, microbatches=spec.get(
-            "microbatches", 1))
+            "microbatches", 1), **spec.get("overrides", {}))
 
     def dtype(spec):
         return jnp.float32 if spec["f32"] else jnp.bfloat16
