@@ -304,7 +304,15 @@ Phases, each of which raises on failure:
     memory against the count's estimate within ``PEAK_RTOL`` or the phase
     fails, the flash and ``ssd_scan`` launches; then one launch of each at
     its first call's shape on seeded inputs against its plain version
-    within ``FLASH_TOL`` and ``SSD_TOL``;
+    within ``FLASH_TOL`` and ``SSD_TOL``.  Then, in a second subprocess,
+    rank 0 of LLaVA-NeXT-34B ``train_4k`` (B 16 × 4096 in 4
+    microbatches), whose 8 kv heads do not divide the model axis: its
+    attention weights are the rank's storage shards, gathered whole in
+    bf16 only at each use (``models.layers.at_use``), its sequence-sharded
+    attention plain torch (no hand-written kernel on this path); one
+    untimed and one timed step, its peak against the count's estimate
+    within ``PEAK_RTOL``, and the phase fails unless the step gathered
+    weights at use (``sharding.TP_CALLS["gather_weight"]``);
 
 Phases 3, 5, 6, 8, 11, 12, 14 (twice: from the tenants to the kill, and
 from the restore to the end), 15-17 and 21 (once a config), 18 (the
@@ -5067,6 +5075,12 @@ RANK_STEP_CELLS = (("zamba2_2_7b", "train_4k"), ("zamba2_2_7b", "prefill_32k"),
 RANK_STEP_MESH = "single"         # rank 0 of (data 16, model 16)
 RANK_PEAK_LIMIT = 72e9            # the counted peak a cell may have
 RANK_STEP_STEPS = 2               # timed steps, after one untimed
+# phase 27's runs, each (candidate cells, timed steps): Zamba2's rank
+# drives flash and ``ssd_scan``; LLaVA-NeXT-34B's, whose 8 kv heads do not
+# divide the model axis of 16, drives the attention weights gathered at
+# use (``models.layers.at_use``) and no hand-written kernel
+RANK_STEP_RUNS = {"kernels": (RANK_STEP_CELLS, RANK_STEP_STEPS),
+                  "gathered": ((("llava_next_34b", "train_4k"),), 1)}
 
 
 def seeded_shards(torch, device: str, seed: int, rank: int = 0):
@@ -5178,12 +5192,14 @@ def first_call_checks(torch, seen: dict, seed: int) -> dict:
     return out
 
 
-def rank_step_child(out_path: str, seed: int) -> None:
+def rank_step_child(out_path: str, seed: int, run: str = "kernels") -> None:
     """Phase 27's subprocess: count the candidate cells of
-    ``RANK_STEP_CELLS`` on ``meta`` until one's peak is under
+    ``RANK_STEP_RUNS[run]`` on ``meta`` until one's peak is under
     ``RANK_PEAK_LIMIT``, then run that cell's rank-0 step on the card
-    under a fake group of the production mesh's ranks, and write what it
-    measured to ``out_path`` (JSON)."""
+    under a fake group of the production mesh's ranks (one untimed step,
+    then the run's timed steps), and write what it measured to
+    ``out_path`` (JSON): the model group's collectives of the timed steps
+    by ``sharding.TP_CALLS`` kind among it."""
     import torch
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import configs
@@ -5191,11 +5207,12 @@ def rank_step_child(out_path: str, seed: int) -> None:
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.launch import dryrun, roofline
     from repro_torch.launch.mesh import counting_group
-    from repro_torch.sharding import make_ctx
+    from repro_torch.sharding import TP_CALLS, make_ctx, zero_tp_calls
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    cells, steps = RANK_STEP_RUNS[run]
     tried = []
-    for arch, shape in RANK_STEP_CELLS:
+    for arch, shape in cells:
         cfg = configs.get(arch)
         t0 = time.perf_counter()
         cost, chips, _ = dryrun.count_cell(cfg, shape, RANK_STEP_MESH)
@@ -5205,8 +5222,8 @@ def rank_step_child(out_path: str, seed: int) -> None:
         if cost.peak_estimate_bytes <= RANK_PEAK_LIMIT:
             break
     else:
-        raise AssertionError(f"no cell of {RANK_STEP_CELLS} has a rank "
-                             f"peak under {RANK_PEAK_LIMIT / 1e9} GB: {tried}")
+        raise AssertionError(f"no cell of {cells} has a rank peak under "
+                             f"{RANK_PEAK_LIMIT / 1e9} GB: {tried}")
     info = configs.SHAPES[shape]
     roof = roofline.roofline_from_cost(
         cost, chips, roofline.flash_attention_io_bytes(
@@ -5229,27 +5246,29 @@ def rank_step_child(out_path: str, seed: int) -> None:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             fa.LAUNCHES = ss.LAUNCHES = 0
+            zero_tp_calls()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            for _ in range(RANK_STEP_STEPS):
+            for _ in range(steps):
                 step(*args)
             end.record()
             end.synchronize()
             launches = {"flash_attention": fa.LAUNCHES,
                         "ssd_scan": ss.LAUNCHES}
+            tp_calls = {k: v for k, v in TP_CALLS.items() if v}
             peak = torch.cuda.max_memory_allocated() - base
         finally:
             restore()
-        ms = start.elapsed_time(end) / RANK_STEP_STEPS
+        ms = start.elapsed_time(end) / steps
         del model, step, args
     gc.collect()
     torch.cuda.empty_cache()
     checks = first_call_checks(torch, seen, seed)
     est = cost.peak_estimate_bytes
-    out = {"arch": arch, "shape": shape, "mesh": RANK_STEP_MESH,
+    out = {"run": run, "arch": arch, "shape": shape, "mesh": RANK_STEP_MESH,
            "chips": chips, "kind": kind, "tried": tried,
-           "steps": RANK_STEP_STEPS, "ms_per_step": ms,
+           "steps": steps, "ms_per_step": ms, "tp_calls": tp_calls,
            "bound_ms": 1e3 * bound_s, "ms_over_bound": ms / (1e3 * bound_s),
            "compute_ms": 1e3 * roof.compute_s,
            "memory_flash_ms": 1e3 * roof.memory_s_flash,
@@ -5263,25 +5282,24 @@ def rank_step_child(out_path: str, seed: int) -> None:
     Path(out_path).write_text(json.dumps(out))
 
 
-def phase_rank_step(torch, seed: int, gpu: str, report: dict) -> None:
-    """Phase 27: ``rank_step_child`` in a subprocess; its lines printed,
-    its launches kept for the kernels line.  Fails if the step raised, a
-    kernel disagreed with its plain version, or the peak is off the
-    count's estimate by more than ``PEAK_RTOL``."""
+def rank_step_run(torch, seed: int, gpu: str, run: str) -> dict:
+    """``rank_step_child`` of ``run`` in a subprocess; its lines printed and
+    its record returned (``chiprun_out/rank_step[_<run>].json``)."""
     gc.collect()
     torch.cuda.empty_cache()
-    out = ROOT / "chiprun_out" / "rank_step.json"
+    name = "rank_step.json" if run == "kernels" else f"rank_step_{run}.json"
+    out = ROOT / "chiprun_out" / name
     out.parent.mkdir(exist_ok=True)
     out.unlink(missing_ok=True)
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-c",
          f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
-         f"chip_smoke.rank_step_child({str(out)!r}, {seed})"],
+         f"chip_smoke.rank_step_child({str(out)!r}, {seed}, {run!r})"],
         cwd=str(ROOT), capture_output=True, text=True, timeout=900)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise AssertionError(f"phase 27's rank step failed (rc "
+        raise AssertionError(f"phase 27's {run} rank step failed (rc "
                              f"{proc.returncode}): {proc.stderr[-3000:]}")
     r = json.loads(out.read_text())
     r["wall_s"] = wall
@@ -5300,22 +5318,39 @@ def phase_rank_step(torch, seed: int, gpu: str, report: dict) -> None:
           f"{r['peak_estimate_bytes'] / 1e9:.3f} GB "
           f"({100 * r['peak_rel']:+.2f}%; arguments "
           f"{r['argument_bytes'] / 1e9:.3f} GB); launches {r['launches']}; "
+          f"model-group collectives of the timed steps {r['tp_calls']}; "
           f"cells counted {[(t['arch'], t['shape'], round(t['peak_estimate_bytes'] / 1e9, 2)) for t in r['tried']]}; "
           f"{wall:.1f} s in all")
     for name, c in r["checks"].items():
         print(f"  {name} at its first call's shape {c['shape']} "
               f"({c['dtype']}): max abs err {c['max_abs_err']:.3e} against "
               f"the plain version, ok {c['ok']}")
+    if abs(r["peak_rel"]) > PEAK_RTOL:
+        raise AssertionError(f"phase 27 ({run}): the peak {r['peak_bytes']} "
+                             f"is not within {PEAK_RTOL:.0%} of the count's "
+                             f"estimate {r['peak_estimate_bytes']}")
+    return r
+
+
+def phase_rank_step(torch, seed: int, gpu: str, report: dict) -> None:
+    """Phase 27: ``RANK_STEP_RUNS``' two production ranks, each through
+    ``rank_step_run``; the first's launches kept for the kernels line.
+    Fails if a step raised, a kernel disagreed with its plain version, a
+    peak is off the count's estimate by more than ``PEAK_RTOL``, the
+    Zamba2 rank launched no flash or ``ssd_scan``, or the LLaVA rank
+    gathered no attention weight at use."""
+    r = rank_step_run(torch, seed, gpu, "kernels")
     report["rank_step"] = r
     bad = [n for n, c in r["checks"].items() if not c["ok"]]
     if bad or set(r["checks"]) != {"flash_attention", "ssd_scan"}:
         raise AssertionError(f"phase 27: kernel checks {r['checks']}")
     if any(n <= 0 for n in r["launches"].values()):
         raise AssertionError(f"phase 27: launches {r['launches']}")
-    if abs(r["peak_rel"]) > PEAK_RTOL:
-        raise AssertionError(f"phase 27: the peak {r['peak_bytes']} is not "
-                             f"within {PEAK_RTOL:.0%} of the count's "
-                             f"estimate {r['peak_estimate_bytes']}")
+    g = rank_step_run(torch, seed, gpu, "gathered")
+    report["rank_step_gathered"] = g
+    if g["tp_calls"].get("gather_weight", 0) <= 0:
+        raise AssertionError(f"phase 27: the {g['arch']} rank gathered no "
+                             f"attention weight: {g['tp_calls']}")
 
 
 def main(argv=None) -> int:
@@ -5455,6 +5490,7 @@ def main(argv=None) -> int:
     model_paths.append(report["encdec_serve"]["launches"]["window"])
     model_paths.append(report["mesh_serve"]["launches"])
     model_paths.append(report["rank_step"]["launches"])
+    model_paths.append(report["rank_step_gathered"]["launches"])
     for name in ("flash_attention", "ssd_scan"):
         rows[name] = dict(
             launches=sum(r[name] for r in model_paths)

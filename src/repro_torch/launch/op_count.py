@@ -486,9 +486,16 @@ class _Counter:
 
     def collective(self, func, args, kwargs):
         """Run one collective, count its result's bytes under its kind and
-        group (no HBM bytes) and return its result."""
+        group (no HBM bytes) and return its result.  A fresh storage in
+        the result is live memory, a wait's or an autograd wrapper's too
+        (a gather over dim 0 hands its caller the wrapper's)."""
         name = func.overloadpacket.__name__
         out = func(*args, **kwargs)
+        ins = {t.untyped_storage()._cdata for t in _tensors((args, kwargs),
+                                                             [])}
+        for t in _tensors(out, []):
+            if t.untyped_storage()._cdata not in ins:
+                self.track(t.untyped_storage())
         if name in _NOT_COLLECTIVES:
             return out
         kind = _KIND.get(name) if self.coll_as is None else self.coll_as[0]
@@ -497,11 +504,6 @@ class _Counter:
                 f"collective {func} is none of the reference's kinds "
                 f"{COLLECTIVE_KINDS}: the count cannot place it")
         result = args[0] if func.namespace == "c10d" else out
-        ins = {t.untyped_storage()._cdata for t in _tensors((args, kwargs),
-                                                             [])}
-        for t in _tensors(out, []):
-            if t.untyped_storage()._cdata not in ins:
-                self.track(t.untyped_storage())
         b = (sum(t.numel() * t.element_size() for t in _tensors(result, []))
              if self.coll_as is None else self.coll_as[1])
         cost = self.cost

@@ -31,8 +31,12 @@ its shard (local columns / head_dim), so one config serves every model
 axis; without a context the same code is the one-device layer.
 
 Where the kv heads do not divide a model axis above 1, the heads are not
-split: the working copy holds the layer's ``wq``/``wk``/``wv``/``wo``
-whole on every rank (``train_step.working_specs``).  On the
+split: every rank computes the whole layer, but the working copy still
+holds only the rank's storage shards of ``wq``/``wk``/``wv`` (columns)
+and ``wo`` (rows) (``train_step.working_specs``), and each use gathers
+its weight whole, cast to the compute dtype first so that the gather
+moves bf16 (``at_use``, ``sharding.gather_weight``); the whole weight
+lives for one block's forward, or under remat its recompute.  On the
 sequence-sharded residual (the reference's rule, ``seq_sharded``) the
 layer runs the reference's sequence-sharded attention
 (``src/repro/models/layers.py:143-170`` and ``:191-259``) on the rank's
@@ -43,11 +47,13 @@ offset by its first row (``seq_rows``, the reference's custom VJP: dQ
 stays with the rank's rows, dK and dV are partial sums over them,
 reduce-scattered to their rows' owners by the gather's backward), and
 ``wo`` applied to the rows; each weight's gradient is a sum over the
-rank's rows, so the weights pass ``copy_to_tp``.  No projection runs on
-all rows.  On a whole residual at a model axis above 1 (an S that the
-axis does not divide) the reference leaves the layout to its
-partitioner; the port computes the same values with the heads replicated
-over "model", every rank the whole layer, no collective.
+rank's rows, reduce-scattered in float32 to the rank's shard (the q/k/v
+biases, whole, pass ``copy_to_tp``).  No projection runs on all rows.
+On a whole residual at a model axis above 1 (an S that the axis does
+not divide) the reference leaves the layout to its partitioner; the
+port computes the same values with the heads replicated over "model",
+every rank the whole layer and the same whole gradient, of which it
+keeps its shard's slice.
 
 Decode under a mesh context is sequence-parallel, as the reference's
 ``cache_specs`` lays the cache out: each rank holds S/m of the cache's
@@ -83,7 +89,7 @@ from ..kernels import ops, ref
 from ..kernels.build import PlanError
 from ..launch.op_count import attn_core
 from ..sharding import (all_gather_seq, copy_to_tp, decode_max, decode_sum,
-                        gather_seq, norm_sum, reduce_from_tp,
+                        gather_seq, gather_weight, norm_sum, reduce_from_tp,
                         reduce_scatter_seq, residual_rows, tp_group)
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -152,8 +158,8 @@ def heads_split(n_kv: int, m: Optional[int] = None) -> bool:
     """Whether an attention's heads split over a model axis of ``m`` (the
     active mesh context's when not given; False without one): its
     ``n_kv`` kv heads divide the axis.  The working copy then holds each
-    rank's heads (``train.train_step.working_specs``), else the whole
-    layer."""
+    rank's heads (``train.train_step.working_specs``), else the weights'
+    storage shards, gathered whole at each use (``at_use``)."""
     if m is None:
         tp = tp_group()
         if tp is None:
@@ -176,6 +182,34 @@ def local_heads(t: torch.Tensor, n_heads: int, dh: int, what: str,
                         "axis the weights are each rank's working shards "
                         "(train.train_step.cast_and_gather_params)")
     return h
+
+
+@dataclasses.dataclass(frozen=True)
+class Gathered:
+    """A ``Dense`` for one use: its weight gathered whole, its bias."""
+    w: torch.Tensor
+    b: Optional[torch.Tensor]
+
+
+def at_use(d: Dense, dim: int, dtype: torch.dtype, tp,
+           partial: bool = False):
+    """``d`` for one use by an attention whose heads do not split over the
+    model group ``tp``: the working copy holds the weight's storage shard
+    (``wq``/``wk``/``wv`` their columns, ``dim`` 1; ``wo`` its rows, 0),
+    here cast to ``dtype`` and gathered whole (``sharding.gather_weight``:
+    its gradient, in float32, reduce-scattered back to the shard where
+    each rank's rows give a partial sum, ``partial``, else sliced); the
+    bias is whole, its gradient with ``partial`` summed over the ranks
+    (``copy_to_tp``).  The whole weight lives while its use's autograd
+    node keeps it: under remat (every full-size config's) one block's
+    forward or its recompute; without remat until the backward reaches
+    the block.  ``d`` itself without a group."""
+    if tp is None:
+        return d
+    b = d.b
+    if b is not None and partial:
+        b = copy_to_tp(b, tp)
+    return Gathered(gather_weight(d.w, dim, dtype, tp, partial), b)
 
 
 class _RMSNorm(torch.autograd.Function):
@@ -322,17 +356,18 @@ def scores(q, k, q_pos: int, k_pos0: int, causal: bool):
     its first query at position ``q_pos``, against k (B, Sk, Hkv, Dh),
     its first key at ``k_pos0`` (a rank's rows or cache positions),
     masked (-1e30) past each query's position when ``causal``: the
-    reference's materialised core before its softmax."""
+    reference's materialised core before its softmax.  Scaled and masked
+    in place (the same values; one float32 tensor of the logits' size)."""
     b, sq, h, dh = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, sq, hkv, h // hkv, dh)
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() * dh ** -0.5
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float().mul_(
+        dh ** -0.5)
     if causal:
         qpos = torch.arange(sq, device=q.device) + q_pos
         kpos = torch.arange(k.shape[1], device=q.device) + k_pos0
-        logits = torch.where((kpos[None, :] <= qpos[:, None])[None, None,
-                                                                None],
-                             logits, -1e30)
+        logits.masked_fill_((kpos[None, :] > qpos[:, None])[None, None,
+                                                             None], -1e30)
     return logits
 
 
@@ -351,7 +386,10 @@ def seq_rows_forward(q, k, v, causal: bool, row0: int):
 def seq_rows_backward(q, k, v, probs, do):
     """The rank-local backward (the reference's ``_sdpa_seq_bwd``, float32
     inside): (dq in q's dtype for these rows, dk and dv float32 partial
-    sums over these rows, which the ranks' all-reduce completes)."""
+    sums over these rows, which the ranks' all-reduce completes).  The
+    softmax's gradient, ``p · (dp - sum(dp · p)) · dh^-0.5``, is formed in
+    dp's storage (the same values), so that two float32 tensors of the
+    probabilities' size are live at once, not four."""
     b, sq, h, dh = q.shape
     hkv = k.shape[2]
     g = h // hkv
@@ -359,9 +397,10 @@ def seq_rows_backward(q, k, v, probs, do):
     qg = q.reshape(b, sq, hkv, g, dh).float()
     pf = probs.float()
     dv = torch.einsum("bhgqk,bqhgd->bkhd", pf, dog)
-    dprobs = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
-    dlogits = pf * (dprobs - (dprobs * pf).sum(-1, keepdim=True))
-    dlogits = dlogits * dh ** -0.5
+    dlogits = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())   # dp
+    dlogits.sub_((dlogits * pf).sum(-1, keepdim=True)).mul_(pf)
+    dlogits.mul_(dh ** -0.5)
+    del pf
     dq = torch.einsum("bhgqk,bkhd->bqhgd", dlogits, k.float())
     dk = torch.einsum("bhgqk,bqhgd->bkhd", dlogits, qg)
     return dq.reshape(b, sq, h, dh).to(q.dtype), dk, dv
@@ -495,12 +534,18 @@ def attention(p: Attention, x: torch.Tensor, cfg: AttnConfig,
         col, row = None, "scatter"
     else:
         col, row = ("col", "row") if split else (None, None)
+
+    def use(d: Dense, dim: int):
+        # heads that do not split: each rank the whole layer, its weights
+        # gathered from their shards at each use
+        return d if split else at_use(d, dim, x.dtype, tp)
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     hd = cfg.head_dim
-    h = local_heads(p.wq.w, cfg.n_heads, hd, "attention wq", split)
-    q = dense(p.wq, x, gather=col).reshape(b, s, h, hd)
+    wq = use(p.wq, 1)
+    h = local_heads(wq.w, cfg.n_heads, hd, "attention wq", split)
+    q = dense(wq, x, gather=col).reshape(b, s, h, hd)
     if cross_kv is not None:
         k, v = cross_kv
         if cross_sharded and tp is not None:
@@ -511,10 +556,12 @@ def attention(p: Attention, x: torch.Tensor, cfg: AttnConfig,
                 out = own_heads(out, h, tp)
         else:
             out = _sdpa_core(q, k, v, False, 0)
-        return dense(p.wo, out.reshape(b, s, -1), gather=row), kv_cache
-    hkv = local_heads(p.wk.w, cfg.n_kv, hd, "attention wk", split)
-    k = dense(p.wk, x, gather=col).reshape(b, s, hkv, hd)
-    v = dense(p.wv, x, gather=col).reshape(b, s, hkv, hd)
+        return dense(use(p.wo, 0), out.reshape(b, s, -1), gather=row), \
+            kv_cache
+    wk = use(p.wk, 1)
+    hkv = local_heads(wk.w, cfg.n_kv, hd, "attention wk", split)
+    k = dense(wk, x, gather=col).reshape(b, s, hkv, hd)
+    v = dense(use(p.wv, 1), x, gather=col).reshape(b, s, hkv, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     if kv_cache is None:
@@ -543,19 +590,20 @@ def attention(p: Attention, x: torch.Tensor, cfg: AttnConfig,
                                 True, tp)
             if split:
                 out = own_heads(out, h, tp)
-    return dense(p.wo, out.reshape(b, s, -1), gather=row), new_cache
+    return dense(use(p.wo, 0), out.reshape(b, s, -1), gather=row), new_cache
 
 
-def _rows_proj(d: Dense, x: torch.Tensor, heads: int, hd: int, tp
-               ) -> torch.Tensor:
-    """``d`` (whole on every rank) on this rank's sequence rows x ->
-    (B, S/m, heads, hd); the weight's gradient is a sum over the rank's
-    rows, so the weight and the bias pass ``copy_to_tp``."""
+def _rows_proj(d: Dense, x: torch.Tensor, heads: int, hd: int, tp,
+               what: str) -> torch.Tensor:
+    """``d``, of an attention whose heads do not split, on this rank's
+    sequence rows x -> (B, S/m, heads, hd): its weight gathered whole at
+    use, whose gradient, a sum over the rank's rows, is reduce-scattered
+    back to the shard, and its bias through ``copy_to_tp`` (``at_use``
+    with ``partial``)."""
     b, s, _ = x.shape
-    y = x @ copy_to_tp(d.w, tp).to(x.dtype)
-    if d.b is not None:
-        y = y + copy_to_tp(d.b, tp).to(x.dtype)
-    return y.reshape(b, s, heads, hd)
+    d = at_use(d, 1, x.dtype, tp, partial=True)
+    local_heads(d.w, heads, hd, what, False)
+    return dense(d, x).reshape(b, s, heads, hd)
 
 
 def _attention_rows(p: Attention, x: torch.Tensor, cfg: AttnConfig,
@@ -565,24 +613,24 @@ def _attention_rows(p: Attention, x: torch.Tensor, cfg: AttnConfig,
     and, for self-attention, k and v too, at the rows' positions, through
     ``seq_attention``; a cross-attention's K and V (``cross_kv``, gathered
     from the encoder's rows by ``cross_kv_init``) whole, the non-causal
-    core on the rank's query rows; ``wo`` on the rows."""
+    core on the rank's query rows; ``wo`` on the rows, gathered at use as
+    ``_rows_proj`` gathers the others."""
     tp = tp_group()
     b, s, _ = x.shape
     hd = cfg.head_dim
-    h = local_heads(p.wq.w, cfg.n_heads, hd, "attention wq", False)
-    q = _rows_proj(p.wq, x, h, hd, tp)
+    q = _rows_proj(p.wq, x, cfg.n_heads, hd, tp, "attention wq")
     if cross_kv is not None:
         out = _sdpa_core(q, *cross_kv, False, 0)
     else:
         row0 = tp.rank * s
         positions = torch.arange(row0, row0 + s, device=x.device)[None, :]
-        hkv = local_heads(p.wk.w, cfg.n_kv, hd, "attention wk", False)
         q = rope(q, positions, cfg.rope_theta)
-        k = rope(_rows_proj(p.wk, x, hkv, hd, tp), positions, cfg.rope_theta)
-        out = seq_attention(q, k, _rows_proj(p.wv, x, hkv, hd, tp),
-                            cfg.causal, tp)
-    out = out.reshape(b, s, h * hd)
-    return out @ copy_to_tp(p.wo.w, tp).to(out.dtype)
+        k = rope(_rows_proj(p.wk, x, cfg.n_kv, hd, tp, "attention wk"),
+                 positions, cfg.rope_theta)
+        out = seq_attention(q, k, _rows_proj(p.wv, x, cfg.n_kv, hd, tp,
+                                             "attention wv"), cfg.causal, tp)
+    out = out.reshape(b, s, cfg.n_heads * hd)
+    return dense(at_use(p.wo, 0, out.dtype, tp, partial=True), out)
 
 
 def cross_kv_init(p: Attention, memory: torch.Tensor, cfg: AttnConfig,
@@ -590,25 +638,30 @@ def cross_kv_init(p: Attention, memory: torch.Tensor, cfg: AttnConfig,
     """Precompute encoder-memory K/V once per sequence (enc-dec decode);
     this rank's kv heads under a mesh context where they split.
     ``memory_layout`` says what ``memory`` is on a model axis: ``"whole"``
-    (every rank the same; a split layer's products pass ``copy_to_tp``),
+    (every rank the same; a split layer's products pass ``copy_to_tp``, a
+    layer whose heads do not split gathers its weights at use),
     ``"gathered"`` (the encoder's sequence-sharded output through
     ``all_gather_seq``, whose backward sums the ranks' parts) or
     ``"rows"`` (the encoder's rows themselves: a layer whose heads do not
     split projects them and gathers K and V over the sequence)."""
     b, sm, _ = memory.shape
+    tp = tp_group()
     split = heads_split(cfg.n_kv)
     hd = cfg.head_dim
-    hkv = local_heads(p.wk.w, cfg.n_kv, hd, "cross wk", split)
     if memory_layout == "rows":
         if split:
             raise PlanError("a cross-attention whose kv heads split takes "
                             "the encoder's output gathered")
-        tp = tp_group()
-        return tuple(all_gather_seq(_rows_proj(d, memory, hkv, hd, tp), tp)
-                     for d in (p.wk, p.wv))
+        return tuple(all_gather_seq(_rows_proj(d, memory, cfg.n_kv, hd, tp,
+                                               f"cross {n}"), tp)
+                     for n, d in (("wk", p.wk), ("wv", p.wv)))
+    wk, wv = ((p.wk, p.wv) if split else
+              (at_use(p.wk, 1, memory.dtype, tp),
+               at_use(p.wv, 1, memory.dtype, tp)))
+    hkv = local_heads(wk.w, cfg.n_kv, hd, "cross wk", split)
     col = "col" if split and memory_layout == "whole" else None
-    k = dense(p.wk, memory, gather=col).reshape(b, sm, hkv, hd)
-    v = dense(p.wv, memory, gather=col).reshape(b, sm, hkv, hd)
+    k = dense(wk, memory, gather=col).reshape(b, sm, hkv, hd)
+    v = dense(wv, memory, gather=col).reshape(b, sm, hkv, hd)
     return k, v
 
 

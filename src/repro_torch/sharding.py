@@ -49,6 +49,12 @@ them):
                   its own features, so each holds a part of its gradient);
   split_seq       this rank's slice of a dim forward, all-gather backward;
   gather_seq      all-gather of a dim forward, this rank's slice backward;
+  gather_weight   a weight's "model" shard cast to the compute dtype and
+                  all-gathered whole forward (an attention whose heads
+                  do not split, at each use); backward the gradient in
+                  float32, reduce-scattered to the shard where each rank's
+                  rows give a partial sum, else this rank's slice of the
+                  whole gradient every rank computes;
   expert_exchange the MoE ``all_to_all`` (split E, concat C) forward, the
                   reverse exchange backward, and ``expert_return`` the
                   other way round;
@@ -76,7 +82,8 @@ whole on every model rank.
 ``TP_CALLS`` counts the collectives these issue, by function (``copy_to_tp``
 counts its backward's all-reduces, ``split_seq`` its backward's
 all-gathers, ``norm_sum``, ``all_gather_seq`` and ``reduce_scatter_seq``
-both), once for each forward and each backward; a forward rerun inside the backward (remat's recompute, which
+both, ``gather_weight`` its forward's all-gathers and a partial
+gradient's reduce-scatters), once for each forward and each backward; a forward rerun inside the backward (remat's recompute, which
 ``torch.utils.checkpoint`` stops once the tensors the backward needs are
 rebuilt, at a point that differs between torch builds and devices) counts
 in ``TP_RECOMPUTE`` instead.  ``zero_tp_calls`` resets both.  ``shard`` is
@@ -303,7 +310,8 @@ def dp_spec(*rest) -> tuple:
 TP_CALLS = {"copy_to_tp": 0, "reduce_from_tp": 0, "split_seq": 0,
             "gather_seq": 0, "all_to_all": 0, "all_gather_seq": 0,
             "reduce_scatter_seq": 0, "norm_sum": 0, "decode_max": 0,
-            "decode_sum": 0, "vocab_max": 0, "vocab_sum": 0}
+            "decode_sum": 0, "vocab_max": 0, "vocab_sum": 0,
+            "gather_weight": 0}
 TP_RECOMPUTE = dict(TP_CALLS)
 
 
@@ -486,6 +494,23 @@ class _ReduceScatterSeq(torch.autograd.Function):
         return _all_gather(g.contiguous(), ctx.dim, ctx.tp), None, None
 
 
+class _GatherWeight(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, dim, dtype, tp, partial):
+        ctx.dim, ctx.tp, ctx.partial = dim, tp, partial
+        _count("gather_weight", True)
+        return _all_gather(w.to(dtype), dim, tp)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.partial:
+            _count("gather_weight", False)
+            g = _reduce_scatter(g.float(), ctx.dim, ctx.tp)
+        else:
+            g = _slice(g, ctx.dim, ctx.tp).float()
+        return g.contiguous(), None, None, None, None
+
+
 class _VocabLogLikelihood(torch.autograd.Function):
     """Each position's log-softmax at its label, float32, from this rank's
     columns of the logits (B, S, V/m), the r-th contiguous part of the
@@ -622,6 +647,18 @@ def reduce_scatter_seq(x: torch.Tensor, tp: TPGroup, dim: int = 1
     1/m rows of ``dim`` kept forward (a reduce-scatter); the rows'
     gradients all-gathered backward."""
     return _ReduceScatterSeq.apply(x, dim, tp)
+
+
+def gather_weight(w: torch.Tensor, dim: int, dtype: torch.dtype,
+                  tp: TPGroup, partial: bool) -> torch.Tensor:
+    """This rank's shard ``w`` of a weight (the r-th contiguous part of
+    ``dim``) cast to ``dtype`` and gathered whole over the model group in
+    rank order, so the gather moves the compute dtype's bytes.  Backward,
+    the whole gradient in float32: with ``partial`` (each rank's sequence
+    rows give a partial sum) summed over the ranks in rank order and this
+    rank's part kept (a reduce-scatter, ``_reduce_scatter``), else (every
+    rank computes the same whole gradient) this rank's part sliced."""
+    return _GatherWeight.apply(w, dim, dtype, tp, partial)
 
 
 def vocab_log_likelihood(logits: torch.Tensor, labels: torch.Tensor,

@@ -28,7 +28,9 @@ own rows, as the reference shards the batch over ("pod", "data"):
   axes once (``cast_and_gather_params``; the reference's ``_drop_fsdp``;
   the FSDP2 alternative, ``fully_shard``, is not used) into a model of
   plain tensors, each rank keeping its "model" shard as the layers want it
-  (``working_specs``: the vocabulary's rows or columns among them), and
+  (``working_specs``: the vocabulary's rows or columns among them, and
+  the storage shards of an attention's weights where its kv heads do not
+  split, which its layers gather whole only at each use), and
   the forward runs under ``mesh_context(ctx)``, so the attention, SwiGLU,
   latent-attention, expert and SSD layers run tensor-, expert- and
   sequence-parallel over "model" (``models.layers``, ``models.mla``,
@@ -99,40 +101,39 @@ def _trainable(params: Model) -> dict:
     return named
 
 
-def _loss_and_grads(params: Model, named: dict, batch: dict,
-                    cfg: ArchConfig):
-    with record_function("train.forward"):
-        loss = loss_fn(params, batch, cfg)
-    with record_function("train.backward"):
-        grads = torch.autograd.grad(loss, list(named.values()))
-    return loss.detach(), dict(zip(named, grads))
-
-
 def accumulate_grads(params: Model, batch: dict, cfg: ArchConfig):
     """(mean loss, grads by parameter name) over ``cfg.microbatches``
     sequential microbatches (the batch's rows split in order), the
     gradients summed in float32 and scaled by 1/n, as the reference's scan
-    does."""
+    does.  The sum is the parameters' ``.grad`` while the microbatches
+    run: each leaf's gradient is added in place as the backward makes it,
+    so no microbatch's whole gradient set is held beside the sum (the same
+    additions in the same order as a separate float32 sum); the
+    parameters' own ``.grad`` is put back after."""
     named = _trainable(params)
     batch = _to_device(batch, params.embed.device)
-    n = cfg.microbatches
-    if n <= 1:
-        return _loss_and_grads(params, named, batch, cfg)
+    n = max(cfg.microbatches, 1)
     b = batch["tokens"].shape[0]
     if b % n:
         raise ValueError(f"batch {b} does not split into {n} microbatches")
-    gsum = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-            for k, p in named.items()}
+    held = {k: p.grad for k, p in named.items()}
     lsum = torch.zeros((), dtype=torch.float32, device=params.embed.device)
-    for i in range(n):
-        rows = slice(i * (b // n), (i + 1) * (b // n))
-        loss, grads = _loss_and_grads(
-            params, named, {k: t[rows] for k, t in batch.items()}, cfg)
-        for k, g in grads.items():
-            gsum[k] += g.float()
-        lsum = lsum + loss
-    inv = 1.0 / n
-    return lsum * inv, {k: g * inv for k, g in gsum.items()}
+    try:
+        for p in named.values():
+            p.grad = None
+        for i in range(n):
+            rows = slice(i * (b // n), (i + 1) * (b // n))
+            with record_function("train.forward"):
+                loss = loss_fn(params, {k: t[rows] for k, t in
+                                        batch.items()}, cfg)
+            with record_function("train.backward"):
+                torch.autograd.backward(loss, inputs=list(named.values()))
+            lsum = lsum + loss.detach()
+        inv = 1.0 / n
+        return lsum * inv, {k: p.grad.mul_(inv) for k, p in named.items()}
+    finally:
+        for k, p in named.items():
+            p.grad = held[k]
 
 
 # ------------------------------------------------ int8 EF compression ------
@@ -206,10 +207,15 @@ def working_specs(cfg: ArchConfig, m: int) -> dict:
     vocabulary, so its gradients return to the storage specs with no
     gather over "model"), but
       * latent attention's ``wkv_a`` whole and ``wkv_b``'s columns (its
-        heads) over "model" (``models.mla``'s docstring);
-      * an attention whose heads do not divide ``m`` (above 1) whole: its
-        ``wq``/``wk``/``wv``/``wo`` (and ``wkv_b``), for the
-        sequence-sharded or replicated attention (``models.layers``);
+        heads) over "model" (``models.mla``'s docstring), and where its
+        heads do not divide ``m`` (above 1) its ``wq``/``wkv_b``/``wo``
+        whole (no production config takes this: DeepSeek-V2-Lite's 16
+        heads split the production axis of 16);
+      * a GQA attention whose kv heads do not divide ``m`` keeps its
+        ``wq``/``wk``/``wv`` columns and ``wo`` rows as the storage
+        shards, like any other leaf, and each layer gathers a weight
+        whole only at its use (``models.layers.at_use``), its gradient
+        coming back as the shard; its q/k/v biases are whole;
       * an SSD layer's ``in_proj.w``, ``conv_w`` and ``conv_b``
         ``REGROUPED`` (each rank its heads' columns and the whole B and C,
         ``models.ssd.head_columns``), and its ``A_log``, ``D``,
@@ -219,15 +225,15 @@ def working_specs(cfg: ArchConfig, m: int) -> dict:
     Made once a config and axis (the step reads it every step); not to be
     changed."""
     specs = param_specs(cfg)
-    heads = cfg.mla.n_heads if cfg.attn_type == "mla" else cfg.n_kv
-    whole_attn = not heads_split(heads, m)
+    mla = cfg.attn_type == "mla"
+    split = heads_split(cfg.mla.n_heads if mla else cfg.n_kv, m)
     out = {}
     for name, spec in specs.items():
         parts = name.split(".")
         leaf = parts[-1]
         attn = ("attn" in parts or "xattn" in parts) and parts[-2] in (
             "wq", "wk", "wv", "wo", "wkv_b")
-        if name.endswith(".wkv_a.w") or (attn and whole_attn):
+        if name.endswith(".wkv_a.w") or (attn and mla and not split):
             out[name] = (None,) * len(spec)
         elif name.endswith(".wkv_b.w"):
             out[name] = (None, "model")
@@ -237,7 +243,7 @@ def working_specs(cfg: ArchConfig, m: int) -> dict:
         elif "ssd" in parts and leaf in ("A_log", "D", "dt_bias", "norm"):
             out[name] = ("model",)
         elif leaf == "b" and specs.get(name[:-1] + "w", ())[-1:] == ("model",):
-            out[name] = ("model",)
+            out[name] = ("model",) if split or not attn else (None,)
         else:
             out[name] = _drop_fsdp(spec)
     return out
@@ -292,9 +298,12 @@ def cast_and_gather_params(params: Model, cfg: ArchConfig,
     axes once a step, each leaf laid out by ``working_specs`` (each rank
     its "model" shard; whole on a model axis of 1), as a ``Model`` of plain
     tensors that require gradients.  A leaf already so laid out is its own
-    storage, not a copy.  The reference casts its working copy to bf16;
-    the port's forward casts at each use, as its one-device step does, so
-    the copy stays float32."""
+    storage, not a copy.  A GQA attention whose kv heads do not split
+    keeps its weights' storage shards here, and its layers gather each
+    whole, in the compute dtype, only at its use
+    (``models.layers.at_use``).  The
+    reference casts its working copy to bf16; the port's forward casts at
+    each use, as its one-device step does, so the copy stays float32."""
     work = _shell(params)
     specs = working_specs(cfg, ctx.tp_size)
     for name, p in params.named_parameters():

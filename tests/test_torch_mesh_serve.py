@@ -14,7 +14,9 @@ patched).  The card holds one NCCL rank, so the numerics across model
 ranks are held here.
 
 * InternLM2 (2 kv heads: the sequence-sharded prefill at (1,4)), Mamba2,
-  Zamba2, OLMoE and DeepSeek-V2-Lite SMOKE at (data, model) = (1,2), (2,2)
+  Zamba2, OLMoE, DeepSeek-V2-Lite and Mistral-NeMo (1 kv head: its
+  attention weights the rank's shards, gathered whole at each use, on
+  every mesh) SMOKE at (data, model) = (1,2), (2,2)
   and (1,4), and the two stub-frontend families, Seamless-M4T-medium
   (its encoder K/V in the cache, the decode's cross-attention merged
   over "model" too) and LLaVA-NeXT (2 kv heads), with seeded frame or
@@ -28,7 +30,7 @@ ranks are held here.
   model rank after each step; ``init_cache(..., ctx=)`` gives the same
   shapes, and a cache whose sequence does not divide the model axis
   raises ``PlanError`` (the reference's ``device_put`` refuses it).
-* The model group's collectives on the decode, by kind (the first five).
+* The model group's collectives on the decode, by kind (the first six).
 * ``cache_specs`` equals the reference's, spec for spec, for every config
   at B 1 and B 4.
 * The serve launcher's production meshes (``--mesh single|multi``) refuse
@@ -56,7 +58,7 @@ ROOT = Path(__file__).resolve().parents[1]
 SERVE_F32 = 1e-5
 REFERENCE_TIMEOUT_S = 300
 COUNTED = ("internlm2_1_8b", "mamba2_780m", "zamba2_2_7b", "olmoe_1b_7b",
-           "deepseek_v2_lite_16b")
+           "deepseek_v2_lite_16b", "mistral_nemo_12b")
 ARCHS = COUNTED + ("seamless_m4t_medium", "llava_next_34b")
 MESHES = [(1, 2), (2, 2), (1, 4)]
 B, S, MAX_LEN, FILL, STEPS = 4, 64, 16, 5, 4
@@ -226,7 +228,8 @@ def test_decode_collectives_by_kind(runs, arch):
     vocabulary once; an attention layer gathers its heads' q, k and v once
     (none where its heads are whole), merges with one ``decode_max`` and
     two ``decode_sum``; an SSD layer gathers its x row and sums its norm's
-    squares; every row-parallel product reduces once."""
+    squares; every row-parallel product reduces once; an attention whose
+    heads are whole gathers its four weights at use."""
     cfg = R.port_cfg(arch)
     meta, _ = _ranks(runs, f"{arch}_1x4", (1, 4))[0]
     calls = meta["calls"]["decode"]
@@ -242,7 +245,8 @@ def test_decode_collectives_by_kind(runs, arch):
             "norm_sum": STEPS * n_ssd,
             "gather_seq": STEPS * (n_ssd + n_attn * (2 if mla else 1)
                                    * split + 1),
-            "reduce_from_tp": STEPS * (n_ssd + n_attn * split + mlp + 1)}
+            "reduce_from_tp": STEPS * (n_ssd + n_attn * split + mlp + 1),
+            "gather_weight": STEPS * n_attn * 4 * (not split and not mla)}
     for k, v in want.items():
         assert calls[k] == v, (k, calls)
     assert calls["copy_to_tp"] == calls["all_gather_seq"] == 0

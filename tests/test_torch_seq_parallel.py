@@ -30,10 +30,22 @@ card).
   within ``launch.serve.prefill_bound``.
 * LLaVA-NeXT's SMOKE config (``vlm``, 2 kv heads, patch embeddings), one
   float32 step at (1, 4) against the reference's, held as TINY's.
+* Attention weights that stay the rank's "model" shards where the kv
+  heads do not split, gathered whole at each use
+  (``layers.at_use``), held as TINY's, float32: Mistral-NeMo's SMOKE
+  config (1 kv head) at (1, 2), (2, 2) and (1, 4) on the
+  sequence-sharded residual (each weight's gradient a partial sum over
+  the rank's rows, reduce-scattered to its shard), at (1, 4) on S 30,
+  which the axis does not divide (the whole residual: every rank the
+  same whole gradient, sliced), and Qwen1.5's (q/k/v biases, whole) with
+  2 kv heads at (1, 4); each step gathered weights at use
+  (``sharding.TP_CALLS["gather_weight"]``).
 * Where the sequence-sharded path is taken (``layers.seq_sharded``: the
-  reference's rule) and which attention weights the working copy holds
-  whole (``train_step.working_specs``).
+  reference's rule) and the working copy's attention weights
+  (``train_step.working_specs``): every rank its "model" shard of
+  ``wq``/``wk``/``wv``/``wo`` whether or not the heads split.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -69,6 +81,16 @@ def _ref_tiny():
                          microbatches=1)
 
 
+# the plain steps where the kv heads do not split (beyond TINY's and
+# LLaVA's at (1, 4)): name -> (arch, mesh, overrides, seq)
+WHOLE_HEADS = {
+    "mistral_1x2": ("mistral_nemo_12b", (1, 2), {}, 32),
+    "mistral_2x2": ("mistral_nemo_12b", (2, 2), {}, 32),
+    "mistral_1x4": ("mistral_nemo_12b", (1, 4), {}, 32),
+    "mistral_1x4_s30": ("mistral_nemo_12b", (1, 4), {}, 30),
+    "qwen_kv2_1x4": ("qwen15_4b", (1, 4), {"n_kv": 2}, 32)}
+
+
 def _inputs(path, rcfg, seed, b, s):
     tree = jax.tree.map(np.asarray, RT.init_params(rcfg, jax.random.key(0)))
     rng = np.random.default_rng(seed)
@@ -95,6 +117,12 @@ def runs(tmp_path_factory):
     for spec in ref_cases.values():
         spec.update(inputs=inputs[spec["arch"]], data=MESH[0],
                     model=MESH[1], lr=LR, steps=1)
+    for i, (name, (arch, mesh, over, seq)) in enumerate(WHOLE_HEADS.items()):
+        rcfg = dataclasses.replace(RC.smoke(arch), **over)
+        ref_cases[name] = dict(
+            arch=arch, f32=True, overrides=over, data=mesh[0],
+            model=mesh[1], lr=LR, steps=1,
+            inputs=_inputs(tmp / f"{name}.npz", rcfg, 10 + i, 4, seq))
     (tmp / "cases.json").write_text(json.dumps(ref_cases))
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4",
@@ -112,10 +140,11 @@ def runs(tmp_path_factory):
             port[f"seq{world}"] = str(tmp / f"seq{world}")
             cases.append(("seq_attention", dict(seed=world),
                           port[f"seq{world}"]))
-            if world == 4:
-                for name, spec in ref_cases.items():
+            for name, spec in ref_cases.items():
+                mesh = (spec["data"], spec["model"])
+                if mesh[0] * mesh[1] == world:
                     port[name] = str(tmp / f"port_{name}")
-                    cases.append(("plain", dict(spec, mesh=MESH),
+                    cases.append(("plain", dict(spec, mesh=mesh),
                                   port[name]))
             R.spawn(R.run_cases, world, tmp / f"w{world}", cases)
         out, err = ref.communicate(timeout=REFERENCE_TIMEOUT_S)
@@ -175,6 +204,23 @@ def test_step_on_four_model_ranks_matches_reference_f32(runs, name):
         assert _rel(got[k], ref[f"{name}/{k}"]) <= STEPS_F32, k
 
 
+@pytest.mark.parametrize("name", list(WHOLE_HEADS))
+def test_step_where_the_kv_heads_do_not_split_matches_reference_f32(runs,
+                                                                    name):
+    got, ref = _port(runs, name), runs["ref"]
+    for key in ("loss", "gnorm"):
+        np.testing.assert_allclose(got[key], ref[f"{name}/{key}"],
+                                   rtol=LOSS_F32)
+    leaves = [k for k in got if k.startswith("p/")]
+    assert len(leaves) == len([k for k in ref
+                               if k.startswith(f"{name}/p/")])
+    for k in leaves:
+        assert _rel(got[k], ref[f"{name}/{k}"]) <= STEPS_F32, k
+    calls = json.loads(Path(runs["port"][name] + ".shards0.json")
+                       .read_text())["calls"]
+    assert calls["gather_weight"] > 0, calls
+
+
 def test_tiny_on_four_model_ranks_matches_reference_bf16(runs):
     got, ref = _port(runs, "tiny_bf16"), runs["ref"]
     bound = prefill_bound(R.tiny())
@@ -209,13 +255,17 @@ def test_seq_sharded_where_the_reference_takes_it(sq, sk, n_kv, m, taken):
     assert L.seq_sharded(sq, sk, n_kv) is False         # no context
 
 
-@pytest.mark.parametrize("m,whole", [(1, False), (2, False), (4, True)])
-def test_attention_weights_whole_where_the_heads_do_not_split(m, whole):
-    specs = working_specs(R.tiny(), m)
+@pytest.mark.parametrize("m,split", [(1, True), (2, True), (4, False)])
+def test_attention_weights_stay_model_shards_where_the_heads_do_not_split(
+        m, split):
+    """TINY's 2 kv heads split a model axis of 1 and 2, not 4; either way
+    the working copy holds each rank's columns of ``wq``/``wk``/``wv`` and
+    rows of ``wo`` (whole heads gather them at use)."""
+    cfg = R.tiny()
+    assert L.heads_split(cfg.n_kv, m) is split
+    specs = working_specs(cfg, m)
     attn = [n for n in specs if ".attn." in n]
     assert attn
     for n in attn:
-        if whole:
-            assert specs[n] == (None,) * len(specs[n]), (n, specs[n])
-        else:
-            assert "model" in specs[n], (n, specs[n])
+        want = ("model", None) if ".wo." in n else (None, "model")
+        assert specs[n] == want, (n, specs[n])

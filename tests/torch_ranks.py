@@ -175,11 +175,13 @@ def _plain_case(rank, world, spec, out):
     FSDP parameters, ``spec["steps"]`` plain steps on the input's batches,
     then the eval step on the first batch.  Rank 0 writes the losses, grad
     norms, the eval loss and the whole parameters, and every rank its
-    shards' sizes against the leaves'."""
+    shards' sizes against the leaves' and the model group's collectives
+    of the steps (``sharding.TP_CALLS``)."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import from_reference
     from repro_torch.models.transformer import param_specs
-    from repro_torch.sharding import distribute, local, make_ctx
+    from repro_torch.sharding import (TP_CALLS, distribute, local, make_ctx,
+                                      zero_tp_calls)
     from repro_torch.train import AdamW, make_eval_step, make_train_step
     cfg = port_cfg(spec["arch"], spec.get("microbatches", 1),
                    spec.get("overrides"))
@@ -194,10 +196,12 @@ def _plain_case(rank, world, spec, out):
         state = opt.init(model)
         step = make_train_step(cfg, opt, ctx=ctx)
         losses, norms = [], []
+        zero_tp_calls()
         for b in batches[:spec["steps"]]:
             model, state, m = step(model, state, b)
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
+        calls = dict(TP_CALLS)
         evaluated = float(make_eval_step(cfg, ctx)(model, batches[0]))
     shards = {n: [int(local(p).numel()), int(p.numel())]
               for n, p in model.named_parameters()}
@@ -209,7 +213,7 @@ def _plain_case(rank, world, spec, out):
                  gnorm=np.asarray(norms), eval=np.asarray([evaluated]),
                  **{"p/" + k: v for k, v in params.items()})
     with open(f"{out}.shards{rank}.json", "w") as f:
-        json.dump({"params": shards, "m": moments,
+        json.dump({"params": shards, "m": moments, "calls": calls,
                    "specs": {n: list(map(_jsonable, s)) for n, s in
                              param_specs(cfg).items()}}, f)
 
