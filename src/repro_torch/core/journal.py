@@ -110,8 +110,8 @@ class Journal:
         self._owner = owner          # store, for per-store fault plans
         self._lock = threading.Lock()
         self._f = open(path, "ab")
-        # all-time accounting (the fault suite balances these; the bench
-        # reads write_s for the paired overhead measurement)
+        # all-time accounting (the fault suite balances these;
+        # chip_smoke.py's durable phase reads write_s for its fsync cost)
         self.appended = 0            # records acknowledged this process
         self.synced = 0              # fsyncs paid
         self.repairs = 0             # failed appends truncated away

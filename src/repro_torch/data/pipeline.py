@@ -21,6 +21,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 
+from .. import trace
 from ..core.graph import BipartiteGraph
 from ..core.partition import PartitionedCVD
 from ..kernels import ops as K
@@ -73,7 +74,7 @@ class VersionedDataset:
         labels = row[1:].  ``start_step`` makes restart replay-free; a host's
         shard can be dropped for a step (straggler policy) and re-enqueued —
         determinism comes from (vid, seed, step), the paper's checkout
-        immutability.
+        immutability.  Each batch's host work is a ``data.batch`` span.
         """
         rows = self.checkout(vid)
         flat = rows.reshape(-1)
@@ -87,24 +88,27 @@ class VersionedDataset:
         emitted = 0
         requeue: list[np.ndarray] = []
         while n_steps is None or emitted < n_steps:
-            epoch = step // steps_per_epoch
-            i = step % steps_per_epoch
-            if i == 0 and step > 0:
-                order = np.random.default_rng(seed + epoch).permutation(n_seqs)
-            idx = order[i * global_batch:(i + 1) * global_batch]
-            if len(idx) < global_batch:   # wrap the tail
-                idx = np.concatenate([idx, order[:global_batch - len(idx)]])
-            if drop_hosts is not None and n_hosts > 1:
-                per = global_batch // n_hosts
-                keep = np.ones(global_batch, bool)
-                for h in drop_hosts:
-                    keep[h * per:(h + 1) * per] = False
-                requeue.append(idx[~keep])
-                # backfill from requeued shards (re-enqueue semantics)
-                fill = np.concatenate(requeue)[:int((~keep).sum())] \
-                    if requeue else idx[~keep]
-                idx = np.concatenate([idx[keep], fill])[:global_batch]
-            batch = seqs[idx]
+            with trace.span("data.batch"):
+                epoch = step // steps_per_epoch
+                i = step % steps_per_epoch
+                if i == 0 and step > 0:
+                    order = np.random.default_rng(seed + epoch).permutation(
+                        n_seqs)
+                idx = order[i * global_batch:(i + 1) * global_batch]
+                if len(idx) < global_batch:   # wrap the tail
+                    idx = np.concatenate([idx,
+                                          order[:global_batch - len(idx)]])
+                if drop_hosts is not None and n_hosts > 1:
+                    per = global_batch // n_hosts
+                    keep = np.ones(global_batch, bool)
+                    for h in drop_hosts:
+                        keep[h * per:(h + 1) * per] = False
+                    requeue.append(idx[~keep])
+                    # backfill from requeued shards (re-enqueue semantics)
+                    fill = np.concatenate(requeue)[:int((~keep).sum())] \
+                        if requeue else idx[~keep]
+                    idx = np.concatenate([idx[keep], fill])[:global_batch]
+                batch = seqs[idx]
             yield {"tokens": batch[:, :-1], "labels": batch[:, 1:],
                    "step": step, "vid": vid}
             step += 1

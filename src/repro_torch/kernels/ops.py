@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..launch.op_count import attn_core, replay
 from . import build as _build
 from . import checkout_batched as _cb
@@ -376,7 +377,8 @@ class _FlashAttention(torch.autograd.Function):
     tensor, the plain version for a CPU tensor), saving (q, k, v, o).
     Backward: ``_flash_bwd`` in plain torch, with the row lse streamed from
     (q, k) there (the reference's forward rule computes it; under remat the
-    forward runs twice a step and the lse is needed once)."""
+    forward runs twice a step and the lse is needed once), an
+    ``attn.backward`` span timed on the device."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
@@ -388,7 +390,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o = ctx.saved_tensors
-        with attn_core:
+        with attn_core, trace.span("attn.backward", device=True):
             return (*replay(_flash_bwd, q, k, v, o, do, ctx.causal), None)
 
 

@@ -9,7 +9,12 @@ Serves a model against a VERSIONED prompt store, as the reference does: the
 requested prompt versions of a CVD are checked out in one fused wave through
 the port's ``BatchedCheckoutServer``, and requests round-robin across them.
 The cache is filled token by token through ``make_serve_step`` and the model
-then decodes greedily; the JSON line the reference prints comes last.
+then decodes greedily; the JSON line the reference prints comes last.  Its
+``prefill_s`` is that token-by-token fill, kept under the reference's
+field name; the serving prefill's own time is ``prefill_step_s``.
+``--trace PATH`` records the run's spans and counters (``trace``; the fill
+and the decode loops are ``serve.fill`` and ``serve.decode``) and writes
+them to PATH as a Chrome trace at its end (rank 0's, on a mesh).
 
 The driver also runs the reference's serving prefill, ``make_prefill_step``,
 once on the same prompts: that is the path through the flash-attention and
@@ -55,7 +60,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .. import configs
+from .. import configs, trace
 from ..core import generate, lyresplit_for_budget, to_tree
 from ..data import VersionedDataset
 from ..kernels import flash_attention as _fa
@@ -271,21 +276,24 @@ def serve(cfg: ArchConfig, *, requests: int = 16, prompt_len: int = 64,
     _sync(dev)
     t0 = time.perf_counter()
     with MOE.counting_drops() as fill_drops:
-        for i in range(prompt_len):
-            logits, cache = step(params, {"tokens": prompts[:, i:i + 1],
-                                          "cache": cache})
-        _sync(dev)
+        with trace.span("serve.fill"):
+            for i in range(prompt_len):
+                logits, cache = step(params, {"tokens": prompts[:, i:i + 1],
+                                              "cache": cache})
+            _sync(dev)
         t_fill = time.perf_counter() - t0
         fill_logits = logits[:, -1].float()
         tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
         out = [tok]
         t1 = time.perf_counter()
-        for _ in range(decode_steps - 1):
-            logits, cache = step(params, {"tokens": _all_rows(tok, ctx)
-                                          if b > 1 else tok, "cache": cache})
-            tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
-            out.append(tok)
-        _sync(dev)
+        with trace.span("serve.decode"):
+            for _ in range(decode_steps - 1):
+                logits, cache = step(params, {"tokens": _all_rows(tok, ctx)
+                                              if b > 1 else tok,
+                                              "cache": cache})
+                tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+                out.append(tok)
+            _sync(dev)
         t_decode = time.perf_counter() - t1
     launches = {"fill_decode": _since(before)}
     dropped = {"fill_decode": sum(MOE.drop_counts(fill_drops))}
@@ -354,6 +362,9 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", default="host",
                     choices=["host", "single", "multi"])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="record spans and counters and write them to PATH "
+                         "as a Chrome trace")
     args = ap.parse_args(argv)
 
     cfg = configs.get(configs.canonical(args.arch))
@@ -368,11 +379,17 @@ def main(argv=None) -> int:
             device=resolve_device(args.device)))
         if dist.get_rank() != 0:
             log = _quiet
+    if args.trace:
+        trace.enable()
     run = serve(cfg, requests=args.requests, prompt_len=args.prompt_len,
                 decode_steps=args.decode_steps,
                 prompt_version=args.prompt_version,
                 wave_size=args.wave_size, seed=args.seed, device=args.device,
                 ctx=ctx, log=log)
+    if args.trace:
+        trace.disable()
+        if ctx is None or dist.get_rank() == 0:
+            trace.export_chrome(args.trace)
     log(json.dumps(run["result"]))
     if ctx is not None and started:
         dist.destroy_process_group()

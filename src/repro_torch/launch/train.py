@@ -40,6 +40,8 @@ and sequence-parallel over "model", and needs exactly 256 or 512 ranks
 ``PlanError``, and it never falls back to fewer ranks.  ``--grad-compress``
 takes effect only on a mesh with a "pod" axis (``multi``), as the
 reference's does: the int8 error-feedback step (``ef_init``).
+``--trace PATH`` records the run's spans and counters (``trace``) and
+writes them to PATH as a Chrome trace at its end (rank 0's, on a mesh).
 """
 from __future__ import annotations
 
@@ -53,7 +55,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .. import configs
+from .. import configs, trace
 from ..core import generate, lyresplit_for_budget, to_tree
 from ..data import VersionedDataset
 from ..kernels import checkout_gather as _cg
@@ -267,6 +269,9 @@ def main(argv=None) -> int:
     ap.add_argument("--preempt-after", type=int, default=0,
                     help="stop after this many steps of this run, as a "
                          "preempted job would (0 = run to --steps)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="record spans and counters and write them to PATH "
+                         "as a Chrome trace")
     args = ap.parse_args(argv)
 
     cfg = configs.get(configs.canonical(args.arch))
@@ -295,12 +300,18 @@ def main(argv=None) -> int:
     model, start, parent_vid = restore_or_init(cfg, store, seed=args.seed,
                                                device=dev, ctx=ctx, log=log)
     before = launches()
+    if args.trace:
+        trace.enable()
     run = train(cfg, model, ds, data_vid, store=store, start=start,
                 parent_vid=parent_vid, steps=args.steps, batch=args.batch,
                 seed=args.seed, lr=args.lr, ckpt_every=args.ckpt_every,
                 grad_compress=args.grad_compress,
                 straggler_p=args.straggler_p,
                 preempt_after=args.preempt_after, ctx=ctx, log=log)
+    if args.trace:
+        trace.disable()
+        if lead:
+            trace.export_chrome(args.trace)
     losses = run["losses"]
     out = {"arch": cfg.name, "steps": args.steps,
            "first_loss": losses[0] if losses else None,

@@ -88,9 +88,10 @@ from torch import nn
 from ..kernels import ops, ref
 from ..kernels.build import PlanError
 from ..launch.op_count import attn_core
-from ..sharding import (all_gather_seq, copy_to_tp, decode_max, decode_sum,
-                        gather_seq, gather_weight, norm_sum, reduce_from_tp,
-                        reduce_scatter_seq, residual_rows, tp_group)
+from ..sharding import (all_gather_seq, cast_weight, copy_to_tp, decode_max,
+                        decode_sum, gather_seq, gather_weight, norm_sum,
+                        reduce_from_tp, reduce_scatter_seq, residual_rows,
+                        tp_group)
 
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32
@@ -144,13 +145,13 @@ def dense(p: Dense, x: torch.Tensor, gather: Optional[str] = None
     tp = tp_group() if gather else None
     if tp is not None and gather == "col":
         x = copy_to_tp(x, tp)
-    y = x @ p.w.to(x.dtype)
+    y = x @ cast_weight(p.w, x.dtype)
     if tp is not None and gather == "row":
         y = reduce_from_tp(y, tp)
     elif tp is not None and gather == "scatter":
         y = reduce_scatter_seq(y, tp)
     if p.b is not None:
-        y = y + p.b.to(x.dtype)
+        y = y + cast_weight(p.b, x.dtype)
     return y
 
 
@@ -224,12 +225,12 @@ class _RMSNorm(torch.autograd.Function):
         var = x.float().square().mean(dim=-1, keepdim=True)
         inv = torch.rsqrt(var + eps)                     # (..., 1) float32
         ctx.save_for_backward(scale, x, inv)
-        return x * inv.to(x.dtype) * scale.to(x.dtype)
+        return x * inv.to(x.dtype) * cast_weight(scale, x.dtype)
 
     @staticmethod
     def backward(ctx, dy):
         scale, x, inv = ctx.saved_tensors
-        sdy = dy * scale.to(dy.dtype)
+        sdy = dy * cast_weight(scale, dy.dtype)
         m = (sdy.float() * x.float()).sum(dim=-1, keepdim=True) / x.shape[-1]
         dx = sdy * inv.to(dy.dtype) - x * (m * inv ** 3).to(dy.dtype)
         dscale = (dy * x * inv.to(dy.dtype)).float().sum(
@@ -257,12 +258,12 @@ class _RMSNormPart(torch.autograd.Function):
         inv = torch.rsqrt(ss / n + eps)                  # (..., 1) float32
         ctx.save_for_backward(scale, x, inv)
         ctx.n = n
-        return x * inv.to(x.dtype) * scale.to(x.dtype)
+        return x * inv.to(x.dtype) * cast_weight(scale, x.dtype)
 
     @staticmethod
     def backward(ctx, dy):
         scale, x, inv = ctx.saved_tensors
-        sdy = dy * scale.to(dy.dtype)
+        sdy = dy * cast_weight(scale, dy.dtype)
         part = (sdy.float() * x.float()).sum(dim=-1, keepdim=True)
         dss = -part * inv ** 3 / (2 * ctx.n)
         dx = sdy * inv.to(dy.dtype)

@@ -106,7 +106,8 @@ def _expand_kv(w: torch.Tensor, c_kv: torch.Tensor, k_rope: torch.Tensor,
     b, s, _ = c_kv.shape
     dn = cfg.qk_nope
     h = w.shape[-1] // (dn + cfg.v_head)
-    kv = (c_kv @ w.to(c_kv.dtype)).reshape(b, s, h, dn + cfg.v_head)
+    kv = (c_kv @ L.cast_weight(w, c_kv.dtype)).reshape(b, s, h,
+                                                        dn + cfg.v_head)
     k = torch.cat([kv[..., :dn],
                    k_rope[:, :, None, :].expand(b, s, h, cfg.qk_rope)], dim=-1)
     return k, kv[..., dn:]

@@ -193,8 +193,9 @@ def _experts(buf: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
              wo: torch.Tensor) -> torch.Tensor:
     """Every expert's SwiGLU on its C rows: (E, C, d) -> (E, C, d)."""
     dt = buf.dtype
-    h = F.silu(torch.bmm(buf, wg.to(dt))) * torch.bmm(buf, wi.to(dt))
-    return torch.bmm(h, wo.to(dt))
+    h = F.silu(torch.bmm(buf, L.cast_weight(wg, dt))) * torch.bmm(
+        buf, L.cast_weight(wi, dt))
+    return torch.bmm(h, L.cast_weight(wo, dt))
 
 
 def _combine(out: torch.Tensor, order, dest_e, dest_c, keep,
@@ -271,9 +272,11 @@ def moe_ffn_local(p: MoE, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     b, s, d = x.shape
     top_w, top_e = _route(x.reshape(b * s, d), p.router.w, cfg)
     top_w, top_e = top_w.reshape(b, s, -1), top_e.reshape(b, s, -1)
-    h = torch.einsum("bsd,edf->bsef", x, p.wg.to(x.dtype))
-    h = F.silu(h) * torch.einsum("bsd,edf->bsef", x, p.wi.to(x.dtype))
-    out_all = torch.einsum("bsef,efd->bsed", h, p.wo.to(x.dtype))
+    h = torch.einsum("bsd,edf->bsef", x, L.cast_weight(p.wg, x.dtype))
+    h = F.silu(h) * torch.einsum("bsd,edf->bsef", x,
+                                 L.cast_weight(p.wi, x.dtype))
+    out_all = torch.einsum("bsef,efd->bsed", h,
+                           L.cast_weight(p.wo, x.dtype))
     sel = torch.take_along_dim(out_all, top_e[..., None], dim=2)
     y = (sel * top_w[..., None].to(x.dtype)).sum(dim=2)
     if p.shared is not None:

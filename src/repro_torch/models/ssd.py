@@ -52,7 +52,8 @@ from ..kernels.build import PlanError
 from ..launch.op_count import attn_core
 from ..sharding import (all_gather_seq, copy_to_tp, gather_seq, residual_rows,
                         tp_group)
-from .layers import Dense, dense, param, rms_norm, rms_norm_split
+from .layers import (Dense, cast_weight, dense, param, rms_norm,
+                     rms_norm_split)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,7 +147,8 @@ def _split_proj(p: SSD, x: torch.Tensor, cfg: SSDConfig,
         zxbcdt = dense(p.in_proj, x)
     else:
         w = _shared(p.in_proj.w, 2 * di, 2 * di + 2 * cfg.d_state, tp)
-        zxbcdt = (x if gathered else copy_to_tp(x, tp)) @ w.to(x.dtype)
+        zxbcdt = (x if gathered else copy_to_tp(x, tp)) @ cast_weight(
+            w, x.dtype)
     conv_dim = di + 2 * cfg.d_state
     z = zxbcdt[..., :di]
     xbc = zxbcdt[..., di:di + conv_dim]
@@ -160,7 +162,7 @@ def _conv_weights(p: SSD, cfg: SSDConfig, dtype):
     if tp is not None:
         hi = di + 2 * cfg.d_state
         w, b = _shared(w, di, hi, tp), _shared(b, di, hi, tp)
-    return w.to(dtype), b.to(dtype)
+    return cast_weight(w, dtype), cast_weight(b, dtype)
 
 
 def _causal_conv(p: SSD, xbc: torch.Tensor, cfg: SSDConfig,
@@ -257,7 +259,7 @@ def ssd_forward(p: SSD, x: torch.Tensor, cfg: SSDConfig):
     with attn_core:                 # the reference's chunk_step scope
         y, h_final = ops.ssd_scan(xs, bmat, cmat, dt.to(x.dtype), a,
                                   chunk=cfg.chunk)
-    y = y + p.D.to(x.dtype)[None, None, :, None] * xs
+    y = y + cast_weight(p.D, x.dtype)[None, None, :, None] * xs
     y = y.reshape(b, l, di)
     y = y * F.silu(z)
     return dense(p.out_proj, _gated_norm(p, y, cfg),

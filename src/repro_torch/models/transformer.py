@@ -95,6 +95,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import trace
 from ..kernels.build import PlanError
 from ..kernels.ops import resolve_device
 from ..sharding import (MeshContext, all_gather_seq, copy_to_tp, current_ctx,
@@ -417,7 +418,7 @@ def _place_patches(x: torch.Tensor, pe: torch.Tensor) -> torch.Tensor:
 def _logits(params: Model, x: torch.Tensor) -> torch.Tensor:
     x = L.rms_norm(params.final_norm, x)
     head = params.embed.T if params.lm_head is None else params.lm_head
-    return x @ head.to(x.dtype)
+    return x @ L.cast_weight(head, x.dtype)
 
 
 def _head(params: Model, x: torch.Tensor, cfg: ArchConfig,
@@ -444,7 +445,7 @@ def _head(params: Model, x: torch.Tensor, cfg: ArchConfig,
                    else params.final_norm, x)
     x = all_gather_seq(x, tp) if rows else copy_to_tp(x, tp)
     head = params.embed.T if params.lm_head is None else params.lm_head
-    logits = x @ head.to(x.dtype)
+    logits = x @ L.cast_weight(head, x.dtype)
     return gather_seq(logits, tp, dim=-1) if last_only else logits
 
 
@@ -454,16 +455,18 @@ def _maybe_remat(apply, cfg: ArchConfig):
     ``jax.checkpoint`` around each block); a plain call otherwise.  The
     recompute runs inside the backward, which on the card runs on the
     autograd engine's device thread, where the forward's thread-local mesh
-    context is not set: it re-enters the context the forward ran under."""
+    context is not set: it re-enters the context the forward ran under.
+    Each application is a ``model.block`` span, the recompute another."""
     def block(p, x):
         if cfg.remat and torch.is_grad_enabled():
             ctx = current_ctx()
 
             def run(h):
-                with mesh_context(ctx):
+                with mesh_context(ctx), trace.span("model.block"):
                     return apply(p, h, cfg)[0]
             return checkpoint(run, x, use_reentrant=False)
-        return apply(p, x, cfg)[0]
+        with trace.span("model.block"):
+            return apply(p, x, cfg)[0]
     return block
 
 
@@ -539,7 +542,8 @@ def forward(params: Model, batch: dict, cfg: ArchConfig,
                 x = ssd(p, x)
                 if (i + 1) % g == 0:
                     x = attn(params.shared_block, x)
-        return _head(params, x, cfg, last_only)
+        with trace.span("model.head"):
+            return _head(params, x, cfg, last_only)
 
 
 def loss_fn(params: Model, batch: dict, cfg: ArchConfig) -> torch.Tensor:

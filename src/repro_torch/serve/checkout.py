@@ -78,6 +78,7 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 
+from .. import trace
 from ..core.checkout import (_validate_vids, checkout_partitioned,
                              get_superblock, get_superblock_groups)
 from ..core.faults import acquire_read_lease, fault_point, read_leases
@@ -390,6 +391,7 @@ class BatchedCheckoutServer:
             return True
         return False
 
+    @trace.spanned("checkout.flush")
     def flush(self) -> list[np.ndarray]:
         """DISPATCH every pending request as one fused wave (duplicate vids
         share one gather), then DELIVER the previously in-flight wave.
@@ -528,6 +530,7 @@ class BatchedCheckoutServer:
         self.close()
 
     # -- dispatch plane --------------------------------------------------------
+    @trace.spanned("checkout.dispatch")
     def _dispatch(self, uniq: list):
         """One wave dispatch.  With ``retry=None`` a single
         ``checkout_partitioned`` call (plus the ``serve.dispatch`` fault
@@ -704,6 +707,7 @@ class BatchedCheckoutServer:
                 backoff *= 2
         raise AssertionError("unreachable")  # pragma: no cover
 
+    @trace.spanned("checkout.deliver")
     def _deliver_wave(self, wave: _InflightWave) -> list[np.ndarray]:
         """The deliver stage for one (already detached) wave.  A delivery
         failure re-queues the wave's tickets and rolls back its dispatch

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
 from ..kernels.ops import resolve_device
 from ..models.transformer import (FRONTEND_INPUTS, ArchConfig, decode_step,
                                   forward)
@@ -89,12 +90,15 @@ def make_prefill_step(cfg: ArchConfig, ctx: MeshContext | None = None, *,
         """batch = {"tokens": (B, S)} (with "enc_embeds" for ``encdec``,
         "patch_embeds" for ``vlm``) -> logits (B, 1, vocab_padded): the lm
         head runs on the last position only.  With ``ctx`` the logits of
-        the rank's rows."""
-        work = _params(params, cfg, ctx)
-        inputs = {k: _on(device, work, _rows(batch[k], ctx))
-                  for k in ("tokens", *FRONTEND_INPUTS) if k in batch}
-        with mesh_context(ctx):
-            return forward(work, inputs, cfg, last_only=True)
+        the rank's rows.  A ``serve.prefill`` span (attributes ``b``,
+        ``s``: the batch's shape) covers the call."""
+        b, s = batch["tokens"].shape
+        with trace.span("serve.prefill", b=b, s=s):
+            work = _params(params, cfg, ctx)
+            inputs = {k: _on(device, work, _rows(batch[k], ctx))
+                      for k in ("tokens", *FRONTEND_INPUTS) if k in batch}
+            with mesh_context(ctx):
+                return forward(work, inputs, cfg, last_only=True)
     return prefill_step
 
 

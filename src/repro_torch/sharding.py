@@ -102,6 +102,7 @@ from typing import Any, Optional
 import torch
 import torch.distributed as dist
 
+from . import trace
 from .kernels.build import PlanError
 
 
@@ -494,12 +495,25 @@ class _ReduceScatterSeq(torch.autograd.Function):
         return _all_gather(g.contiguous(), ctx.dim, ctx.tp), None, None
 
 
+WEIGHT_CAST = "model.weight_cast_bytes"
+
+
+def cast_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A float32 parameter (or this rank's shard of one) in ``dtype`` for
+    one use; a cast's bytes read are added to the trace's
+    ``model.weight_cast_bytes`` counter."""
+    if w.dtype == dtype:
+        return w
+    trace.count(WEIGHT_CAST, w.nbytes)
+    return w.to(dtype)
+
+
 class _GatherWeight(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w, dim, dtype, tp, partial):
         ctx.dim, ctx.tp, ctx.partial = dim, tp, partial
         _count("gather_weight", True)
-        return _all_gather(w.to(dtype), dim, tp)
+        return _all_gather(cast_weight(w, dtype), dim, tp)
 
     @staticmethod
     def backward(ctx, g):

@@ -64,14 +64,15 @@ from __future__ import annotations
 
 import copy
 import functools
+import itertools
 import math
 from typing import Optional
 
 import torch
 import torch.distributed as dist
 from torch import nn
-from torch.profiler import record_function
 
+from .. import trace
 from ..kernels.build import PlanError
 from ..models.convert import reference_path
 from ..models.layers import heads_split
@@ -123,10 +124,10 @@ def accumulate_grads(params: Model, batch: dict, cfg: ArchConfig):
             p.grad = None
         for i in range(n):
             rows = slice(i * (b // n), (i + 1) * (b // n))
-            with record_function("train.forward"):
+            with trace.span("train.forward"):
                 loss = loss_fn(params, {k: t[rows] for k, t in
                                         batch.items()}, cfg)
-            with record_function("train.backward"):
+            with trace.span("train.backward"):
                 torch.autograd.backward(loss, inputs=list(named.values()))
             lsum = lsum + loss.detach()
         inv = 1.0 / n
@@ -429,6 +430,18 @@ def _global_norm(shards: dict, specs: dict, ctx: MeshContext) -> torch.Tensor:
                           for axes, sq in groups.items()))
 
 
+def _spanned_step(step):
+    """``step`` with each call a ``train.step`` span, timed on the device
+    too, its attribute ``step`` the call's index."""
+    calls = itertools.count()
+
+    @functools.wraps(step)
+    def call(*args):
+        with trace.span("train.step", device=True, step=next(calls)):
+            return step(*args)
+    return call
+
+
 def make_train_step(cfg: ArchConfig, opt: Optional[AdamW] = None,
                     grad_compress: bool = False, *,
                     ctx: Optional[MeshContext] = None):
@@ -439,18 +452,19 @@ def make_train_step(cfg: ArchConfig, opt: Optional[AdamW] = None,
     ``step`` as 0-d device tensors.  The parameters, the optimizer state
     and the residuals are updated in place.  ``ctx=None`` is the
     one-device step, where ``grad_compress`` has no cross-pod hop to
-    compress and gives the same plain step."""
+    compress and gives the same plain step.  Each call is a ``train.step``
+    span (``trace``)."""
     opt = opt or AdamW()
     if ctx is None:
         def train_step(params: Model, opt_state: AdamWState, batch: dict):
             loss, grads = accumulate_grads(params, batch, cfg)
-            with record_function("train.optimizer"):
+            with trace.span("train.optimizer"):
                 params, new_state, gnorm = opt.update(grads, opt_state,
                                                       params)
             metrics = {"loss": loss.float(), "grad_norm": gnorm.float(),
                        "step": new_state.step}
             return params, new_state, metrics
-        return train_step
+        return _spanned_step(train_step)
 
     # vlm's loss is a sum over rows divided by one row's count
     mean = cfg.family != "vlm"
@@ -475,7 +489,7 @@ def make_train_step(cfg: ArchConfig, opt: Optional[AdamW] = None,
         with mesh_context(ctx):
             loss, grads = accumulate_grads(_working(params, cfg, ctx),
                                            _select(batch, rows), cfg)
-        with record_function("train.reduce"):
+        with trace.span("train.reduce"):
             loss = loss.float().clone()
             for g in (loss, *grads.values()):
                 _all_reduce(g, ctx, inner)
@@ -490,7 +504,7 @@ def make_train_step(cfg: ArchConfig, opt: Optional[AdamW] = None,
                 step=opt_state.step,
                 m={k: local(v) for k, v in opt_state.m.items()},
                 v={k: local(v) for k, v in opt_state.v.items()})
-            with record_function("train.optimizer"):
+            with trace.span("train.optimizer"):
                 _, new_state, gnorm = opt.update(
                     shards, local_state,
                     {k: local(p) for k, p in named.items()}, gnorm=gnorm)
@@ -507,7 +521,7 @@ def make_train_step(cfg: ArchConfig, opt: Optional[AdamW] = None,
             metrics = {"loss": loss, "grad_norm": gnorm.float(),
                        "step": state.step}
             return params, state, metrics
-        return train_step_dp
+        return _spanned_step(train_step_dp)
 
     def train_step_c(params: Model, opt_state: AdamWState, ef: dict,
                      batch: dict):
@@ -517,7 +531,7 @@ def make_train_step(cfg: ArchConfig, opt: Optional[AdamW] = None,
         # a scale per reference leaf: a stack's layers share theirs
         leaf = {k: reference_path(k) for k in named}
         slot = {path: i for i, path in enumerate(sorted(set(leaf.values())))}
-        with torch.no_grad(), record_function("train.compress"):
+        with torch.no_grad(), trace.span("train.compress"):
             _all_reduce(loss, ctx, ("pod",))
             loss.div_(npods)                              # pod mean
             grads = {k: _shard_of(grads.pop(k), p, work_specs[k], cfg,
@@ -550,7 +564,7 @@ def make_train_step(cfg: ArchConfig, opt: Optional[AdamW] = None,
         metrics = {"loss": loss, "grad_norm": gnorm.float(),
                    "step": state.step}
         return params, state, ef, metrics
-    return train_step_c
+    return _spanned_step(train_step_c)
 
 
 def make_eval_step(cfg: ArchConfig, ctx: Optional[MeshContext] = None):

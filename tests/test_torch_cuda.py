@@ -916,6 +916,40 @@ def test_cuda_smoke_train_step_matches_cpu(cuda_device, arch):
         assert _rel(out[0][1][name].cpu(), p) <= 2 ** 0.5 * bound, name
 
 
+def test_cuda_trace_device_spans(cuda_device):
+    """A SMOKE-size remat train step of InternLM2's shape with tracing on
+    (``repro_torch.trace``): the device spans resolve to positive
+    milliseconds, the attention backward's sum is at most the step's, and
+    the spans opened on the autograd engine's device thread (the flash
+    backward, remat's recompute) nest under ``train.backward``."""
+    import dataclasses
+    from repro_torch import trace
+    cfg = dataclasses.replace(configs.smoke("internlm2_1_8b"), remat=True)
+    model = init_params(cfg, torch.Generator().manual_seed(0), cuda_device,
+                        trainable=True)
+    toks = torch.randint(0, cfg.vocab, (2, 65),
+                         generator=torch.Generator().manual_seed(2))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    opt = AdamW(lr=1e-3)
+    trace.clear()
+    trace.enable()
+    try:
+        make_train_step(cfg, opt)(model, opt.init(model), batch)
+        spans = trace.spans()
+    finally:
+        trace.disable()
+        trace.clear()
+    step, = [s for s in spans if s.name == "train.step"]
+    bwd, = [s for s in spans if s.name == "train.backward"]
+    attn = [s for s in spans if s.name == "attn.backward"]
+    assert len(attn) == cfg.n_layers
+    assert step.device_ms > 0 and all(a.device_ms > 0 for a in attn)
+    assert sum(a.device_ms for a in attn) <= step.device_ms
+    assert all(a.parent == bwd.id and a.thread != bwd.thread for a in attn)
+    assert sum(s.name == "model.block" and s.parent == bwd.id
+               for s in spans) == cfg.n_layers
+
+
 def test_cuda_nccl_compressed_step_matches_cpu_gloo(cuda_device, tmp_path):
     """One compressed train step (``grad_compress=True``) of InternLM2's
     SMOKE config on a one-rank NCCL mesh (pod, data, model) = (1, 1, 1),
