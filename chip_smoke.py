@@ -143,19 +143,23 @@ Phases, each of which raises on failure:
     checked out by ``gather_row_tiles``), batches of 8 × 256, AdamW (lr
     3e-4, cosine, warmup 10).  Step 0's loss and every gradient through
     the kernels against the same step with the plain flash version on
-    the card (``step0_check``: the loss within ``prefill_bound``, each
-    leaf within sqrt(2) times it); 6 uninterrupted steps; an interrupted
+    the card, forward and backward (``step0_check``: the loss within
+    ``prefill_bound``, each leaf within sqrt(2) times it); 6
+    uninterrupted steps; an interrupted
     run: 3 steps, a full-size ``CheckpointStore.save``, the trainer and
     the store dropped, the store reopened, ``restore_or_init`` (through
     ``resume_latest(device="cuda")``) bit-exact against the saved
     parameters at cursor 3, 3 more steps on a fresh AdamW: the resumed
     batches equal the uninterrupted run's steps 3-5, its first losses
     equal within ``RERUN_LOSS_RTOL``, every loss and grad norm finite;
-    48 flash launches a step (the forward and remat's recompute); then a
-    torch.profiler step (forward, backward, optimizer ranges; the flash
-    kernel's share) and the flash Function's halves at the training
-    shape (the forward kernel, the plain-torch backward, SDPA's forward
-    and backward);
+    48 flash launches a step (the forward and remat's recompute) and 24
+    of the backward kernel; then a torch.profiler step (forward,
+    backward, optimizer ranges; the flash kernel's share) and the flash
+    Function's halves at the training shape and at the train-4k cell's
+    call: the backward kernel's dq, dk and dv against the plain-torch
+    backward's (``ops._flash_bwd``) on the same inputs within
+    ``BWD_TOL`` relative L2, and its time beside the forward kernel's,
+    the plain backward's and SDPA's backward;
 19. SSM training — Mamba2-780M as its config gives it (48 layers,
     d_model 1536, N 128, P 64, chunk 256, 2 microbatches; 0.78 B
     parameters), the same traffic, step 0 against the plain ``ssd_scan``
@@ -324,8 +328,12 @@ kernel's launch count to 0 just before they drive their path and read the
 counts just after; launches made to compare or time a kernel fall outside
 those windows, and so do phase 23's.
 The kernels line's ``flash_attention`` launches are the sum over the
-model paths (phases 11, 15-18, 20, 21 and 24-27), ``ssd_scan``'s over
-phases 11, 19, 26 and 27, and ``gather_row_tiles``'s over phases 5, 18 and 19.
+model paths (phases 11, 15-18, 20, 21 and 24-27), ``flash_backward``'s
+over the training phases (18, 19, 24 and 25; phase 18 alone is held to
+its count), ``ssd_scan``'s over phases 11, 19, 26 and 27, and
+``gather_row_tiles``'s over phases 5, 18 and 19.  ``flash_backward``
+replaces no TPU kernel (the reference's backward is jnp): its row's
+times are phase 18's at the train-4k cell's call.
 TF32 is off (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` False): the float32 plain versions
 compare in full float32.
@@ -371,7 +379,13 @@ KERNELS = {
                         "src/repro/kernels/flash_attention.py:101"),
     "ssd_scan": ("ssd_scan", "src/repro/kernels/ssd_scan.py:88"),
 }
-SOURCES = sorted({lib for lib, _ in KERNELS.values()})
+# the libraries to build: the kernels' and the flash backward's, which
+# replaces no TPU kernel (the reference's backward is jnp)
+SOURCES = sorted({lib for lib, _ in KERNELS.values()} | {"flash_backward"})
+# the backward kernel against the plain float32 backward on the same
+# inputs, relative L2 of dq, dk and dv: the card tests' bf16 GRAD_TOL
+# (its P enters dv's product as bf16, and the outputs round to bf16)
+BWD_TOL = 2 * 2.0 ** -8
 FP32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12         # H100 SXM bf16 on the tensor cores, dense
 DATASET_VERSIONS = 64    # tiled checkouts in the dataset phase
@@ -513,7 +527,8 @@ def launch_counts() -> dict:
     return {"checkout_wave": cb.LAUNCHES, "segment_append": sa.LAUNCHES,
             "segment_move": sm.LAUNCHES, **cg.LAUNCHES,
             "membership_scan": vm.LAUNCHES, "version_aggregate": va.LAUNCHES,
-            "flash_attention": fa.LAUNCHES, "ssd_scan": ss.LAUNCHES}
+            "flash_attention": fa.LAUNCHES,
+            "flash_backward": fa.BWD_LAUNCHES, "ssd_scan": ss.LAUNCHES}
 
 
 def zero_launch_counts() -> None:
@@ -524,7 +539,7 @@ def zero_launch_counts() -> None:
                                      ssd_scan as ss, version_agg as va,
                                      vlist_membership as vm)
     cb.LAUNCHES = sa.LAUNCHES = sm.LAUNCHES = vm.LAUNCHES = va.LAUNCHES = 0
-    fa.LAUNCHES = ss.LAUNCHES = 0
+    fa.LAUNCHES = fa.BWD_LAUNCHES = ss.LAUNCHES = 0
     for k in cg.LAUNCHES:
         cg.LAUNCHES[k] = 0
 
@@ -2615,8 +2630,9 @@ def phase_model_timing(torch, captured: dict, report: dict) -> dict:
     causal mask keeps; C Bᵀ once per (batch, chunk) and the lower triangle
     of each chunk for the scan."""
     from repro_torch.kernels import ssd_scan as ss
+    # the prefill's launch: q, k, v, causal and its lse (None, no grad)
     out = {"flash_attention": flash_timing(
-        torch, *captured["flash_attention"])}
+        torch, *captured["flash_attention"][:4])}
     xs, bm, cm, dt, a, chunk = captured["ssd_scan"]
     y, st = ss._launch(xs, bm, cm, dt, a, chunk)
     y_want, st_want = ss.ssd_scan_plain(xs, bm, cm, dt, a, chunk)
@@ -3293,22 +3309,27 @@ def capture_flash_kinds(torch, captured: dict):
         return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype,
                                    device=x.device).copy_(x)
 
-    def launch(q, k, v, causal):
+    def launch(q, k, v, causal, lse=None):
         kind = (q.shape[1], k.shape[1], bool(causal))
         if kind not in captured:
             captured[kind] = [copy(q), copy(k), copy(v), causal]
-        return real(q, k, v, causal)
+        return real(q, k, v, causal, lse)
     fa._launch = launch
     return real
 
 
 def plain_flash(torch):
     """A context in which ``ops.flash_attention`` runs flash's plain
-    version on the card (the comparison's plain path)."""
+    version on the card, forward and backward (the comparison's plain
+    path): ``fa.flash_attention`` is the one name of every forward launch,
+    with the lse or without, and with no lse from it the backward is the
+    plain ``ops._flash_bwd``."""
     from repro_torch.kernels import flash_attention as fa
-    return swap_plain(fa, "flash_attention",
-                      lambda q, k, v, causal=True: fa.flash_attention_plain(
-                          q, k, v, causal))
+
+    def plain(q, k, v, causal=True, lse=False):
+        out = fa.flash_attention_plain(q, k, v, causal)
+        return (out, None) if lse else out
+    return swap_plain(fa, "flash_attention", plain)
 
 
 def phase_encdec_serve(torch, seed: int, report: dict) -> dict:
@@ -3789,52 +3810,94 @@ def train_profile(torch, cfg, model, ds, vid, seed: int, label: str) -> dict:
     return out
 
 
+BWD_CELL_SHAPE = (8, 4096, 16, 8, 128)   # the train-4k cell's call
+
+
 def flash_backward_timing(torch, seed: int) -> dict:
     """The flash Function's two halves at the training shape (InternLM2's
-    attention: B 8, S 256, 16 / 8 heads of 128, bf16, causal): the forward
-    kernel's launch, the plain-torch backward (``ops._flash_bwd``, its lse
-    stream included) and the plain forward, beside
-    ``scaled_dot_product_attention``'s forward + backward through
-    autograd (CUDA events)."""
+    attention: B 8, S 256, 16 / 8 heads of 128, bf16, causal) and at the
+    train-4k cell's call (``BWD_CELL_SHAPE``): the backward kernel's dq,
+    dk and dv (``fa.flash_backward``) against the plain-torch backward's
+    (``ops._flash_bwd``, float32) from the same q, k, v, o, dO within
+    ``BWD_TOL`` relative L2 each, or the phase fails; then the forward
+    kernel's launch (with the lse it writes for the backward), the
+    backward kernel beside its bound, the plain backward (its lse stream
+    included), and ``scaled_dot_product_attention``'s backward through
+    autograd (CUDA events; the library's time, a yardstick the port never
+    calls)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
-    cfg_shape = (TRAIN_BATCH, TRAIN_SEQ, 16, 8, 128)
-    b, s, h, hkv, dh = cfg_shape
-    gen = torch.Generator(device=DEVICE).manual_seed(seed + 5)
-    q, k, v, do = (torch.randn(shape, generator=gen, device=DEVICE,
-                               dtype=torch.bfloat16)
-                   for shape in ((b, s, h, dh), (b, s, hkv, dh),
-                                 (b, s, hkv, dh), (b, s, h, dh)))
-    o = fa._launch(q, k, v, True)
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
-                  for x in (q, k, v))
 
-    def sdpa_fwd_bwd():
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                             enable_gqa=True)
-        torch.autograd.grad(out, (qt, kt, vt), do.transpose(1, 2))
+    def one(shape, plain_reps: int) -> dict:
+        b, s, h, hkv, dh = shape
+        gen = torch.Generator(device=DEVICE).manual_seed(seed + 5)
+        q, k, v, do = (torch.randn(sh, generator=gen, device=DEVICE,
+                                   dtype=torch.bfloat16)
+                       for sh in ((b, s, h, dh), (b, s, hkv, dh),
+                                  (b, s, hkv, dh), (b, s, h, dh)))
+        o, lse = fa.flash_attention(q, k, v, True, lse=True)
+        before = fa.BWD_LAUNCHES
+        got = fa.flash_backward(q, k, v, o, do, lse, True)
+        launches = fa.BWD_LAUNCHES - before
+        want = ops._flash_bwd(q, k, v, o, do, True)
+        rel = {n: float((g.float() - w.float()).norm() / w.float().norm())
+               for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+        del got, want
+        if launches != 1 or max(rel.values()) > BWD_TOL:
+            raise AssertionError(f"flash backward at {list(shape)}: "
+                                 f"{launches} launches, rel L2 {rel} "
+                                 f"(bound {BWD_TOL})")
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=True)
+        pairs = s * (s + 1) // 2
+        out = {"shape": list(shape), "dtype": "torch.bfloat16",
+               "launches": launches, "rel_l2_vs_plain": rel,
+               "max_abs_err": err, "rel_l2_bound": BWD_TOL,
+               "forward_kernel_ms": cuda_ms(torch, lambda: fa._launch(
+                   q, k, v, True), 10),
+               "forward_lse_ms": cuda_ms(torch, lambda: fa.flash_attention(
+                   q, k, v, True, lse=True), 10),
+               "backward_kernel_ms": cuda_ms(torch, lambda: fa.flash_backward(
+                   q, k, v, o, do, lse, True), 10),
+               "backward_plain_ms": cuda_ms(torch, lambda: ops._flash_bwd(
+                   q, k, v, o, do, True), plain_reps),
+               "library_bwd_ms": cuda_ms(torch, lambda: torch.autograd.grad(
+                   lib_out, (qt, kt, vt), do.transpose(1, 2),
+                   retain_graph=True), 10),
+               # the kernel's five products over the pairs the mask keeps
+               "backward_operations": 10 * b * h * dh * pairs,
+               # q, k, v, o, dO read, dq, dk, dv written, the lse and delta
+               "backward_bytes": 2 * (4 * b * s * h * dh + 4 * b * s * hkv
+                                      * dh) + 8 * b * h * s}
+        ops_ms = 1e3 * out["backward_operations"] / BF16_OPS_PER_S
+        bytes_ms = 1e3 * out["backward_bytes"] / HBM_BYTES_PER_S
+        out["backward_bound_ms"] = max(ops_ms, bytes_ms)
+        out["backward_bound_by"] = "bytes" if bytes_ms >= ops_ms else \
+            "operations"
+        out["backward_roofline_pct"] = 100 * out["backward_bound_ms"] / \
+            out["backward_kernel_ms"]
+        out["backward_over_forward"] = (out["backward_kernel_ms"]
+                                        / out["forward_kernel_ms"])
+        rels = ", ".join(f"{n} {r:.2e}" for n, r in rel.items())
+        print(f"flash at {list(shape)} bf16: backward kernel vs the plain "
+              f"backward rel L2 {rels} (bound {BWD_TOL:.2e}), max abs "
+              f"{err:.3e}; forward kernel "
+              f"{out['forward_kernel_ms']:.4f} ms (with the lse "
+              f"{out['forward_lse_ms']:.4f}), backward kernel "
+              f"{out['backward_kernel_ms']:.4f} ms (bound "
+              f"{out['backward_bound_ms']:.4f}, "
+              f"{out['backward_roofline_pct']:.1f}%), plain-torch backward "
+              f"{out['backward_plain_ms']:.4f} ms, scaled_dot_product_"
+              f"attention backward {out['library_bwd_ms']:.4f} ms")
+        return out
 
-    pairs = s * (s + 1) // 2
-    out = {"shape": list(cfg_shape), "dtype": "torch.bfloat16",
-           "forward_kernel_ms": cuda_ms(torch, lambda: fa._launch(
-               q, k, v, True), 10),
-           "backward_plain_ms": cuda_ms(torch, lambda: ops._flash_bwd(
-               q, k, v, o, do, True), 5),
-           "forward_plain_ms": cuda_ms(torch, lambda: fa.flash_attention_plain(
-               q, k, v, True), 5),
-           "library_fwd_bwd_ms": cuda_ms(torch, sdpa_fwd_bwd, 10),
-           # the backward's products: lse's q·kᵀ, then q·kᵀ, do·vᵀ, dq,
-           # dk and dv (the (query, key) pairs the mask keeps)
-           "backward_operations": 12 * b * h * dh * pairs}
-    out["backward_over_forward"] = (out["backward_plain_ms"]
-                                    / out["forward_kernel_ms"])
-    print(f"flash at the training shape {list(cfg_shape)} bf16: forward "
-          f"kernel {out['forward_kernel_ms']:.4f} ms, plain-torch backward "
-          f"{out['backward_plain_ms']:.4f} ms "
-          f"({out['backward_over_forward']:.1f}x the forward), plain forward "
-          f"{out['forward_plain_ms']:.4f} ms, scaled_dot_product_attention "
-          f"forward + backward {out['library_fwd_bwd_ms']:.4f} ms")
+    out = one((TRAIN_BATCH, TRAIN_SEQ, 16, 8, 128), 5)
+    out["cell"] = one(BWD_CELL_SHAPE, 2)
     return out
 
 
@@ -3925,10 +3988,12 @@ def phase_train_dense(torch, np, seed: int, report: dict) -> None:
     n_steps = TRAIN_STEPS + TRAIN_PREEMPT + len(second["losses"])
     want = n_steps * cfg.n_layers * (2 if cfg.remat else 1)
     if (launches["flash_attention"] != want or launches["ssd_scan"]
+            or launches["flash_backward"] != n_steps * cfg.n_layers
             or launches["gather_row_tiles"] < 3):
         raise AssertionError(f"training launches {launches}, expected "
                              f"{want} flash_attention (the forward and "
-                             f"remat's recompute of {n_steps} steps)")
+                             f"remat's recompute of {n_steps} steps) and "
+                             f"{n_steps * cfg.n_layers} flash_backward")
     profile = train_profile(torch, cfg, model, ds, vid, seed,
                             "train_internlm2")
     del model
@@ -5128,10 +5193,10 @@ def capture_first_calls(torch, seen: dict):
     def spec(*ts):
         return [(tuple(t.shape), str(t.dtype)) for t in ts]
 
-    def flash(q, k, v, causal):
+    def flash(q, k, v, causal, lse=None):
         seen.setdefault("flash_attention", {"operands": spec(q, k, v),
                                             "causal": bool(causal)})
-        return real_fa(q, k, v, causal)
+        return real_fa(q, k, v, causal, lse)
 
     def ssd(xs, bmat, cmat, dt, a, chunk):
         seen.setdefault("ssd_scan", {"operands": spec(xs, bmat, cmat, dt, a),
@@ -5505,6 +5570,18 @@ def main(argv=None) -> int:
                                        "plain_ms", "bound_ms", "bound_by",
                                        "library_ms")}}
         for name, (lib, replaces) in KERNELS.items()]}
+    bwd = report["train_dense"]["flash_backward"]["cell"]
+    kernels["kernels"].append({
+        "name": "flash_backward", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_backward.cu",
+        "replaces": "none: the reference's backward is jnp "
+                    "(src/repro/kernels/ops.py _flash_bwd_rule)",
+        "launches": sum(t.get("flash_backward", 0) for t in train),
+        "max_abs_err": bwd["max_abs_err"], "ms": bwd["backward_kernel_ms"],
+        "plain_ms": bwd["backward_plain_ms"],
+        "bound_ms": bwd["backward_bound_ms"],
+        "bound_by": bwd["backward_bound_by"],
+        "library_ms": bwd["library_bwd_ms"]})
     if any(k["launches"] <= 0 for k in kernels["kernels"]):
         raise AssertionError(f"a kernel was not launched on its path: "
                              f"{kernels}")

@@ -30,7 +30,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-HEADERS = ("tile_launch.cuh",)   # included by the sources; part of each digest
+# included by the sources; part of each digest
+HEADERS = ("tile_launch.cuh", "flash_wgmma.cuh")
 
 BUILD_LOG: dict[str, str] = {}         # name -> nvcc/ptxas output
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -123,8 +124,11 @@ def load(name: str) -> ctypes.CDLL:
 # scan (``csrc/membership_scan.cu``): the bitmap, two outputs, R, W, the row
 # and word strides in elements, BR, vid and the stream.  Flash attention
 # (``csrc/flash_attention.cu``):
-# q, k, v, out, then B, Sq, Sk, H, Hkv, the q·k width Dqk, v's width Dv,
-# v's row pitch, causal, dtype (0 float32, 1 bfloat16) and the stream.  The
+# q, k, v, out, the row lse (or null), then B, Sq, Sk, H, Hkv, the q·k width
+# Dqk, v's width Dv, v's row pitch, causal, dtype (0 float32, 1 bfloat16) and
+# the stream.  Its backward (``csrc/flash_backward.cu``): q, k, v, o, dO,
+# lse, dq, dk, dv, the dq workspace and delta, then B, Sq, Sk, H, Hkv, Dh,
+# causal and the stream.  The
 # SSD scan (``csrc/ssd_scan.cu``): xs, B, C, dt, a, y, the final state, the
 # bf16 scratch (chunk states, decays), then B, L, H, P, N, Q, dtype and the
 # stream.
@@ -138,7 +142,8 @@ MEMBERSHIP_ARGS = ([ctypes.c_void_p] * 3
                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
-FLASH_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+FLASH_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+FLASH_BWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 SSD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
@@ -195,6 +200,35 @@ def flash_instance_fn():
     and bound on first use."""
     return _bind("flash_attention", "flash_attention_instance",
                  [ctypes.c_int] * 3)
+
+
+@functools.lru_cache(maxsize=None)
+def flash_bwd_fn():
+    """``flash_backward_launch``, built and bound on first use
+    (``FLASH_BWD_ARGS``)."""
+    return _bind("flash_backward", "flash_backward_launch", FLASH_BWD_ARGS)
+
+
+@functools.lru_cache(maxsize=None)
+def flash_bwd_instance_fn():
+    """``flash_backward_instance`` (Dqk, Dv, dtype -> 1 where the backward
+    kernel takes these widths and dtype, else 0), built and bound on first
+    use."""
+    return _bind("flash_backward", "flash_backward_instance",
+                 [ctypes.c_int] * 3)
+
+
+@functools.lru_cache(maxsize=None)
+def flash_bwd_layout_fns():
+    """``flash_backward_lse_pitch`` (Sq -> the row pitch of the float32 lse
+    and delta) and ``flash_backward_workspace`` (B, H, Sq, Dh -> the dq
+    workspace's float32 elements), built and bound on first use: the
+    backward's source owns the layout its launch reads."""
+    pitch = _bind("flash_backward", "flash_backward_lse_pitch", [ctypes.c_int])
+    ws = _bind("flash_backward", "flash_backward_workspace",
+               [ctypes.c_int] * 4)
+    ws.restype = ctypes.c_longlong
+    return pitch, ws
 
 
 @functools.lru_cache(maxsize=None)

@@ -34,6 +34,16 @@ bits); the JAX package's model code rounds them to bf16 first.  Sums run
 in other orders in each, so a bf16 model agrees with the reference within
 bf16's rounding, not bit for bit.
 
+The backward (``flash_backward``, ``csrc/flash_backward.cu``) is a
+kernel too where ``takes_backward`` holds: CUDA bf16 at (Dh, Dh), Dh a
+multiple of 16 up to 128.  It reads the row logsumexp that
+``flash_attention(..., lse=True)``'s one forward launch writes beside its
+output (the wgmma instance's final row max and sum; float32, (B, H, Sq)
+rows padded to ``lse_pitch(Sq)``), so that the one name covers every
+forward launch, with the lse or without.  The backward's source owns its
+layout (the lse's pitch, the dq workspace's size).  ``BWD_LAUNCHES``
+counts its launches.
+
 Any Sq and Sk: the kernel masks the ragged last tiles, so the port serves
 every length the reference's ``forward`` serves (the TPU kernel needs
 multiples of its 128-row tiles).  Dqk is at most 256, the widest the
@@ -53,9 +63,10 @@ from .build import PlanError
 MAX_HEAD_DIM = 256
 NEG_INF = -1e30
 
-# CUDA launches of ``flash_attention`` in this process; the plain torch
-# version never counts
+# CUDA launches of ``flash_attention`` and of ``flash_backward`` in this
+# process; the plain torch versions never count
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -113,24 +124,101 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, lse: bool = False):
     """(B, Sq, H, Dv) attention output on q's device, ONE launch: the CUDA
-    kernel for a CUDA tensor, the plain version for a CPU or meta
-    tensor."""
+    kernel for a CUDA tensor, the plain version for a CPU or meta tensor.
+    With ``lse``, (out, lse): where ``takes_backward`` holds, the same
+    launch writes each row's natural-log logsumexp beside the output for
+    the backward kernel (float32 (B, H, Sq), its rows ``lse_pitch(Sq)``
+    apart); elsewhere lse is None and the backward stays plain."""
     check_operands(q, k, v)
     if q.device.type in ("cpu", "meta"):
-        return plain_kernel(flash_attention_plain, q.dtype, q, k, v, causal)
+        out = plain_kernel(flash_attention_plain, q.dtype, q, k, v, causal)
+        return (out, None) if lse else out
     if q.device.type != "cuda":
         raise PlanError(f"flash_attention runs on cuda, cpu or meta, not "
                         f"{q.device}")
+    rows = None
+    if lse and takes_backward(q, k, v):
+        b, sq, h, _ = q.shape
+        rows = torch.empty((b, h, lse_pitch(sq)), dtype=torch.float32,
+                           device=q.device)
     dv = v.shape[3]
     code, padded = _plan(q, v)
     if padded:
         # no instance takes this v as it is: zero-padded to q's width
         v = torch.nn.functional.pad(v, (0, q.shape[3] - dv))
     v = _v_operand(v) if INSTANCES[code] == "wgmma" else _aligned(v)
-    out = _launch(_aligned(q), _aligned(k), v, causal)
-    return out[..., :dv] if padded else out
+    out = _launch(_aligned(q), _aligned(k), v, causal, rows)
+    out = out[..., :dv] if padded else out
+    if not lse:
+        return out
+    return out, None if rows is None else rows[..., :q.shape[1]]
+
+
+def lse_pitch(sq: int) -> int:
+    """The row pitch of the (B, H, Sq) float32 lse and delta, as the
+    backward's library gives it (``flash_backward_lse_pitch``: each row
+    starts on 16 bytes, as TMA reads it)."""
+    return build.flash_bwd_layout_fns()[0](sq)
+
+
+def takes_backward(q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor) -> bool:
+    """Whether ``flash_backward`` takes these operands: CUDA tensors in
+    bfloat16 at widths the backward kernel takes (its library's
+    ``flash_backward_instance``: (Dh, Dh), Dh a multiple of 16 up to 128).
+    Everything else keeps the plain backward, on the card too."""
+    return (q.device.type == "cuda" and q.dtype == torch.bfloat16
+            and _bwd_widths(q.shape[3], v.shape[3], _DTYPES[q.dtype]))
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_widths(dqk: int, dv: int, dt: int) -> bool:
+    return bool(build.flash_bwd_instance_fn()(dqk, dv, dt))
+
+
+def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                   causal: bool = True):
+    """(dq, dk, dv) of ``flash_attention`` at (q, k, v) with output ``o``
+    and cotangent ``do``, in ONE counted launch of the backward kernel
+    (``csrc/flash_backward.cu``: delta, the products, dq's conversion),
+    from the lse ``flash_attention(..., lse=True)`` wrote.  The outputs
+    and the float32 workspace and delta are allocated here, at the sizes
+    the library gives; nothing else runs in torch.  For operands
+    ``takes_backward`` accepts."""
+    global BWD_LAUNCHES
+    check_operands(q, k, v)
+    b, sq, h, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if not takes_backward(q, k, v) or o.shape != q.shape \
+            or do.shape != q.shape or o.dtype != q.dtype \
+            or do.dtype != q.dtype or lse.shape != (b, h, sq) \
+            or lse.dtype != torch.float32 \
+            or lse.stride() != (h * lse_pitch(sq), lse_pitch(sq), 1):
+        raise PlanError(f"flash_backward takes CUDA bf16 (Dh, Dh) operands, "
+                        f"o and do of q's shape and dtype and the lse "
+                        f"flash_attention wrote; got q {tuple(q.shape)} "
+                        f"{q.dtype}, o {tuple(o.shape)}, do "
+                        f"{tuple(do.shape)}, lse {tuple(lse.shape)} "
+                        f"{lse.dtype}")
+    q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    ws = torch.empty(build.flash_bwd_layout_fns()[1](b, h, sq, dh),
+                     dtype=torch.float32, device=q.device)
+    delta = torch.empty((b, h, lse_pitch(sq)), dtype=torch.float32,
+                        device=q.device)
+    fn = build.flash_bwd_fn()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), ws.data_ptr(), delta.data_ptr(), b, sq, sk, h,
+                 hkv, dh, int(causal), stream)
+    build.check_launch(err, "flash_backward")
+    BWD_LAUNCHES += 1
+    return dq, dk, dv
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -196,12 +284,14 @@ def instance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool) -> torch.Tensor:
+            causal: bool, lse: torch.Tensor | None = None) -> torch.Tensor:
     """One counted CUDA launch on contiguous (B, S, H, Dqk) q and k and a v
     with evenly spaced rows (``v_pitch``; contiguous but for the wgmma
     instance, or the entry point refuses it), all starting on 16-byte
     boundaries, at widths an instance takes as they are (``chip_smoke.py``
-    times the kernel through this)."""
+    times the kernel through this).  A float32 (B, H, lse_pitch(Sq))
+    ``lse`` gets the rows' logsumexp (the wgmma instance alone writes it;
+    the entry point refuses it for another)."""
     global LAUNCHES
     check_operands(q, k, v)
     ld = v_pitch(v)
@@ -216,6 +306,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if lse is None else lse.data_ptr(),
                  b, sq, sk, h, hkv, dqk, dv, ld, int(causal),
                  _DTYPES[q.dtype], stream)
     build.check_launch(err, "flash_attention")

@@ -294,7 +294,9 @@ def version_aggregate(bitmap, values, *, block_r: int = _va.DEFAULT_BR,
 # ------------------------------------------------------------------------
 # the differentiable model kernels: the hand-written kernel is the forward
 # on the card (the plain version on the CPU), as in the reference, whose
-# Pallas kernels are forward-only and whose backward passes are jnp
+# Pallas kernels are forward-only and whose backward passes are jnp; the
+# flash backward is a hand-written kernel too on the card where it takes
+# the operands
 # ------------------------------------------------------------------------
 LSE_BLOCK_K = 512       # key block of the streamed lse and the backward
 
@@ -374,33 +376,56 @@ def _flash_bwd(q, k, v, o, do, causal: bool, block_k: int = LSE_BLOCK_K):
 
 class _FlashAttention(torch.autograd.Function):
     """Forward: ``flash_attention``'s one launch (the CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor), saving (q, k, v, o).
-    Backward: ``_flash_bwd`` in plain torch, with the row lse streamed from
-    (q, k) there (the reference's forward rule computes it; under remat the
-    forward runs twice a step and the lse is needed once), an
-    ``attn.backward`` span timed on the device."""
+    tensor, the plain version for a CPU or meta tensor), saving (q, k, v,
+    o) and, where ``want_lse`` and the backward kernel takes the operands
+    (``flash_attention.takes_backward``: CUDA bf16 at (Dh, Dh), Dh a
+    multiple of 16 up to 128), the row lse the same launch writes
+    (``flash_attention(..., lse=True)``, the one name of every forward
+    launch; under remat the recompute's forward writes it again, as it
+    makes o).  Backward, inside an ``attn.backward`` span
+    timed on the device: with the lse, the backward kernel's one launch
+    (``flash_attention.flash_backward``, path "kernel"); without, the
+    reference's rule in plain torch (``_flash_bwd``, its lse streamed from
+    (q, k), path "plain").  The span's attributes are the path and the
+    call's shape."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        o = _fa.flash_attention(q, k, v, causal)
+    def forward(ctx, q, k, v, causal, want_lse):
+        if want_lse:
+            o, lse = _fa.flash_attention(q, k, v, causal, lse=True)
+        else:
+            o, lse = _fa.flash_attention(q, k, v, causal), None
         ctx.causal = causal
-        ctx.save_for_backward(q, k, v, o)
+        ctx.save_for_backward(q, k, v, o, lse)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        with attn_core, trace.span("attn.backward", device=True):
-            return (*replay(_flash_bwd, q, k, v, o, do, ctx.causal), None)
+        q, k, v, o, lse = ctx.saved_tensors
+        b, sq, h, dqk = q.shape
+        with attn_core, trace.span(
+                "attn.backward", device=True,
+                path="plain" if lse is None else "kernel", b=b, sq=sq,
+                sk=k.shape[1], h=h, hkv=k.shape[2], dqk=dqk, dv=v.shape[3],
+                causal=bool(ctx.causal)):
+            if lse is None:
+                grads = replay(_flash_bwd, q, k, v, o, do, ctx.causal)
+            else:
+                grads = _fa.flash_backward(q, k, v, o, do, lse, ctx.causal)
+        return (*grads, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """Differentiable flash attention, (B, Sq, H, Dv) on q's device: the
-    kernel's forward (``kernels.flash_attention``) and the reference's
-    blockwise backward.  The kernel stays the only forward on the card,
-    with gradients on or off."""
-    return _FlashAttention.apply(q, k, v, causal)
+    kernel's forward (``kernels.flash_attention``) and the backward
+    kernel where it takes the operands, else the reference's blockwise
+    backward in plain torch.  The kernel stays the only forward on the
+    card, with gradients on or off; it writes the lse only when grad is
+    enabled and an input requires it."""
+    want_lse = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+    return _FlashAttention.apply(q, k, v, causal, want_lse)
 
 
 class _SSDScan(torch.autograd.Function):

@@ -44,8 +44,10 @@ The spans and counters placed in the program, each with what reads it
   step): ``attn_backward_pct.train``, ``weight_cast_gb.train``;
 - ``train.forward``, ``train.backward``, ``train.optimizer``,
   ``train.reduce``, ``train.compress``: the ``--trace`` file;
-- ``attn.backward`` (device; ``kernels.ops``'s flash backward):
-  ``attn_backward_pct.train``;
+- ``attn.backward`` (device; ``kernels.ops``'s flash backward, attributes
+  ``path``, "kernel" or "plain", and the call's ``b``, ``sq``, ``sk``,
+  ``h``, ``hkv``, ``dqk``, ``dv`` and ``causal``): ``attn_backward_pct.train``
+  and ``flash_backward_roofline.train``;
 - ``data.batch`` (``data.VersionedDataset.batches``), ``serve.fill``,
   ``serve.decode`` (``launch.serve``): the ``--trace`` file.
 """

@@ -55,7 +55,8 @@ from repro_torch.serve import (BatchedCheckoutServer, MultiTenantServer,
                                RetryPolicy, TenantQuota)
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import aggregate_cases, membership_cases  # noqa: E402
+from chip_smoke import (aggregate_cases, membership_cases,  # noqa: E402
+                        plain_flash)
 
 pytestmark = pytest.mark.cuda
 
@@ -740,18 +741,21 @@ def test_cuda_model_kernels_refuse(cuda_device):
     fn = build.flash_fn()
     stream = torch.cuda.current_stream().cuda_stream
     ptr = q.data_ptr()
-    assert fn(ptr, ptr, ptr, ptr, 1, 128, 128, 3, 2, 64, 64, 64, 1, 0,
+    assert fn(ptr, ptr, ptr, ptr, None, 1, 128, 128, 3, 2, 64, 64, 64, 1, 0,
               stream) != 0
     # bf16 at Dh 64 runs the wgmma instance, whose tensor map refuses a q
     # that starts off a 16-byte boundary
-    assert fn(ptr + 2, ptr, ptr, ptr, 1, 128, 128, 2, 2, 64, 64, 64, 1, 1,
+    assert fn(ptr + 2, ptr, ptr, ptr, None, 1, 128, 128, 2, 2, 64, 64, 64, 1,
+              1, stream) != 0
+    # an lse is written by the wgmma instance alone: the FMA one refuses it
+    assert fn(ptr, ptr, ptr, ptr, ptr, 1, 128, 128, 2, 2, 64, 64, 64, 1, 0,
               stream) != 0
     # v wider than q, Dv <= 0, a pitch below Dv, and a pair that no
     # instance takes as it is (the wrapper pads it)
     for dqk, dv, ld in ((64, 96, 96), (64, 0, 64), (192, 128, 120),
                         (128, 64, 64)):
-        assert fn(ptr, ptr, ptr, ptr, 1, 128, 128, 2, 2, dqk, dv, ld, 1, 1,
-                  stream) != 0
+        assert fn(ptr, ptr, ptr, ptr, None, 1, 128, 128, 2, 2, dqk, dv, ld, 1,
+                  1, stream) != 0
     sfn = build.ssd_fn()          # the bf16 instance without its scratch
     assert sfn(ptr, ptr, ptr, ptr, ptr, ptr, ptr, None, None, 1, 64, 2, 16,
                16, 64, 1, stream) != 0
@@ -807,15 +811,23 @@ def test_cuda_dataset_checks_out_rows_off_16_bytes(cuda_device):
     assert cg.LAUNCHES["gather_rows"] == before["gather_rows"] + nonempty
 
 
-# gradient cases: InternLM2-1.8B's training shape (B 8, S 256, 16 / 8
-# heads of 128: the wgmma instance in bf16) and a ragged one (S 700, off
-# the kernel's tiles and the backward's 512-key blocks)
+# gradient cases (B, S, H, Hkv, Dh, causal[, Dv[, Sk]]): InternLM2-1.8B's
+# training shape at S 256 and at the train-4k cell's S 4096 (one batch
+# row of its 8), a ragged one (S 700, off the kernels' tiles and the plain
+# backward's 512-key blocks), ragged S 1000, cross attention (Sq 300
+# against Sk 520 and Sq 333 against Sk 170, non-causal), Dh 64 and 80,
+# groups of 1 and 4, and latent attention's (192, 128)
 GRAD_FLASH_CASES = [(8, 256, 16, 8, 128, True), (1, 700, 6, 2, 64, True),
                     (2, 300, 4, 4, 64, False),
-                    (2, 512, 16, 16, 192, True, 128)]   # latent attention
-# the Function's forward is the kernel's, its backward plain float32; the
-# bf16 gradients differ from autograd through the plain version by the
-# kernel output's rounding (delta = do · o) and their own, 2^-9 each
+                    (2, 512, 16, 16, 192, True, 128),   # latent attention
+                    (1, 4096, 16, 8, 128, True), (1, 1000, 4, 2, 128, True),
+                    (2, 300, 4, 2, 64, False, 64, 520),
+                    (1, 333, 4, 1, 80, False, 80, 170),
+                    (2, 256, 8, 8, 80, True), (1, 300, 8, 2, 64, True)]
+# the bf16 gradients differ from autograd through the plain version by the
+# kernel output's rounding (delta = do · o) and their own, 2^-9 each; the
+# backward kernel's P and dS enter its products as bf16, inside the same
+# bound (the plain float32 backward where the kernel does not take them)
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 * 2.0 ** -8}
 
 
@@ -829,22 +841,131 @@ def _rel(a, b):
 @pytest.mark.parametrize("case", GRAD_FLASH_CASES, ids=str)
 def test_cuda_flash_gradients_match_autograd_through_plain(cuda_device, case,
                                                            dtype):
+    """The backward kernel runs (one counted launch) at bf16 (Dh, Dh), Dh a
+    multiple of 16 up to 128; every other case keeps the plain backward."""
     b, s, h, hkv, dh, causal, *rest = case
     dv = rest[0] if rest else dh
+    sk = rest[1] if len(rest) > 1 else s
     q, k, v = (_randn(shape, seed, dtype, cuda_device).requires_grad_(True)
-               for seed, shape in ((1, (b, s, h, dh)), (2, (b, s, hkv, dh)),
-                                   (3, (b, s, hkv, dv))))
+               for seed, shape in ((1, (b, s, h, dh)), (2, (b, sk, hkv, dh)),
+                                   (3, (b, sk, hkv, dv))))
     do = _randn((b, s, h, dv), 4, dtype, cuda_device)
-    before = fa.LAUNCHES
+    kernel = dtype == torch.bfloat16 and dv == dh and dh % 16 == 0 \
+        and dh <= 128
+    assert fa.takes_backward(q, k, v) == kernel
+    before = (fa.LAUNCHES, fa.BWD_LAUNCHES)
     got = torch.autograd.grad(ops.flash_attention(q, k, v, causal),
                               (q, k, v), do)
-    assert fa.LAUNCHES == before + 1
+    assert (fa.LAUNCHES, fa.BWD_LAUNCHES) == (before[0] + 1,
+                                              before[1] + kernel)
     want = torch.autograd.grad(fa.flash_attention_plain(q, k, v, causal),
                                (q, k, v), do)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert g.dtype == dtype and torch.isfinite(g).all()
         assert _rel(g, w) <= GRAD_TOL[dtype], (_rel(g, w), GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("case", [(2, 300, 300, 4, 2, 128, True),
+                                  (1, 333, 170, 4, 1, 80, False),
+                                  (1, 4096, 4096, 16, 8, 128, True)], ids=str)
+def test_cuda_flash_forward_lse_matches_the_streamed_lse(cuda_device, case):
+    """The lse the wgmma instance writes beside its output is ``_row_lse``
+    (float32 products of the same operands) within float32 rounding, and
+    the output is the one a launch without it gives."""
+    b, sq, sk, h, hkv, dh, causal = case
+    q = _randn((b, sq, h, dh), 1, torch.bfloat16, cuda_device)
+    k = _randn((b, sk, hkv, dh), 2, torch.bfloat16, cuda_device)
+    v = _randn((b, sk, hkv, dh), 3, torch.bfloat16, cuda_device)
+    before = fa.LAUNCHES
+    out, lse = fa.flash_attention(q, k, v, causal, lse=True)
+    assert fa.LAUNCHES == before + 1
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    assert lse.stride() == (h * fa.lse_pitch(sq), fa.lse_pitch(sq), 1)
+    want = ops._row_lse(q, k, causal).transpose(1, 2)
+    torch.testing.assert_close(lse, want, atol=1e-5, rtol=1e-6)
+    torch.testing.assert_close(out, ops.flash_attention(q, k, v, causal),
+                               atol=0, rtol=0)
+
+
+def test_cuda_flash_no_grad_forward_writes_no_lse(cuda_device, monkeypatch):
+    """Serving (no grad) and inputs that need none make the forward's one
+    launch without an lse; the backward kernel is not launched."""
+    q = _randn((2, 256, 4, 128), 1, torch.bfloat16, cuda_device)
+    kv = _randn((2, 256, 2, 128), 2, torch.bfloat16, cuda_device)
+    seen = []
+    real = fa._launch
+
+    def launch(q, k, v, causal, lse=None):
+        seen.append(lse)
+        return real(q, k, v, causal, lse)
+    monkeypatch.setattr(fa, "_launch", launch)
+    before = (fa.LAUNCHES, fa.BWD_LAUNCHES)
+    with torch.no_grad():
+        ops.flash_attention(q.requires_grad_(True), kv, kv)
+    ops.flash_attention(q.detach(), kv, kv)
+    assert seen == [None, None]
+    assert (fa.LAUNCHES, fa.BWD_LAUNCHES) == (before[0] + 2, before[1])
+    ops.flash_attention(q, kv, kv)
+    assert len(seen) == 3 and seen[2] is not None
+
+
+def test_cuda_flash_backward_kernel_path_is_its_kernels_alone(cuda_device):
+    """Inside the kernel path's ``attn.backward`` span the card runs the
+    backward's own kernels (names holding ``flash_bwd``) and nothing else;
+    the span carries the path and the call's shape."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import trace
+    q = _randn((2, 512, 8, 128), 1, torch.bfloat16,
+               cuda_device).requires_grad_(True)
+    k, v = (_randn((2, 512, 4, 128), seed, torch.bfloat16,
+                   cuda_device).requires_grad_(True) for seed in (2, 3))
+    do = _randn((2, 512, 8, 128), 4, torch.bfloat16, cuda_device)
+    out = ops.flash_attention(q, k, v, True)
+    torch.cuda.synchronize()
+    trace.clear()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.autograd.grad(out, (q, k, v), do)
+            torch.cuda.synchronize()
+        spans = trace.spans()
+    finally:
+        trace.clear()
+    from torch.autograd import DeviceType
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert sum("flash_bwd" in n for n in names) == 3, names
+    assert all("flash_bwd" in n and "flash_fwd" not in n for n in names), \
+        names
+    span, = [s for s in spans if s.name == "attn.backward"]
+    assert span.attrs == {"path": "kernel", "b": 2, "sq": 512, "sk": 512,
+                          "h": 8, "hkv": 4, "dqk": 128, "dv": 128,
+                          "causal": True}
+
+
+def test_cuda_plain_flash_swap_covers_the_training_path(cuda_device):
+    """``fa.flash_attention`` is the one name of every forward launch, the
+    lse-writing one included: under ``chip_smoke.plain_flash``, which
+    swaps that name alone, a SMOKE remat train step of InternLM2's shape
+    launches neither the forward kernel nor the backward kernel, while
+    the same step without it launches both (the forward twice a layer,
+    the backward once)."""
+    import contextlib
+    import dataclasses
+    cfg = dataclasses.replace(configs.smoke("internlm2_1_8b"), remat=True)
+    toks = torch.randint(0, cfg.vocab, (2, 65),
+                         generator=torch.Generator().manual_seed(2))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    counts = []
+    for ctx in (contextlib.nullcontext(), plain_flash(torch)):
+        model = init_params(cfg, torch.Generator().manual_seed(0),
+                            cuda_device, trainable=True)
+        opt = AdamW(lr=1e-3)
+        before = (fa.LAUNCHES, fa.BWD_LAUNCHES)
+        with ctx:
+            make_train_step(cfg, opt)(model, opt.init(model), batch)
+        torch.cuda.synchronize()
+        counts.append((fa.LAUNCHES - before[0], fa.BWD_LAUNCHES - before[1]))
+    assert counts == [(2 * cfg.n_layers, cfg.n_layers), (0, 0)]
 
 
 # Mamba2-780M's training shape per microbatch (B 4, L 256, 48 heads of 64,
@@ -946,6 +1067,8 @@ def test_cuda_trace_device_spans(cuda_device):
     assert step.device_ms > 0 and all(a.device_ms > 0 for a in attn)
     assert sum(a.device_ms for a in attn) <= step.device_ms
     assert all(a.parent == bwd.id and a.thread != bwd.thread for a in attn)
+    assert all({"path", "b", "sq", "sk", "h", "hkv", "dqk", "dv",
+                "causal"} <= a.attrs.keys() for a in attn)
     assert sum(s.name == "model.block" and s.parent == bwd.id
                for s in spans) == cfg.n_layers
 

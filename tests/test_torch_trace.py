@@ -3,8 +3,9 @@ and no ``record_function`` entered while tracing is off; the span tree of
 a SMOKE-size remat training step (ids, parents, self time); the
 profiler's trace holding the spans as ``user_annotation`` events;
 ``model.weight_cast_bytes`` against its closed form; the operator's
-``--trace`` file of both launchers; and the benchmark's five readers of
-the spans and counters on hand-built traces."""
+``--trace`` file of both launchers; the flash backward's span on the
+CPU's plain path; and the benchmark's readers of the spans and counters
+on hand-built traces, with the backward kernel's closed form."""
 import dataclasses
 import json
 import sys
@@ -382,3 +383,78 @@ def test_weight_cast_readers(name, root):
     trace.disable()
     trace.count("model.weight_cast_bytes", 10 ** 9)   # off: not counted
     assert read({}) == pytest.approx(1.5, rel=1e-12)
+
+
+# ------------------------------------ the flash backward's path and shape --
+@pytest.mark.parametrize("causal,sk", [(True, 40), (False, 56)])
+def test_flash_backward_on_cpu_takes_the_plain_path(causal, sk):
+    """On the CPU the flash Function saves no lse, never launches the
+    backward kernel, and opens its ``attn.backward`` span with the plain
+    path and the call's shape."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 40, 4, 16, generator=g).requires_grad_(True)
+    k, v = (torch.randn(2, sk, 2, 16, generator=g).requires_grad_(True)
+            for _ in range(2))
+    trace.enable()
+    before = fa.BWD_LAUNCHES
+    out = ops.flash_attention(q, k, v, causal)
+    assert out.grad_fn.saved_tensors[4] is None
+    torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+    assert fa.BWD_LAUNCHES == before
+    span, = [s for s in trace.spans() if s.name == "attn.backward"]
+    assert span.attrs == {"path": "plain", "b": 2, "sq": 40, "sk": sk,
+                          "h": 4, "hkv": 2, "dqk": 16, "dv": 16,
+                          "causal": causal}
+
+
+def test_flash_backward_counts_by_hand():
+    from bench.counts import flash_bwd
+    # the rows of a causal (Sq, Sk) mask: 1, 2, 3, 4 keys; 1, 2, 3, 3, 3;
+    # 1, 2, 3
+    assert flash_bwd.pairs(4, 4, True) == 10
+    assert flash_bwd.pairs(5, 3, True) == 12
+    assert flash_bwd.pairs(3, 5, True) == 6
+    assert flash_bwd.pairs(3, 5, False) == 15
+    # five products of 2 operations a pair and width: 3 over q·k, 2 over v
+    assert flash_bwd.flops(1, 4, 4, 1, 2, 2, True) == 2 * 10 * (3 * 2 + 2 * 2)
+    # q, o, dO, dq: 4 x 2 heads x 2 each; k, v, dk, dv: 4 x 1 x 2 each;
+    # bf16; lse and delta 2 x 4 float32 a head
+    assert flash_bwd.nbytes(1, 4, 4, 2, 1, 2, 2) == \
+        (4 * 4 * 2 * 2 + 4 * 4 * 1 * 2) * 2 + 2 * 2 * 4 * 4
+    # the train-4k cell's call: 1.375 TFLOP and 0.81 GB, bound by operations
+    assert flash_bwd.flops(8, 4096, 4096, 16, 128, 128, True) == \
+        2 * 8 * 16 * 8_390_656 * 640
+    assert flash_bwd.nbytes(8, 4096, 4096, 16, 8, 128, 128) == \
+        8 * 4096 * (16 * 512 + 8 * 512) * 2 + 8 * 8 * 16 * 4096
+
+
+def test_flash_backward_roofline_reader(monkeypatch):
+    from bench import peaks
+    from bench.counts import flash_bwd
+    read = manifest.reader("flash_backward_roofline.train")
+    assert read({"trace": None}) is None
+    kernels = Trace([_x("void flash_bwd_wgmma_kernel<128>", "kernel", 0,
+                        900.0),
+                     _x("void flash_bwd_dq_kernel<128>", "kernel", 900, 100.0),
+                     _x("flash_fwd_wgmma_kernel", "kernel", 1000, 500.0)],
+                    2e-3)
+    shape = {"b": 2, "sq": 256, "sk": 256, "h": 4, "hkv": 2, "dqk": 64,
+             "dv": 64, "causal": True}
+
+    def span(path):
+        s = trace.Span("attn.backward", {"path": path, **shape})
+        s.device_ms = 1.0
+        return s
+
+    monkeypatch.setattr(trace, "spans", lambda: [span("plain")])
+    assert read({"trace": kernels}) is None       # no kernel-path span
+    monkeypatch.setattr(trace, "spans", lambda: [
+        span("kernel"), span("kernel"), span("plain"),
+        _span("train.step", 8.0)])
+    bound = peaks.bound_s(flash_bwd.flops(2, 256, 256, 4, 64, 64, True),
+                          flash_bwd.nbytes(2, 256, 256, 4, 2, 64, 64))
+    assert read({"trace": kernels}) == pytest.approx(
+        100 * 2 * bound / 1e-3, rel=1e-12)
+    assert read({"trace": Trace([], 1e-3)}) is None
